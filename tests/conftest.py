@@ -75,6 +75,7 @@ def pytest_configure(config):
         "heavy: big-graph device test (minutes of XLA CPU compile); "
         "runs when the accelerator is alive or BLS12_381_TPU_HEAVY_TESTS=1",
     )
+    config.addinivalue_line("markers", "gpu: needs a CUDA device (skips without one)")
 
 
 def pytest_collection_modifyitems(config, items):
