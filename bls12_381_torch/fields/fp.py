@@ -7,7 +7,7 @@ from __future__ import annotations
 
 from functools import partial
 
-from .. import limbs, params
+from .. import limbs
 from ..limbs import FP
 
 add = partial(limbs.add, FP)
@@ -34,4 +34,4 @@ to_ints = partial(limbs.to_ints, FP)
 
 def inv(a):
     """a^(p-2); 0 maps to 0 (fp.rs:346 returns a CtOption; callers mask)."""
-    return limbs.pow_fixed(FP, a, params.P - 2)
+    return limbs.inv(FP, a)

@@ -427,33 +427,6 @@ MAIN_PATH_PLANS = (
 )
 
 
-def eval_plan_host(outputs, values, p: int, r: int):
-    """Pure-Python oracle: evaluate the DAG over integers in the Montgomery
-    domain (sop products carry the R^-1 factor, like the reduction)."""
-    rinv = pow(r, -1, p)
-    cache = {}
-
-    def ev(n):
-        if n in cache:
-            return cache[n]
-        if n.op == "in":
-            v = values[n.args[0]] % p
-        elif n.op == "add":
-            v = (ev(n.args[0]) + ev(n.args[1])) % p
-        elif n.op == "sub":
-            v = (ev(n.args[0]) - ev(n.args[1])) % p
-        elif n.op == "neg":
-            v = (-ev(n.args[0])) % p
-        elif n.op == "sop":
-            v = sum(ev(a) * ev(b) for a, b in n.args) * rinv % p
-        else:  # pragma: no cover
-            raise ValueError(n.op)
-        cache[n] = v
-        return v
-
-    return [ev(o) for o in outputs]
-
-
 def _plan_schedule(outputs):
     """Level-batched schedule: nodes sharing (depth, op, T) are mutually
     independent; returns the groups in dependency order."""

@@ -318,28 +318,30 @@ def select(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 
-def pow_fixed(spec: FieldSpec, a: torch.Tensor, exponent: int,
-              window: int = 4) -> torch.Tensor:
+POW_WINDOW = 4  # bits per digit of pow_fixed, the JAX package's default
+
+
+def pow_fixed(spec: FieldSpec, a: torch.Tensor, exponent: int) -> torch.Tensor:
     """a^exponent by MSB-first fixed-window square-and-multiply.
 
     The exponent is a public Python int, so the digit schedule and the table
-    lookups are static: each window is `window` squarings and one product
+    lookups are static: each window is POW_WINDOW squarings and one product
     by the table entry of its digit, the JAX package's schedule (zero-padded
     to the field's bit width, digit 0 multiplying by one)."""
     full = one(spec, a.shape[1:], device=a.device)
     if exponent == 0:
         return full
     width = max(exponent.bit_length(), spec.modulus.bit_length())
-    n_digits = -(-width // window)
-    mask = (1 << window) - 1
-    digits = [(exponent >> (window * (n_digits - 1 - i))) & mask
+    n_digits = -(-width // POW_WINDOW)
+    mask = (1 << POW_WINDOW) - 1
+    digits = [(exponent >> (POW_WINDOW * (n_digits - 1 - i))) & mask
               for i in range(n_digits)]
     table = [full, a.expand(full.shape)]
-    for _ in range(2, 1 << window):
+    for _ in range(2, 1 << POW_WINDOW):
         table.append(mont_mul(spec, table[-1], a))
     acc = full
     for d in digits:
-        for _ in range(window):
+        for _ in range(POW_WINDOW):
             acc = mont_sqr(spec, acc)
         acc = mont_mul(spec, acc, table[d])
     return acc

@@ -12,23 +12,31 @@ Phases (each prints its lines and seconds; any failed check exits non-zero):
      shared memory and spills.
   3. kernels vs plain: each kernel against its plain PyTorch version on the
      card at the main path's shapes, random canonical inputs plus the edge
-     values 0, 1 and p-1; exact equality (integers: tolerance none); the
-     kernel's time (CUDA events) and the plain version's (no yardstick).
+     values 0, 1 and p-1; exact equality (integers: tolerance none); CUDA
+     events around back-to-back calls (the host's issue rate for short
+     kernels) and the plain version's time (CUDA events; no yardstick).
   4. main path: the batched pairing at batch 1024 from the repository's
      test vectors ([a]G1, [b]G2, a, b < 1000): lane (1, 1) equals the RELIC
      value, lanes with equal a*b are equal, identity lanes are one, four
      lanes equal the plain path (CPU); launch counts of one pairing (every
      kernel > 0, plan and sqr counts equal to the static schedule); stage
-     times and pairings/s on a host clock around synchronized work.
-  5. profile: one pairing under torch.profiler -- device time by kernel
-     and the device's busy share of the pairing time.
-  6. the `kernels` JSON line, then the device JSON line last.
+     times and pairings/s on a host clock around synchronized work (median
+     of STAGE_REPS runs), and the share of that wall time the host thread
+     spent on the CPU issuing the work.
+  5. kernel times: each kernel's device time per launch at the shapes of
+     phase 3 (torch.profiler); after phase 4, because a profiler session
+     may slow the host's launches for the rest of the process.
+  6. profile: one pairing under torch.profiler -- device time by kernel
+     (device-side events only) and the device's busy share: the union of
+     kernel intervals over the unprofiled pairing time.
+  7. the `kernels` JSON line, then the device JSON line last.
 
 The script imports nothing of the JAX package.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import statistics
@@ -41,6 +49,7 @@ ROOT = Path(__file__).resolve().parent
 VECTORS = ROOT / "tests" / "vectors"
 BATCH = 1024
 SEED = 20261016
+STAGE_REPS = 7                     # host-clock runs per stage; median kept
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 # 32-bit integer multiply-adds per second: 132 SMs x 64 per clock (CUDA C
 # Programming Guide throughput table, compute capability 9.0) x 1.98 GHz
@@ -95,17 +104,53 @@ def time_events(fn, n: int, warm: int = 2) -> float:
     return start.elapsed_time(end) / n
 
 
-def host_times(fn, reps: int = 3) -> list[float]:
+def device_events(fn):
+    """Run fn once under torch.profiler and return its device-side events
+    (kernels, copies) as (name, start_us, end_us): CPU op rows carry their
+    kernels' time too, so only rows of device type CUDA are kept."""
     import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
-    out = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-        out.append(time.perf_counter() - t0)
-    return out
+    evs = [(ev.name, ev.time_range.start, ev.time_range.end)
+           for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+    # the profiler's records are cyclic garbage; collect them now, or a
+    # full collection of them lands inside a later host-clock timing
+    del prof
+    gc.collect()
+    return evs
+
+
+def busy_us(evs) -> float:
+    """Length of the union of the events' device intervals, in us."""
+    total, end = 0.0, float("-inf")
+    for s, e in sorted((start, end) for _, start, end in evs):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total
+
+
+def host_times(fn):
+    """STAGE_REPS runs of fn: the wall seconds of each, ending in a
+    synchronize, and the host thread's CPU seconds spent issuing it (the
+    thread clock may tick coarsely: compare sums, not single runs)."""
+    import torch
+
+    wall, cpu = [], []
+    for _ in range(STAGE_REPS):
+        torch.cuda.synchronize()
+        t0, c0 = time.perf_counter(), time.thread_time()
+        fn()
+        cpu.append(time.thread_time() - c0)
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+    return wall, cpu
 
 
 def phase_device():
@@ -176,7 +221,12 @@ def compare(got, ref):
 
 
 def phase_kernels(device):
-    """Each kernel against its plain version at the main path's shapes."""
+    """Each kernel against its plain version at the main path's shapes.
+
+    Returns the results and, per shape, the call whose device time
+    `phase_kernel_times` reads later: a profiler session may slow the
+    host's launches for the rest of the process, so it follows the main
+    path's host-clock timings."""
     import torch
 
     from bls12_381_torch import params
@@ -187,6 +237,7 @@ def phase_kernels(device):
     gen.manual_seed(SEED)
     edges = [edge_col(v, device) for v in (0, 1, P - 1)]
     results = {}
+    timed = []  # (key, call, kernel name, launches)
     failures = []
 
     # --- sop: T in {1, 2, 6, 8}, B in {1024, 4 * 68 * 1024}
@@ -205,16 +256,19 @@ def phase_kernels(device):
             ref = mont.sop_plain(a, b)
             torch.cuda.synchronize()
             mism, err = compare(got, ref)
-            ms = time_events(lambda: mont.sop(a, b), n=50)
+            events_ms = time_events(lambda: mont.sop(a, b), n=50)
             plain_ms = time_events(lambda: mont.sop_plain(a, b), n=3, warm=1)
             bms, by = bound(4 * B * 24 * (2 * T + 1), B * sop_imads(T))
             key = f"sop T={T} B={B}"
-            results[key] = dict(mismatches=mism, max_abs_err=err, ms=ms,
-                                plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+            results[key] = dict(mismatches=mism, max_abs_err=err,
+                                events_ms=events_ms, plain_ms=plain_ms,
+                                bound_ms=bms, bound_by=by)
+            timed.append((key, lambda a=a, b=b: mont.sop(a, b), "sop_kernel",
+                          50))
             say("kernels", kernel=key, **results[key])
             if mism:
                 failures.append(key)
-            del a, b, got, ref
+            del got, ref
 
     # --- sqr: G in {1, 3}, B = 1024
     for G in (1, 3):
@@ -225,12 +279,14 @@ def phase_kernels(device):
         ref = mont.sqr_plain(a)
         torch.cuda.synchronize()
         mism, err = compare(got, ref)
-        ms = time_events(lambda: mont.sqr(a), n=200)
+        events_ms = time_events(lambda: mont.sqr(a), n=200)
         plain_ms = time_events(lambda: mont.sqr_plain(a), n=5, warm=1)
         bms, by = bound(4 * G * BATCH * 24 * 2, G * BATCH * SQR_IMADS)
         key = f"sqr G={G} B={BATCH}"
-        results[key] = dict(mismatches=mism, max_abs_err=err, ms=ms,
-                            plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+        results[key] = dict(mismatches=mism, max_abs_err=err,
+                            events_ms=events_ms, plain_ms=plain_ms,
+                            bound_ms=bms, bound_by=by)
+        timed.append((key, lambda a=a: mont.sqr(a), "sqr_kernel", 200))
         say("kernels", kernel=key, **results[key])
         if mism:
             failures.append(key)
@@ -246,22 +302,25 @@ def phase_kernels(device):
         ref = pe.plan_exec_plain(ops, plan)
         torch.cuda.synchronize()
         mism, err = compare(got, ref)
-        ms = time_events(lambda: pe.plan_exec(ops, plan), n=20)
+        events_ms = time_events(lambda: pe.plan_exec(ops, plan), n=20)
         plain_ms = time_events(lambda: pe.plan_exec_plain(ops, plan), n=2,
                                warm=1)
         imads = BATCH * sum(sop_imads(t) for t in plan.sop_terms())
         bms, by = bound(96 * BATCH * (plan.n_in + plan.n_out), imads)
         key = f"plan_exec {plan.name} B={BATCH}"
-        results[key] = dict(mismatches=mism, max_abs_err=err, ms=ms,
-                            plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+        results[key] = dict(mismatches=mism, max_abs_err=err,
+                            events_ms=events_ms, plain_ms=plain_ms,
+                            bound_ms=bms, bound_by=by,
                             nodes=len(plan.instr), groups=len(plan.groups),
                             sop_nodes=len(plan.sop_terms()))
+        timed.append((key, lambda ops=ops, plan=plan: pe.plan_exec(ops, plan),
+                      "plan_kernel", 20))
         say("kernels", kernel=key, **results[key])
         if mism:
             failures.append(key)
     if failures:
         fail(f"kernel and plain version disagree: {failures}")
-    return results
+    return results, timed
 
 
 # ---------------------------------------------------------------------------
@@ -329,6 +388,7 @@ def expected_launches():
     """Plan and sqr launches of one pairing, from the static schedules."""
     import importlib
 
+    from bls12_381_torch import limbs
     from bls12_381_torch.fields import tower as tw
 
     pm = importlib.import_module("bls12_381_torch.pairing.pairing")
@@ -337,8 +397,10 @@ def expected_launches():
                     for n, mul in pm._X_RUNS)
     # final exp outside the five exp-by-|z|: 10 fp12_mul + 1 fp12_sqr
     plans = 2 * pm.N_COEFFS + 5 * per_exp_z + 11
-    # one Fp inversion: pow by p - 2 with 4-bit windows over 384 bits
-    sqrs = 4 * 96
+    # one Fp inversion: pow by p - 2, POW_WINDOW squarings per digit of
+    # the field's bit width
+    w = limbs.POW_WINDOW
+    sqrs = -(-limbs.FP.modulus.bit_length() // w) * w
     return plans, sqrs
 
 
@@ -367,16 +429,17 @@ def phase_main(device):
     # the main path, counted
     LAUNCHES.reset()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # inputs, phase 3's operands
     t0 = time.perf_counter()
     out = pr.pairing(p_aff, q_aff)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     counts = LAUNCHES.snapshot()
-    peak = torch.cuda.max_memory_allocated()
+    peak = torch.cuda.max_memory_allocated() - held
     plans_exp, sqrs_exp = expected_launches()
     say("main", first_pairing_seconds=first_s, launches=counts,
         expected_plan_exec=plans_exp, expected_sqr=sqrs_exp,
-        max_memory_allocated=peak)
+        pairing_peak_bytes=peak, held_bytes=held)
     for name in ("sop", "sqr", "plan_exec"):
         if counts[name] <= 0:
             fail(f"kernel {name} was not launched on the main path")
@@ -410,20 +473,12 @@ def phase_main(device):
             for lane in lanes[1:]:
                 if not torch.equal(rows[..., lane], ref):
                     fail(f"lanes {lanes[0]} and {lane} (a*b = {prod}) differ")
-    check_lanes = [0, 4, BATCH // 2, BATCH - 1]
-    t0 = time.perf_counter()
-    torch.set_num_threads(max(1, min(8, os.cpu_count() or 1)))
-    cpu_out = pr.pairing(take_lanes(p_aff, check_lanes, "cpu"),
-                         take_lanes(q_aff, check_lanes, "cpu"))
-    plain_s = time.perf_counter() - t0
-    if not torch.equal(fp12_rows(cpu_out), rows[..., check_lanes].cpu()):
-        fail(f"lanes {check_lanes} differ from the plain path")
     say("main", relic_lane=True, identity_lanes=n_ident,
-        equal_product_groups=n_groups, plain_path_lanes=check_lanes,
-        plain_path_cpu_seconds=plain_s, all_checks="passed")
+        equal_product_groups=n_groups)
 
     # stage times (host clock around synchronized work, after the warm-up
-    # run above)
+    # run above; before the CPU-threaded check and the profiler sessions,
+    # so that neither can slow the host's launches here)
     prep = pr.prepare_g2(q_aff)
     f = pr.miller_loop_batched(p_aff, prep)
     stages = {
@@ -434,50 +489,90 @@ def phase_main(device):
             lambda: pr.final_exponentiation(f)),
         "pairing": host_times(lambda: pr.pairing(p_aff, q_aff)),
     }
-    med = {k: statistics.median(v) for k, v in stages.items()}
-    say("main", stage_seconds=stages, median_seconds=med,
-        pairings_per_s=BATCH / med["pairing"])
+    med = {k: statistics.median(w) for k, (w, _) in stages.items()}
+    say("main", stage_seconds={k: w for k, (w, _) in stages.items()},
+        median_seconds=med, pairings_per_s=BATCH / med["pairing"],
+        host_cpu_share={k: sum(c) / sum(w)
+                        for k, (w, c) in stages.items()})
+
+    check_lanes = [0, 4, BATCH // 2, BATCH - 1]
+    t0 = time.perf_counter()
+    torch.set_num_threads(max(1, min(8, os.cpu_count() or 1)))
+    cpu_out = pr.pairing(take_lanes(p_aff, check_lanes, "cpu"),
+                         take_lanes(q_aff, check_lanes, "cpu"))
+    torch.set_num_threads(1)
+    plain_s = time.perf_counter() - t0
+    if not torch.equal(fp12_rows(cpu_out), rows[..., check_lanes].cpu()):
+        fail(f"lanes {check_lanes} differ from the plain path")
+    say("main", plain_path_lanes=check_lanes,
+        plain_path_cpu_seconds=plain_s, all_checks="passed")
     return counts, med, (p_aff, q_aff)
 
 
-def phase_profile(p_aff, q_aff, pairing_s: float):
-    """Where one pairing's time goes on the card: device time by kernel
-    (torch.profiler) and the device's busy share of the unprofiled pairing
-    time.  Informational: a profiler that records no device activity is
-    reported as not measured."""
+def phase_kernel_times(results, timed) -> None:
+    """Each kernel's device time per launch at the shapes of phase kernels,
+    into results[key]["ms"]: the mean duration of its launches as the
+    profiler records them on the card.  (CUDA events around back-to-back
+    calls time the host's issue rate for kernels that finish faster than
+    Python and ctypes can launch them.)  One profiler session runs every
+    shape's launches in turn; each kernel's events, in order, are split
+    by shape."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
+    def run_all():
+        for _, call, _, n in timed:
+            for _ in range(n):
+                call()
+            torch.cuda.synchronize()
+
+    evs = sorted(device_events(run_all), key=lambda ev: ev[1])
+    durs = {}
+    for kernel in {t[2] for t in timed}:
+        durs[kernel] = [end - start for name, start, end in evs
+                        if kernel in name]
+        want = sum(n for _, _, k, n in timed if k == kernel)
+        if len(durs[kernel]) != want:
+            fail(f"profiler recorded {len(durs[kernel])} launches of "
+                 f"{kernel}, not {want}")
+    for key, _, kernel, n in timed:
+        mine, durs[kernel] = durs[kernel][:n], durs[kernel][n:]
+        results[key]["ms"] = sum(mine) / n / 1e3
+        say("kernel_times", kernel=key, ms=results[key]["ms"],
+            events_ms=results[key]["events_ms"],
+            bound_ms=results[key]["bound_ms"])
+
+
+def phase_profile(p_aff, q_aff, pairing_s: float):
+    """Where one pairing's time goes on the card: device time by kernel,
+    from the profiler's device-side events only, and the device's busy
+    share: the union of those events' intervals over the unprofiled
+    pairing time (and over the profiled run's device span)."""
     from bls12_381_torch import pairing as pr
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        pr.pairing(p_aff, q_aff)
-        torch.cuda.synchronize()
-    rows = []
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = getattr(ev, "self_cuda_time_total", 0)
-        if us > 0:
-            rows.append((us, ev.count, ev.key))
-    if not rows:
-        say("profile", device_time="not measured (no device events)")
-        return
-    rows.sort(reverse=True)
-    device_ms = sum(r[0] for r in rows) / 1e3
+    evs = device_events(lambda: pr.pairing(p_aff, q_aff))
+    if not evs:
+        fail("the profiler recorded no device activity for the pairing")
+    by_name = {}
+    for name, start, end in evs:
+        us, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (us + end - start, n + 1)
+    rows = sorted(((us, n, name) for name, (us, n) in by_name.items()),
+                  reverse=True)
+    busy_ms = busy_us(evs) / 1e3
+    span_ms = (max(e[2] for e in evs) - min(e[1] for e in evs)) / 1e3
 
-    def ours(key):
-        return any(k in key for k in ("sop_kernel", "sqr_kernel",
-                                      "plan_kernel"))
+    def ours(name):
+        return any(k in name for k in ("sop_kernel", "sqr_kernel",
+                                       "plan_kernel"))
 
-    say("profile", device_ms=device_ms, pairing_ms=pairing_s * 1e3,
-        device_busy_share=device_ms / (pairing_s * 1e3),
+    say("profile", device_ms=sum(r[0] for r in rows) / 1e3,
+        device_busy_ms=busy_ms, pairing_ms=pairing_s * 1e3,
+        device_busy_share=busy_ms / (pairing_s * 1e3),
+        profiled_span_ms=span_ms, busy_share_of_span=busy_ms / span_ms,
         port_kernels_ms=sum(r[0] for r in rows if ours(r[2])) / 1e3,
         other_device_ms=sum(r[0] for r in rows if not ours(r[2])) / 1e3,
-        top=[{"ms": us / 1e3, "count": n, "name": key[:90]}
-             for us, n, key in rows[:12]])
+        top=[{"ms": us / 1e3, "count": n, "name": name[:90]}
+             for us, n, name in rows[:12]])
 
 
 def main() -> None:
@@ -503,11 +598,15 @@ def main() -> None:
     phase_build()
     say("phase", name="build", seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()
-    results = phase_kernels(device)
+    results, timed = phase_kernels(device)
     say("phase", name="kernels", seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()
     counts, med, inputs = phase_main(device)
     say("phase", name="main", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    phase_kernel_times(results, timed)
+    del timed
+    say("phase", name="kernel_times", seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()
     phase_profile(*inputs, med["pairing"])
     say("phase", name="profile", seconds=time.perf_counter() - t0)
