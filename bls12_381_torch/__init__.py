@@ -1,20 +1,23 @@
 """BLS12-381 in PyTorch with hand-written CUDA kernels for Hopper.
 
 The PyTorch and CUDA port of `bls12_381_tpu` (which stays in the repository
-as the reference), slice by slice; this slice is the batched optimal-ate
-pairing.  Same numeric domain and boundary layout as the JAX package: a
-field element batch is an int32 tensor [L, *batch] of 16-bit Montgomery limbs
-(R = 2^384 for Fp), so values compare as plain arrays.
+as the reference), slice by slice; the slices so far are the batched
+optimal-ate pairing and the radix-2 NTT over the scalar field.  Same numeric
+domain and boundary layout as the JAX package: a field element batch is an
+int32 tensor [L, *batch] of 16-bit Montgomery limbs (R = 2^384 for Fp,
+2^256 for Fr), so values compare as plain arrays.
 
 Layers:
   params, hostmath — constants and the host integer arithmetic they need
   limbs            — batched 16-bit-limb Montgomery arithmetic
-  kernels          — CUDA kernels (sop, sqr, plan_exec) and plain versions
-  fields           — Fp and the Fp2/Fp6/Fp12 tower
+  kernels          — CUDA kernels (sop, sqr, plan_exec, sop_fr, butterfly)
+                     and plain versions
+  fields           — Fp, the Fp2/Fp6/Fp12 tower, Fr
   curves           — the G2 generator
   pairing          — G2 preparation, Miller loop, final exponentiation
+  ops              — the NTT over Fr (ntt, intt, poly_mul)
   convert          — arrays of the JAX package <-> the port's tensors
-  entry            — `entry()`: the pairing and example inputs
+  entry            — `entry()`, `ntt_entry()`: the paths and example inputs
 
 A tensor on a CUDA device goes through the kernels; a CPU tensor through
 their plain PyTorch versions.  Entry points default to `device="cuda"`.

@@ -6,6 +6,7 @@ functions take the JAX package's arrays as numpy (`np.asarray` of a JAX
 array) and return the port's tensors on a given device, and back, for:
 
   - Fp and Fp2 elements, and Fp12 as nested tuples (2 x 3 x 2 Fp);
+  - Fr elements (16 limbs, checked);
   - affine G1 batches (x, y, inf) and G2 batches ((x0, x1), (y0, y1), inf);
   - prepared G2 coefficients (`coeffs`, `infinity`).
 """
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from .limbs import DTYPE, resolve_device
+from .params import FR_LIMBS
 from .pairing.pairing import G2Prepared
 
 
@@ -30,6 +32,21 @@ def fp_from_torch(t: torch.Tensor) -> np.ndarray:
     if t.dtype != DTYPE:
         raise ValueError(f"expected {DTYPE} limbs, got {t.dtype}")
     return t.detach().cpu().numpy().astype(np.uint32)
+
+
+def fr_to_torch(a, device="cuda") -> torch.Tensor:
+    """An Fr batch [16, *batch] (the JAX package's uint32 limbs)."""
+    if np.shape(a)[:1] != (FR_LIMBS,):
+        raise ValueError(f"expected [{FR_LIMBS}, *batch] Fr limbs, got "
+                         f"{np.shape(a)}")
+    return fp_to_torch(a, device)
+
+
+def fr_from_torch(t: torch.Tensor) -> np.ndarray:
+    if t.shape[:1] != (FR_LIMBS,):
+        raise ValueError(f"expected [{FR_LIMBS}, *batch] Fr limbs, got "
+                         f"{tuple(t.shape)}")
+    return fp_from_torch(t)
 
 
 def mask_to_torch(m, device="cuda") -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Field layers: Fp and the Fp2/Fp6/Fp12 tower (nested tuples of Fp
-tensors)."""
+"""Field layers: Fp, the Fp2/Fp6/Fp12 tower (nested tuples of Fp tensors)
+and the scalar field Fr."""
 
-from . import fp, tower  # noqa: F401
+from . import fp, fr, tower  # noqa: F401

@@ -1,29 +1,42 @@
-"""Montgomery sum-of-products and squaring: CUDA kernels and plain versions.
+"""Montgomery sum-of-products, squaring and the NTT butterfly: CUDA kernels
+and plain versions.
 
-`sop` replaces `bls12_381_tpu/kernels/pallas_mont.py::sop_pallas` (default
-body `_sop_kernel_r12_scalar`), `sqr` replaces `sqr_pallas` (default body
-`_sqr_kernel_r12_scalar`).  Source: `csrc/mont.cu` on `csrc/fp384.cuh`.
+`sop` replaces `bls12_381_tpu/kernels/pallas_mont.py::sop_pallas` for Fp
+(default body `_sop_kernel_r12_scalar`), `sqr` replaces `sqr_pallas` (default
+body `_sqr_kernel_r12_scalar`); source `csrc/mont.cu` on `csrc/fp384.cuh`.
+`sop_fr` replaces `sop_pallas`'s Fr route (body `_sop_kernel_reg`, chosen at
+pallas_mont.py:682-689), `butterfly` replaces `butterfly_pallas` (bodies
+`_butterfly_kernel_16`, `_butterfly_kernel_16_vec`); source `csrc/fr.cu` on
+`csrc/fr256.cuh`.  Both field headers instantiate the word-level Montgomery
+code of `csrc/mont_words.cuh`.
 
 Design.  One thread per batch lane; the lane axis is innermost, so a warp's
-loads of one limb row are 32 neighbouring words.  The 24 16-bit limbs of each
-operand are packed into 12 32-bit words in registers, the T products are
-summed into a 25-word accumulator with 32x32->64-bit multiply-adds, then one
-Montgomery reduction with 32-bit digits (12 rounds, m = t0 * (-p^-1 mod 2^32))
-and one conditional subtraction give the canonical result, unpacked to 16-bit
-limbs.  The pre-reduction value is < T p^2, so the result is < T p^2/R + p,
-which is < 2p while T p < R; R/p ~ 9.84, so the kernel takes T <= 8, as the
-JAX package chunks it.  The canonical Montgomery value is unique for R, so the
-32-bit digits cannot change a result (`pallas_mont.py:96-105`).
+loads of one limb row are 32 neighbouring words.  The 16-bit limbs of each
+operand are packed into 32-bit words in registers (12 for Fp, 8 for Fr), the
+T products are summed into a 2W+1-word accumulator with 32x32->64-bit
+multiply-adds, then one Montgomery reduction with 32-bit digits (W rounds,
+m = t0 * (-p^-1 mod 2^32)) and one conditional subtraction give the
+canonical result, unpacked to 16-bit limbs.  The pre-reduction value is
+< T p^2, so the result is < T p^2/R + p, which is < 2p while T p < R:
+R/p ~ 9.84 gives the Fp kernel T <= 8 (the JAX package's chunk), R/q ~ 2.21
+gives the Fr kernel T <= 2 (`limbs.FieldSpec.max_terms`).  The canonical
+Montgomery value is unique for R, so the 32-bit digits cannot change a
+result (`pallas_mont.py:96-105`).  The butterfly is one Fr product
+t = b w R^-1 followed by a + t and a - t mod q, all in registers; 2q < 2^256,
+so a + t never carries out of the 8 words.
 
-Bound on the card.  A T = 1 product reads 2 x 24 and writes 24 int32 words
-per lane (288 bytes) and does 2 x 12 x 12 word products plus the reduction's
-12 x 12 + 12, each a lo and a hi 32-bit multiply: about 600 IMADs per lane.
-At 3.35 TB/s and 132 SMs x 64 IMAD/clock x 1.98 GHz the bytes take ~2.4x
-longer than the multiplies, so T = 1 is bound by memory: 16-bit limbs stored
-in int32 double the bytes read.  Larger T moves toward the multiply bound.
-The kernel keeps every intermediate in registers (nothing but the operands
-and the result touches device memory); packing the boundary to 32-bit words
-would halve its bytes and is left to a later change.
+Bound on the card.  A T = 1 Fp product reads 2 x 24 and writes 24 int32
+words per lane (288 bytes) and does 2 x 12 x 12 word products plus the
+reduction's 12 x 12 + 12, each a lo and a hi 32-bit multiply: about 600
+IMADs per lane.  At 3.35 TB/s and 132 SMs x 64 IMAD/clock x 1.98 GHz the
+bytes take ~2.4x longer than the multiplies, so T = 1 is bound by memory:
+16-bit limbs stored in int32 double the bytes read.  Larger T moves toward
+the multiply bound.  The butterfly reads 3 x 64 and writes 2 x 64 bytes per
+lane (320 bytes) for about 270 IMADs: bound by memory, ~50 us per NTT stage
+of 2^19 lanes.  The kernels keep every intermediate in registers (nothing
+but the operands and the result touches device memory); packing the
+boundary to 32-bit words would halve their bytes and is left to a later
+change.
 
 On a CPU tensor the wrappers run the plain versions below (int64 PyTorch
 following the JAX jnp algorithms, `limbs.py:280-327`); on a CUDA tensor they
@@ -40,8 +53,9 @@ from .. import limbs
 from . import LAUNCHES, build
 
 L = limbs.FP.n_limbs
-MAX_TERMS = 8  # T p < R for Fp (R/p ~ 9.84)
-_BLOCK = 128
+L_FR = limbs.FR.n_limbs
+MAX_TERMS = limbs.FP.max_terms
+MAX_TERMS_FR = limbs.FR.max_terms
 
 _SIGNATURES = {
     # (a, b, out, T, B, stream)
@@ -51,10 +65,22 @@ _SIGNATURES = {
     "bls_sqr": (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                 ctypes.c_int, ctypes.c_void_p),
 }
+_SIGNATURES_FR = {
+    # (a, b, out, T, B, stream)
+    "bls_sop_fr": (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p),
+    # (a, b, w, out, B, stream)
+    "bls_butterfly": (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                      ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p),
+}
 
 
 def _lib():
     return build.load("mont", _SIGNATURES)
+
+
+def _lib_fr():
+    return build.load("fr", _SIGNATURES_FR)
 
 
 def check_launch(rc: int, what: str) -> None:
@@ -62,10 +88,16 @@ def check_launch(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with error {rc}")
 
 
-def _check_limbs(x: torch.Tensor, name: str) -> None:
-    if x.dtype != limbs.DTYPE or x.dim() != 3 or x.shape[1] != L:
-        raise ValueError(f"{name}: expected int32 [n, {L}, B], got "
+def _check_limbs(x: torch.Tensor, name: str, n_limbs: int = L) -> None:
+    if x.dtype != limbs.DTYPE or x.dim() != 3 or x.shape[1] != n_limbs:
+        raise ValueError(f"{name}: expected int32 [n, {n_limbs}, B], got "
                          f"{tuple(x.shape)} {x.dtype}")
+
+
+def _check_pair(a: torch.Tensor, b: torch.Tensor, name: str) -> None:
+    if a.shape != b.shape or a.device != b.device:
+        raise ValueError(f"{name}: operands differ: {tuple(a.shape)} on "
+                         f"{a.device} vs {tuple(b.shape)} on {b.device}")
 
 
 def device_kind(x: torch.Tensor) -> str:
@@ -75,44 +107,56 @@ def device_kind(x: torch.Tensor) -> str:
     return x.device.type
 
 
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
 # ---------------------------------------------------------------------------
 # Plain versions (int64 over 16-bit limbs)
 # ---------------------------------------------------------------------------
 
 
-def _mont_reduce_plain(t: torch.Tensor) -> torch.Tensor:
+def _mont_reduce_plain(spec: limbs.FieldSpec, t: torch.Tensor):
     """Montgomery reduction of [2L+1, *batch] int64 lazy columns (each
     < 2^43) to canonical limbs: L rounds of 16-bit digits
     m = t_k * inv16 mod 2^16 (the jnp `_mont_reduce`, fp.rs:487-562)."""
-    spec = limbs.FP
+    n = spec.n_limbs
     p = limbs._col(spec.p_limbs, t)
-    for k in range(L):
+    for k in range(n):
         m = (t[k] * spec.inv16) & limbs.MASK
-        t[k:k + L] += m.unsqueeze(0) * p
+        t[k:k + n] += m.unsqueeze(0) * p
         t[k + 1] += t[k] >> limbs.LIMB_BITS
-    out = limbs._carry_prop(t[L:], L + 1, passes=2)
+    out = limbs._carry_prop(t[n:], n + 1, passes=2)
     return limbs._cond_sub_p(spec, out)
 
 
-def sop_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(sum_t a[t] b[t]) R^-1 mod p for int32 [T, L, *batch] -> [L, *batch].
-
-    Schoolbook columns in int64 (no lo/hi split needed: a column holds at
+def _sop_plain(spec: limbs.FieldSpec, a: torch.Tensor, b: torch.Tensor):
+    """Schoolbook columns in int64 (no lo/hi split needed: a column holds at
     most T L (2^16 - 1)^2 < 2^40), then the 16-bit-digit reduction."""
-    T = a.shape[0]
+    n = spec.n_limbs
     batch = torch.broadcast_shapes(a.shape[2:], b.shape[2:])
     a64, b64 = a.long(), b.long()
     prod = None
-    for t in range(T):
+    for t in range(a.shape[0]):
         term = a64[t].unsqueeze(1) * b64[t].unsqueeze(0)  # [L, L, *batch]
         prod = term if prod is None else prod + term
     ids = limbs._const_tensor(
-        tuple(i + j for i in range(L) for j in range(L)), a.device,
+        tuple(i + j for i in range(n) for j in range(n)), a.device,
         torch.int64)
-    cols = torch.zeros((2 * L + 1,) + batch, dtype=torch.int64,
+    cols = torch.zeros((2 * n + 1,) + batch, dtype=torch.int64,
                        device=a.device)
-    cols.index_add_(0, ids, prod.reshape((L * L,) + batch))
-    return _mont_reduce_plain(cols).to(limbs.DTYPE)
+    cols.index_add_(0, ids, prod.reshape((n * n,) + batch))
+    return _mont_reduce_plain(spec, cols).to(limbs.DTYPE)
+
+
+def sop_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(sum_t a[t] b[t]) R^-1 mod p for int32 [T, 24, *batch] -> [24, *batch]."""
+    return _sop_plain(limbs.FP, a, b)
+
+
+def sop_fr_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(sum_t a[t] b[t]) R^-1 mod q for int32 [T, 16, *batch] -> [16, *batch]."""
+    return _sop_plain(limbs.FR, a, b)
 
 
 def sqr_plain(a: torch.Tensor) -> torch.Tensor:
@@ -121,33 +165,53 @@ def sqr_plain(a: torch.Tensor) -> torch.Tensor:
     return sop_plain(x, x).transpose(0, 1)
 
 
+def butterfly_plain(a: torch.Tensor, b: torch.Tensor,
+                    w: torch.Tensor) -> torch.Tensor:
+    """(a + b w, a - b w) mod q for int32 [16, *batch] x3 -> [2, 16, *batch]:
+    the plain product, then the torch modular add and subtract."""
+    t = sop_fr_plain(b.unsqueeze(0), w.unsqueeze(0))
+    return torch.stack([limbs.add(limbs.FR, a, t), limbs.sub(limbs.FR, a, t)])
+
+
 # ---------------------------------------------------------------------------
 # Wrappers
 # ---------------------------------------------------------------------------
 
 
-def sop(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Fused (sum_t a[t] b[t]) R^-1 mod p: int32 [T, L, B] x2 -> [L, B]."""
-    _check_limbs(a, "sop a")
-    if a.shape != b.shape or a.device != b.device:
-        raise ValueError(f"sop: operands differ: {tuple(a.shape)} on "
-                         f"{a.device} vs {tuple(b.shape)} on {b.device}")
+def _sop_launch(fn, a, b, n_limbs, max_terms, name):
+    """Validate and launch a [T, L, B] x2 -> [L, B] sum-of-products kernel;
+    returns None for a CPU tensor (the caller runs the plain version)."""
+    _check_limbs(a, f"{name} a", n_limbs)
+    _check_pair(a, b, name)
     T, _, B = a.shape
-    if not 1 <= T <= MAX_TERMS:
-        raise ValueError(f"sop: {T} terms; the kernel takes 1..{MAX_TERMS}")
+    if not 1 <= T <= max_terms:
+        raise ValueError(f"{name}: {T} terms; the kernel takes 1..{max_terms}")
     if device_kind(a) == "cpu":
-        return sop_plain(a, b)
+        return None
     a, b = a.contiguous(), b.contiguous()
-    out = torch.empty((L, B), dtype=limbs.DTYPE, device=a.device)
+    out = torch.empty((n_limbs, B), dtype=limbs.DTYPE, device=a.device)
     if B == 0:
         return out
     with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        rc = _lib().bls_sop(a.data_ptr(), b.data_ptr(), out.data_ptr(), T, B,
-                            stream)
-        LAUNCHES.sop += 1
-    check_launch(rc, "sop")
+        rc = fn()(a.data_ptr(), b.data_ptr(), out.data_ptr(), T, B,
+                  _stream(a))
+        setattr(LAUNCHES, name, getattr(LAUNCHES, name) + 1)
+    check_launch(rc, name)
     return out
+
+
+def sop(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Fused (sum_t a[t] b[t]) R^-1 mod p: int32 [T, 24, B] x2 -> [24, B]."""
+    out = _sop_launch(lambda: _lib().bls_sop, a, b, L, MAX_TERMS, "sop")
+    return sop_plain(a, b) if out is None else out
+
+
+def sop_fr(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Fused (sum_t a[t] b[t]) R^-1 mod q: int32 [T, 16, B] x2 -> [16, B],
+    T <= 2."""
+    out = _sop_launch(lambda: _lib_fr().bls_sop_fr, a, b, L_FR, MAX_TERMS_FR,
+                      "sop_fr")
+    return sop_fr_plain(a, b) if out is None else out
 
 
 def sqr(a: torch.Tensor) -> torch.Tensor:
@@ -161,8 +225,29 @@ def sqr(a: torch.Tensor) -> torch.Tensor:
     if G * B == 0:
         return out
     with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        rc = _lib().bls_sqr(a.data_ptr(), out.data_ptr(), G, B, stream)
+        rc = _lib().bls_sqr(a.data_ptr(), out.data_ptr(), G, B, _stream(a))
         LAUNCHES.sqr += 1
     check_launch(rc, "sqr")
+    return out
+
+
+def butterfly(a: torch.Tensor, b: torch.Tensor,
+              w: torch.Tensor) -> torch.Tensor:
+    """Fused NTT butterfly (a + b w, a - b w) mod q: int32 [16, B] x3 ->
+    [2, 16, B] (lo, hi)."""
+    for x, name in ((a, "a"), (b, "b"), (w, "w")):
+        _check_limbs(x.unsqueeze(0), f"butterfly {name}", L_FR)
+        _check_pair(a, x, "butterfly")
+    if device_kind(a) == "cpu":
+        return butterfly_plain(a, b, w)
+    a, b, w = a.contiguous(), b.contiguous(), w.contiguous()
+    B = a.shape[1]
+    out = torch.empty((2, L_FR, B), dtype=limbs.DTYPE, device=a.device)
+    if B == 0:
+        return out
+    with torch.cuda.device(a.device):
+        rc = _lib_fr().bls_butterfly(a.data_ptr(), b.data_ptr(), w.data_ptr(),
+                                     out.data_ptr(), B, _stream(a))
+        LAUNCHES.butterfly += 1
+    check_launch(rc, "butterfly")
     return out

@@ -5,12 +5,13 @@ Counterpart of `bls12_381_tpu/limbs.py`, with the same boundary layout:
   - A field element batch is a tensor of shape [L, *batch]: 16-bit limbs,
     little-endian, limb axis first, stored as `torch.int32` (PyTorch on the
     CPU has no add, shift or compare for `uint32`).
-  - Montgomery form with R = 2^(16 L) (2^384 for Fp), so values equal the
-    reference's and the JAX package's limb for limb.  Every stored value is
-    canonical (< p).
+  - Montgomery form with R = 2^(16 L) (2^384 for Fp, 2^256 for Fr), so
+    values equal the reference's and the JAX package's limb for limb.
+    Every stored value is canonical (< p).
 
-Products go to the hand-written kernels of `kernels/mont.py` (`sop`, `sqr`):
-on a CUDA tensor the kernel runs, on a CPU tensor its plain PyTorch version.
+Products go to the hand-written kernels of `kernels/mont.py` (`sop`, `sqr`
+for Fp, `sop_fr` for Fr): on a CUDA tensor the kernel runs, on a CPU tensor
+its plain PyTorch version.
 The additive glue (add/sub/neg, `add_many`/`sub_many`, `select`) is plain
 PyTorch on every device, as it is plain jnp in the JAX package: it works in
 int64 and resolves carry chains with the packed-adder trick of `_kogge_stone`
@@ -40,8 +41,11 @@ class FieldSpec:
     modulus: int
     n_limbs: int
     inv16: int                  # -p^-1 mod 2^16
+    max_terms: int              # products one fused reduction takes
     p_limbs: tuple[int, ...]    # [L]
     one_mont: tuple[int, ...]   # [L], R mod p (Montgomery one)
+    r2_limbs: tuple[int, ...]   # [L], R^2 mod p (Montgomery conversion)
+    r3_limbs: tuple[int, ...]   # [L], R^3 mod p (wide-byte reduction)
 
     @staticmethod
     def make(name: str, modulus: int, n_limbs: int) -> "FieldSpec":
@@ -51,12 +55,19 @@ class FieldSpec:
             modulus=modulus,
             n_limbs=n_limbs,
             inv16=(-pow(modulus, -1, 1 << LIMB_BITS)) % (1 << LIMB_BITS),
+            # T products reduce to < T p^2 / R + p, which one conditional
+            # subtraction makes canonical while T p < R: 8 for Fp (R/p ~
+            # 9.84, capped at the JAX package's chunk), 2 for Fr (R/q ~ 2.21)
+            max_terms=min(8, (r - 1) // modulus),
             p_limbs=tuple(params.to_limbs(modulus, n_limbs)),
             one_mont=tuple(params.to_limbs(r % modulus, n_limbs)),
+            r2_limbs=tuple(params.to_limbs(r * r % modulus, n_limbs)),
+            r3_limbs=tuple(params.to_limbs(r * r * r % modulus, n_limbs)),
         )
 
 
 FP = FieldSpec.make("fp", params.P, params.FP_LIMBS)
+FR = FieldSpec.make("fr", params.Q, params.FR_LIMBS)
 
 
 def resolve_device(device) -> torch.device:
@@ -235,20 +246,28 @@ def _flat_batch(x: torch.Tensor, lead: int):
 
 def sum_of_products(spec: FieldSpec, pairs) -> torch.Tensor:
     """Fused sum_i a_i * b_i with a single Montgomery reduction
-    (fp.rs:430-484).  The kernel takes T <= 8 terms, which keeps the
-    pre-reduction value below 2p (T p < R); longer sums are chunked into
-    fused groups of 8 and the partials added, as the JAX package does."""
+    (fp.rs:430-484), through the field's kernel (`mont.sop` for Fp,
+    `mont.sop_fr` for Fr).  One call takes T <= spec.max_terms terms, which
+    keeps the pre-reduction value below 2p; longer sums are chunked into
+    fused groups of max_terms and the partials added.
+
+    The JAX package chunks at 8 for both fields (limbs.py:431-436), so an Fr
+    sum of 3..8 terms comes out of its single subtraction possibly >= q.  No
+    JAX caller sums more than 2 Fr terms (fr.py and ntt.py use 1), so
+    chunking Fr at 2 keeps parity while every port value stays canonical."""
     from .kernels import mont
 
     pairs = list(pairs)
-    if len(pairs) > 8:
-        parts = [sum_of_products(spec, pairs[i:i + 8])
-                 for i in range(0, len(pairs), 8)]
+    k = spec.max_terms
+    if len(pairs) > k:
+        parts = [sum_of_products(spec, pairs[i:i + k])
+                 for i in range(0, len(pairs), k)]
         return functools.reduce(lambda x, y: add(spec, x, y), parts)
     a, b = _stack_pairs(spec, pairs)          # [L, T, *batch]
     a, batch = _flat_batch(a.transpose(0, 1), 2)
     b, _ = _flat_batch(b.transpose(0, 1), 2)  # [T, L, B]
-    return mont.sop(a, b).reshape((spec.n_limbs,) + batch)
+    sop = {FP.name: mont.sop, FR.name: mont.sop_fr}[spec.name]
+    return sop(a, b).reshape((spec.n_limbs,) + batch)
 
 
 def mont_mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor):
@@ -257,10 +276,14 @@ def mont_mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor):
 
 
 def mont_sqr(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
-    """Canonical Montgomery square through the dedicated squaring kernel
-    (off-diagonal products computed once)."""
+    """Canonical Montgomery square: for Fp through the dedicated squaring
+    kernel (off-diagonal products computed once); for Fr a product with
+    a == b, as `sqr_pallas` falls back to `sop_pallas` (pallas_mont.py:
+    726-740)."""
     from .kernels import mont
 
+    if spec.name == FR.name:
+        return mont_mul(spec, a, a)
     flat, batch = _flat_batch(a, 1)
     return mont.sqr(flat.unsqueeze(0))[0].reshape((spec.n_limbs,) + batch)
 
@@ -347,9 +370,67 @@ def pow_fixed(spec: FieldSpec, a: torch.Tensor, exponent: int) -> torch.Tensor:
     return acc
 
 
+def pow_runtime(spec: FieldSpec, a: torch.Tensor,
+                exp_limbs: torch.Tensor) -> torch.Tensor:
+    """a^e with a runtime exponent tensor (`ff::Field::pow`, scalar.rs:
+    373-390): exp_limbs are canonical 16-bit limb rows [n, *batch] (e.g.
+    `from_mont(FR, s)`).  MSB-first square-and-multiply over all 16 n bits
+    with a masked multiply per bit, the JAX package's constant schedule."""
+    acc = one(spec, a.shape[1:], device=a.device)
+    for j in range(LIMB_BITS * exp_limbs.shape[0] - 1, -1, -1):
+        acc = mont_sqr(spec, acc)
+        bit = ((exp_limbs[j // LIMB_BITS] >> (j % LIMB_BITS)) & 1) != 0
+        acc = select(bit, mont_mul(spec, acc, a), acc)
+    return acc
+
+
 def inv(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
     """a^(p-2); maps 0 to 0 (callers mask identity cases)."""
     return pow_fixed(spec, a, spec.modulus - 2)
+
+
+def _prefix_products(spec: FieldSpec, x: torch.Tensor,
+                     one1: torch.Tensor) -> torch.Tensor:
+    """Inclusive product scan along the last axis, by the JAX package's
+    power-of-two recursion (utils/scans.py): pair products, scan of the
+    pairs, then one product fills the even positions.  The tail is padded
+    to a power of two with copies of the last lane and sliced off."""
+    n = x.shape[-1]
+    pow2 = 1 << (n - 1).bit_length()
+    if pow2 != n:
+        x = torch.cat([x, x[..., -1:].expand(x.shape[:-1] + (pow2 - n,))],
+                      dim=-1)
+
+    def scan(x):
+        if x.shape[-1] == 1:
+            return x
+        even, odd = x[..., 0::2], x[..., 1::2]
+        ps = scan(mont_mul(spec, even, odd))
+        shifted = torch.cat([one1, ps[..., :-1]], dim=-1)
+        out_even = mont_mul(spec, shifted, even)
+        return torch.stack([out_even, ps], dim=-1).reshape(x.shape)
+
+    return scan(x)[..., :n]
+
+
+def batch_inv(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
+    """Elementwise inverse amortized over the LAST batch axis (g1.rs:
+    806-839): prefix and suffix product scans, ONE inversion of the total,
+    and two products per lane.  Zeros invert to zero.  Below 16 lanes it is
+    one `inv` per lane, as in the JAX package."""
+    if (a.shape[-1] if a.dim() > 1 else 0) < 16:
+        return inv(spec, a)
+    zero_mask = is_zero(a)
+    safe = select(zero_mask, one(spec, a.shape[1:], device=a.device), a)
+    one1 = one(spec, a.shape[1:-1] + (1,), device=a.device)
+    pre = _prefix_products(spec, safe, one1)
+    suf = _prefix_products(spec, safe.flip(-1), one1).flip(-1)
+    pre_excl = torch.cat([one1, pre[..., :-1]], dim=-1)
+    suf_excl = torch.cat([suf[..., 1:], one1], dim=-1)
+    total_inv = inv(spec, pre[..., -1])
+    others = mont_mul(spec, pre_excl, suf_excl)  # prod_{j != i} a_j
+    out = mont_mul(spec, others, total_inv.unsqueeze(-1))
+    return select(zero_mask, torch.zeros_like(out), out)
 
 
 # ---------------------------------------------------------------------------
@@ -406,3 +487,23 @@ def zero(spec: FieldSpec, batch_shape=(), device="cuda") -> torch.Tensor:
 
 def one(spec: FieldSpec, batch_shape=(), device="cuda") -> torch.Tensor:
     return const(spec, 1, batch_shape, device)
+
+
+def to_mont(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
+    """Canonical residue -> Montgomery form (a product with R^2)."""
+    return mont_mul(spec, a, _col(spec.r2_limbs, a, DTYPE))
+
+
+def from_mont(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
+    """Montgomery form -> canonical residue (a product with plain 1)."""
+    raw_one = (1,) + (0,) * (spec.n_limbs - 1)
+    return mont_mul(spec, a, _col(raw_one, a, DTYPE))
+
+
+def wide_reduce(spec: FieldSpec, lo: torch.Tensor, hi: torch.Tensor):
+    """(lo + hi R) mod p in Montgomery form, for raw limb tensors lo, hi
+    (any value < R): lo R^2 R^-1 + hi R^3 R^-1 (scalar.rs:300-331).  A
+    product with one canonical operand reduces to < R p / R + p = 2p, so
+    the raw inputs are legal for the kernels too."""
+    return add(spec, mont_mul(spec, lo, _col(spec.r2_limbs, lo, DTYPE)),
+               mont_mul(spec, hi, _col(spec.r3_limbs, hi, DTYPE)))

@@ -5,8 +5,9 @@ standard ones of the curve (zkcrypto/bls12_381 src/fp.rs, src/scalar.rs,
 src/lib.rs, src/notes/design.rs).
 
 Field elements cross the port's public functions as 16-bit limbs, limb axis
-first, in Montgomery form with R = 2^384 (Fp), the same numeric domain as the
-reference and as `bls12_381_tpu`, so values compare as plain arrays.
+first, in Montgomery form with R = 2^384 (Fp) or R = 2^256 (Fr), the same
+numeric domain as the reference and as `bls12_381_tpu`, so values compare as
+plain arrays.
 """
 
 # Base field modulus p (381 bits)
@@ -39,9 +40,15 @@ G2_GEN = (
     ),
 )
 
+# Scalar field NTT constants (scalar.rs:99-222)
+FR_GENERATOR = 7          # multiplicative generator of Fq*
+FR_S = 32                 # q - 1 = 2^32 * t with t odd
+FR_ROOT_OF_UNITY = pow(FR_GENERATOR, (Q - 1) >> FR_S, Q)  # 2^32-th root
+
 LIMB_BITS = 16
 LIMB_MASK = (1 << LIMB_BITS) - 1
 FP_LIMBS = 24  # 24 * 16 = 384 bits, R = 2^384
+FR_LIMBS = 16  # 16 * 16 = 256 bits, R = 2^256 (scalar.rs:20)
 
 
 def to_limbs(value: int, n_limbs: int) -> list[int]:

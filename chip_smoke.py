@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's paths on one NVIDIA card.
 
 Run from the repository root on a machine with a CUDA device:
 
@@ -11,25 +11,34 @@ Phases (each prints its lines and seconds; any failed check exits non-zero):
      sm_90a (one process per source, in parallel), with ptxas registers,
      shared memory and spills.
   3. kernels vs plain: each kernel against its plain PyTorch version on the
-     card at the main path's shapes, random canonical inputs plus the edge
-     values 0, 1 and p-1; exact equality (integers: tolerance none); CUDA
-     events around back-to-back calls (the host's issue rate for short
-     kernels) and the plain version's time (CUDA events; no yardstick).
-  4. main path: the batched pairing at batch 1024 from the repository's
-     test vectors ([a]G1, [b]G2, a, b < 1000): lane (1, 1) equals the RELIC
+     card at the paths' shapes, random canonical inputs plus the edge
+     values 0, 1, p-1 (and q-2 and the butterfly's correction rows for
+     Fr); exact equality (integers: tolerance none); CUDA events around
+     back-to-back calls (the host's issue rate for short kernels) and the
+     plain version's time (CUDA events; no yardstick).
+  4. main: the batched pairing at batch 1024 from the repository's test
+     vectors ([a]G1, [b]G2, a, b < 1000): lane (1, 1) equals the RELIC
      value, lanes with equal a*b are equal, identity lanes are one, four
      lanes equal the plain path (CPU); launch counts of one pairing (every
      kernel > 0, plan and sqr counts equal to the static schedule); stage
      times and pairings/s on a host clock around synchronized work (median
      of STAGE_REPS runs), and the share of that wall time the host thread
      spent on the CPU issuing the work.
-  5. kernel times: each kernel's device time per launch at the shapes of
-     phase 3 (torch.profiler); after phase 4, because a profiler session
+  5. ntt: the radix-2 NTT over Fr at N = 2^20 (`entry.ntt_entry`): launch
+     counts of one ntt and one intt equal the static schedule;
+     intt(ntt(x)) = x; eight outputs equal the host's evaluation at
+     omega^k; a 2^12 NTT on the card equals the CPU path; poly_mul of two
+     2^19-coefficient polynomials satisfies c(r) = a(r) b(r) at four
+     points; ntt / intt / poly_mul seconds as in phase 4, and the NTT's
+     own peak memory.
+  6. kernel times: each kernel's device time per launch at the shapes of
+     phase 3 (torch.profiler); after phases 4-5, because a profiler session
      may slow the host's launches for the rest of the process.
-  6. profile: one pairing under torch.profiler -- device time by kernel
-     (device-side events only) and the device's busy share: the union of
-     kernel intervals over the unprofiled pairing time.
-  7. the `kernels` JSON line, then the device JSON line last.
+  7. profiles: one pairing and one NTT under torch.profiler -- device time
+     by kernel (device-side events only), the port kernels' ms per launch,
+     and the device's busy share: the union of kernel intervals over the
+     unprofiled wall time.
+  8. the `kernels` JSON line, then the device JSON line last.
 
 The script imports nothing of the JAX package.
 """
@@ -48,6 +57,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 VECTORS = ROOT / "tests" / "vectors"
 BATCH = 1024
+NTT_LOG_N = 20                     # bench.py's scalar NTT 2^20
+NTT_N = 1 << NTT_LOG_N
 SEED = 20261016
 STAGE_REPS = 7                     # host-clock runs per stage; median kept
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
@@ -70,13 +81,16 @@ def say(phase: str, **kv) -> None:
 # ---------------------------------------------------------------------------
 
 
-def sop_imads(T: int) -> int:
-    """32-bit multiplies of a T-term sum of products: T 12x12 word products
-    and the reduction's 12x12 + 12, a wide product counting lo and hi."""
-    return 2 * (144 * T + 144) + 12
+def sop_imads(T: int, words: int = 12) -> int:
+    """32-bit multiplies of a T-term sum of products over `words` 32-bit
+    words (12 for Fp, 8 for Fr): T word products and the reduction's
+    words^2 + words, a wide product counting lo and hi."""
+    return 2 * words * words * (T + 1) + words
 
 
 SQR_IMADS = 2 * (78 + 144) + 12  # 66 off-diagonal + 12 squares, reduction
+BUTTERFLY_IMADS = sop_imads(1, 8)  # one Fr product; the add/sub are IADDs
+BUTTERFLY_BYTES = 4 * 16 * 5       # a, b, w read; lo, hi written (int32)
 
 
 def bound(n_bytes: float, n_imads: float):
@@ -202,12 +216,23 @@ def rand_fp(shape, gen, device):
     return x
 
 
-def edge_col(value: int, device):
+def rand_fr(shape, gen, device):
+    """Random canonical Fr limbs [16, *shape]: the top limb masked to 14
+    bits, values < 2^254 < q (the NTT inputs' distribution)."""
+    import torch
+
+    x = torch.randint(0, 1 << 16, (16,) + tuple(shape), generator=gen,
+                      device=device, dtype=torch.int32)
+    x[15] &= 0x3FFF
+    return x
+
+
+def edge_col(value: int, device, n_limbs: int = 24):
     import torch
 
     from bls12_381_torch import params
 
-    return torch.tensor(params.to_limbs(value, 24), dtype=torch.int32,
+    return torch.tensor(params.to_limbs(value, n_limbs), dtype=torch.int32,
                         device=device)
 
 
@@ -220,25 +245,52 @@ def compare(got, ref):
     return int((lanes != 0).sum()), int(diff.max()) if diff.numel() else 0
 
 
+class KernelChecks:
+    """Results of phase kernels: each kernel call held against its plain
+    version, timed with CUDA events, with its bound; and per shape the call
+    whose device time `phase_kernel_times` reads later."""
+
+    def __init__(self):
+        self.results, self.timed, self.failures = {}, [], []
+
+    def hold(self, key, call, plain, kernel, n_events, n_plain, n_bytes,
+             n_imads, **extra):
+        import torch
+
+        got = call()
+        ref = plain()
+        torch.cuda.synchronize()
+        mism, err = compare(got, ref)
+        del got, ref
+        bms, by = bound(n_bytes, n_imads)
+        self.results[key] = dict(
+            mismatches=mism, max_abs_err=err,
+            events_ms=time_events(call, n=n_events),
+            plain_ms=time_events(plain, n=n_plain, warm=1),
+            bound_ms=bms, bound_by=by, **extra)
+        self.timed.append((key, call, kernel, n_events))
+        say("kernels", kernel=key, **self.results[key])
+        if mism:
+            self.failures.append(key)
+
+
 def phase_kernels(device):
-    """Each kernel against its plain version at the main path's shapes.
+    """Each kernel against its plain version at the main paths' shapes.
 
     Returns the results and, per shape, the call whose device time
     `phase_kernel_times` reads later: a profiler session may slow the
     host's launches for the rest of the process, so it follows the main
-    path's host-clock timings."""
+    paths' host-clock timings."""
     import torch
 
     from bls12_381_torch import params
     from bls12_381_torch.kernels import mont, plan_exec as pe
 
-    P = params.P
+    P, Q = params.P, params.Q
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
     edges = [edge_col(v, device) for v in (0, 1, P - 1)]
-    results = {}
-    timed = []  # (key, call, kernel name, launches)
-    failures = []
+    chk = KernelChecks()
 
     # --- sop: T in {1, 2, 6, 8}, B in {1024, 4 * 68 * 1024}
     for B in (BATCH, 4 * 68 * BATCH):
@@ -252,44 +304,18 @@ def phase_kernels(device):
             # lane 3: a = 1, b = p - 1; lane 4: a = p - 1, b = 0
             a[:, :, 3], b[:, :, 3] = edges[1], edges[2]
             a[:, :, 4], b[:, :, 4] = edges[2], edges[0]
-            got = mont.sop(a, b)
-            ref = mont.sop_plain(a, b)
-            torch.cuda.synchronize()
-            mism, err = compare(got, ref)
-            events_ms = time_events(lambda: mont.sop(a, b), n=50)
-            plain_ms = time_events(lambda: mont.sop_plain(a, b), n=3, warm=1)
-            bms, by = bound(4 * B * 24 * (2 * T + 1), B * sop_imads(T))
-            key = f"sop T={T} B={B}"
-            results[key] = dict(mismatches=mism, max_abs_err=err,
-                                events_ms=events_ms, plain_ms=plain_ms,
-                                bound_ms=bms, bound_by=by)
-            timed.append((key, lambda a=a, b=b: mont.sop(a, b), "sop_kernel",
-                          50))
-            say("kernels", kernel=key, **results[key])
-            if mism:
-                failures.append(key)
-            del got, ref
+            chk.hold(f"sop T={T} B={B}", lambda a=a, b=b: mont.sop(a, b),
+                     lambda a=a, b=b: mont.sop_plain(a, b), "sop_kernel",
+                     50, 3, 4 * B * 24 * (2 * T + 1), B * sop_imads(T))
 
     # --- sqr: G in {1, 3}, B = 1024
     for G in (1, 3):
         a = rand_fp((G, BATCH), gen, device).transpose(0, 1).contiguous()
         for lane, col in enumerate(edges):
             a[:, :, lane] = col
-        got = mont.sqr(a)
-        ref = mont.sqr_plain(a)
-        torch.cuda.synchronize()
-        mism, err = compare(got, ref)
-        events_ms = time_events(lambda: mont.sqr(a), n=200)
-        plain_ms = time_events(lambda: mont.sqr_plain(a), n=5, warm=1)
-        bms, by = bound(4 * G * BATCH * 24 * 2, G * BATCH * SQR_IMADS)
-        key = f"sqr G={G} B={BATCH}"
-        results[key] = dict(mismatches=mism, max_abs_err=err,
-                            events_ms=events_ms, plain_ms=plain_ms,
-                            bound_ms=bms, bound_by=by)
-        timed.append((key, lambda a=a: mont.sqr(a), "sqr_kernel", 200))
-        say("kernels", kernel=key, **results[key])
-        if mism:
-            failures.append(key)
+        chk.hold(f"sqr G={G} B={BATCH}", lambda a=a: mont.sqr(a),
+                 lambda a=a: mont.sqr_plain(a), "sqr_kernel", 200, 5,
+                 4 * G * BATCH * 24 * 2, G * BATCH * SQR_IMADS)
 
     # --- plan_exec: each main-path plan at B = 1024
     for make_plan in pe.MAIN_PATH_PLANS:
@@ -298,29 +324,52 @@ def phase_kernels(device):
             .contiguous()
         for lane, col in enumerate(edges):
             ops[:, :, lane] = col
-        got = pe.plan_exec(ops, plan)
-        ref = pe.plan_exec_plain(ops, plan)
-        torch.cuda.synchronize()
-        mism, err = compare(got, ref)
-        events_ms = time_events(lambda: pe.plan_exec(ops, plan), n=20)
-        plain_ms = time_events(lambda: pe.plan_exec_plain(ops, plan), n=2,
-                               warm=1)
-        imads = BATCH * sum(sop_imads(t) for t in plan.sop_terms())
-        bms, by = bound(96 * BATCH * (plan.n_in + plan.n_out), imads)
-        key = f"plan_exec {plan.name} B={BATCH}"
-        results[key] = dict(mismatches=mism, max_abs_err=err,
-                            events_ms=events_ms, plain_ms=plain_ms,
-                            bound_ms=bms, bound_by=by,
-                            nodes=len(plan.instr), groups=len(plan.groups),
-                            sop_nodes=len(plan.sop_terms()))
-        timed.append((key, lambda ops=ops, plan=plan: pe.plan_exec(ops, plan),
-                      "plan_kernel", 20))
-        say("kernels", kernel=key, **results[key])
-        if mism:
-            failures.append(key)
-    if failures:
-        fail(f"kernel and plain version disagree: {failures}")
-    return results, timed
+        chk.hold(f"plan_exec {plan.name} B={BATCH}",
+                 lambda ops=ops, plan=plan: pe.plan_exec(ops, plan),
+                 lambda ops=ops, plan=plan: pe.plan_exec_plain(ops, plan),
+                 "plan_kernel", 20, 2, 96 * BATCH * (plan.n_in + plan.n_out),
+                 BATCH * sum(sop_imads(t) for t in plan.sop_terms()),
+                 nodes=len(plan.instr), groups=len(plan.groups),
+                 sop_nodes=len(plan.sop_terms()))
+
+    # --- Fr: sop_fr (T = 1, 2) and butterfly at B = 2^16 with edge rows,
+    # and at the NTT's shapes: the 1/N scaling (T = 1, B = N) and a stage
+    # (B = N/2)
+    fr_edges = [edge_col(v, device, 16) for v in (0, 1, Q - 1, Q - 2)]
+    for T, B in ((1, 1 << 16), (2, 1 << 16), (1, NTT_N)):
+        a = rand_fr((T, B), gen, device).transpose(0, 1).contiguous()
+        b = rand_fr((T, B), gen, device).transpose(0, 1).contiguous()
+        # lanes 0..3: every operand 0, 1, q-1, q-2; lane 4: 1 x (q-1);
+        # lane 5: (q-1) x 0
+        for lane, col in enumerate(fr_edges):
+            a[:, :, lane], b[:, :, lane] = col, col
+        a[:, :, 4], b[:, :, 4] = fr_edges[1], fr_edges[2]
+        a[:, :, 5], b[:, :, 5] = fr_edges[2], fr_edges[0]
+        chk.hold(f"sop_fr T={T} B={B}", lambda a=a, b=b: mont.sop_fr(a, b),
+                 lambda a=a, b=b: mont.sop_fr_plain(a, b), "sop_fr_kernel",
+                 50, 3, 4 * B * 16 * (2 * T + 1), B * sop_imads(T, 8))
+    for B in (1 << 16, NTT_N // 2):
+        a, b, w = rand_fr((3, B), gen, device).unbind(1)
+        # lanes 0..5: the rows whose lo takes the -q correction and whose
+        # hi takes the +q correction (tests/test_device_fields.py:529-531);
+        # lanes 6..9: every operand 0, 1, q-1, q-2
+        rows = {"a": (0, 1, Q - 1, Q - 2, 0, Q - 1),
+                "b": (Q - 1, 0, Q - 1, 1, 0, 1),
+                "w": (Q - 1, 5, Q - 1, 1, 7, Q - 1)}
+        for x, key in ((a, "a"), (b, "b"), (w, "w")):
+            for lane, v in enumerate(rows[key]):
+                x[:, lane] = edge_col(v, device, 16)
+            for lane, col in enumerate(fr_edges):
+                x[:, 6 + lane] = col
+        a, b, w = a.contiguous(), b.contiguous(), w.contiguous()
+        chk.hold(f"butterfly B={B}",
+                 lambda a=a, b=b, w=w: mont.butterfly(a, b, w),
+                 lambda a=a, b=b, w=w: mont.butterfly_plain(a, b, w),
+                 "butterfly_kernel", 50, 3, B * BUTTERFLY_BYTES,
+                 B * BUTTERFLY_IMADS)
+    if chk.failures:
+        fail(f"kernel and plain version disagree: {chk.failures}")
+    return chk.results, chk.timed
 
 
 # ---------------------------------------------------------------------------
@@ -542,16 +591,139 @@ def phase_kernel_times(results, timed) -> None:
             bound_ms=results[key]["bound_ms"])
 
 
-def phase_profile(p_aff, q_aff, pairing_s: float):
-    """Where one pairing's time goes on the card: device time by kernel,
-    from the profiler's device-side events only, and the device's busy
-    share: the union of those events' intervals over the unprofiled
-    pairing time (and over the profiled run's device span)."""
-    from bls12_381_torch import pairing as pr
+def limb_ints(t) -> list:
+    """[16, n] Fr limbs (any device) -> n Python ints, as stored (the
+    Montgomery values), through little-endian bytes."""
+    import numpy as np
 
-    evs = device_events(lambda: pr.pairing(p_aff, q_aff))
+    raw = np.ascontiguousarray(t.cpu().numpy().astype("<u2").T).tobytes()
+    return [int.from_bytes(raw[i:i + 32], "little")
+            for i in range(0, len(raw), 32)]
+
+
+def horner(cs, z: int, q: int) -> int:
+    acc = 0
+    for c in reversed(cs):
+        acc = (acc * z + c) % q
+    return acc
+
+
+def expected_ntt_launches(n: int, inverse: bool) -> dict:
+    """Kernel launches of one transform of N = n lanes, from the schedule
+    of ops/ntt.py: one `butterfly` per stage (log2 N stages); the twiddle
+    table doubles from 1 to N/2 columns, one `sop_fr` per doubling
+    (log2 N - 1); the inverse adds one `sop_fr` for the 1/N scaling."""
+    log_n = n.bit_length() - 1
+    return {"sop": 0, "sqr": 0, "plan_exec": 0, "butterfly": log_n,
+            "sop_fr": log_n - 1 + int(inverse), "plan_exec_by_plan": {}}
+
+
+def phase_ntt(device):
+    """The NTT slice at N = 2^20, batch 1, coefficients from
+    `entry.ntt_inputs`: launch counts against the static schedule, the
+    five checks, and host-clock times (before any profiler session)."""
+    import numpy as np
+    import torch
+
+    from bls12_381_torch import entry, params
+    from bls12_381_torch.kernels import LAUNCHES
+    from bls12_381_torch.ops import ntt
+
+    Q = params.Q
+    R = 1 << 256
+    fn, (x,) = entry.ntt_entry(NTT_LOG_N, seed=SEED, device=device)
+    torch.cuda.synchronize()
+
+    # the slice's path, counted: one ntt, one intt
+    LAUNCHES.reset()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    y = fn(x)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = LAUNCHES.snapshot()
+    peak = torch.cuda.max_memory_allocated() - held
+    LAUNCHES.reset()
+    back = ntt.intt(y)
+    torch.cuda.synchronize()
+    counts_inv = LAUNCHES.snapshot()
+    say("ntt", n=NTT_N, first_ntt_seconds=first_s, launches_ntt=counts,
+        launches_intt=counts_inv, ntt_peak_bytes=peak, held_bytes=held)
+    for got, inverse in ((counts, False), (counts_inv, True)):
+        if got != expected_ntt_launches(NTT_N, inverse):
+            fail(f"NTT launch counts {got} differ from the schedule "
+                 f"{expected_ntt_launches(NTT_N, inverse)}")
+
+    # 1. intt(ntt(x)) == x on every lane
+    if not torch.equal(back, x):
+        fail("intt(ntt(x)) != x")
+    # 2. eight entries against the host's Horner evaluation at omega^k
+    # (the transform is linear, so Montgomery values evaluate directly)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    ks = [0, NTT_N - 1] + [int(k) for k in rng.integers(1, NTT_N - 1, 6)]
+    omega = pow(params.FR_ROOT_OF_UNITY, 1 << (params.FR_S - NTT_LOG_N), Q)
+    cs = limb_ints(x)
+    got = limb_ints(y[:, ks])
+    for k, g in zip(ks, got):
+        if g != horner(cs, pow(omega, k, Q), Q):
+            fail(f"ntt(x)[{k}] differs from the host's evaluation")
+    # 3. a 2^12 NTT on the card equals the plain path on the CPU
+    small = x[:, :1 << 12]
+    if not torch.equal(ntt.ntt(small).cpu(), ntt.ntt(small.cpu())):
+        fail("the 2^12 NTT on the card differs from the CPU path")
+    # 4. poly_mul of two degree-(2^19 - 1) polynomials: c(r) = a(r) b(r)
+    # at four seeded points; on Montgomery values c_m(r) R = a_m(r) b_m(r)
+    a = entry.ntt_inputs(NTT_LOG_N - 1, seed=SEED + 1, device=device)
+    b = entry.ntt_inputs(NTT_LOG_N - 1, seed=SEED + 2, device=device)
+    LAUNCHES.reset()
+    c = ntt.poly_mul(a, b)
+    torch.cuda.synchronize()
+    counts_poly = LAUNCHES.snapshot()
+    fwd = expected_ntt_launches(NTT_N, False)
+    inv = expected_ntt_launches(NTT_N, True)
+    if (counts_poly["butterfly"] != 2 * fwd["butterfly"] + inv["butterfly"]
+            or counts_poly["sop_fr"] != 2 * fwd["sop_fr"] + 1
+            + inv["sop_fr"]):
+        fail(f"poly_mul launch counts {counts_poly} differ from the "
+             "schedule (two ntt, one product, one intt)")
+    if c.shape != (16, NTT_N):
+        fail(f"poly_mul shape {tuple(c.shape)}")
+    ai, bi, ci = limb_ints(a), limb_ints(b), limb_ints(c)
+    for r in (int(v) for v in rng.integers(2, 1 << 62, 4)):
+        if horner(ci, r, Q) * R % Q != horner(ai, r, Q) * horner(bi, r, Q) \
+                % Q:
+            fail(f"poly_mul: c({r}) != a({r}) b({r})")
+    say("ntt", checks="passed", eval_points=ks,
+        launches_poly_mul=counts_poly,
+        host_check_seconds=time.perf_counter() - t0)
+    del back, c, small
+
+    # host clock around synchronized work, after the warm-up runs above
+    stages = {"ntt": host_times(lambda: fn(x)),
+              "intt": host_times(lambda: ntt.intt(y)),
+              "poly_mul": host_times(lambda: ntt.poly_mul(a, b))}
+    med = {k: statistics.median(w) for k, (w, _) in stages.items()}
+    say("ntt", stage_seconds={k: w for k, (w, _) in stages.items()},
+        median_seconds=med,
+        host_cpu_share={k: sum(c) / sum(w) for k, (w, c) in stages.items()})
+    return counts, med, x
+
+
+OUR_KERNELS = ("sop_kernel", "sqr_kernel", "plan_kernel", "sop_fr_kernel",
+               "butterfly_kernel")
+
+
+def phase_profile(label: str, fn, wall_s: float) -> dict:
+    """Where one run of a path goes on the card: device time by kernel,
+    from the profiler's device-side events only, each port kernel's mean
+    device ms per launch, and the device's busy share: the union of those
+    events' intervals over the unprofiled wall time (and over the profiled
+    run's device span)."""
+    evs = device_events(fn)
     if not evs:
-        fail("the profiler recorded no device activity for the pairing")
+        fail(f"the profiler recorded no device activity for {label}")
     by_name = {}
     for name, start, end in evs:
         us, n = by_name.get(name, (0.0, 0))
@@ -562,17 +734,24 @@ def phase_profile(p_aff, q_aff, pairing_s: float):
     span_ms = (max(e[2] for e in evs) - min(e[1] for e in evs)) / 1e3
 
     def ours(name):
-        return any(k in name for k in ("sop_kernel", "sqr_kernel",
-                                       "plan_kernel"))
+        return any(k in name for k in OUR_KERNELS)
 
-    say("profile", device_ms=sum(r[0] for r in rows) / 1e3,
-        device_busy_ms=busy_ms, pairing_ms=pairing_s * 1e3,
-        device_busy_share=busy_ms / (pairing_s * 1e3),
+    per_launch = {}
+    for k in OUR_KERNELS:
+        mine = [(us, n) for us, n, name in rows if k in name]
+        if mine:
+            us, n = map(sum, zip(*mine))
+            per_launch[k] = {"launches": n, "ms_per_launch": us / n / 1e3}
+    say("profile", path=label, device_ms=sum(r[0] for r in rows) / 1e3,
+        device_busy_ms=busy_ms, wall_ms=wall_s * 1e3,
+        device_busy_share=busy_ms / (wall_s * 1e3),
         profiled_span_ms=span_ms, busy_share_of_span=busy_ms / span_ms,
         port_kernels_ms=sum(r[0] for r in rows if ours(r[2])) / 1e3,
         other_device_ms=sum(r[0] for r in rows if not ours(r[2])) / 1e3,
+        port_kernels=per_launch,
         top=[{"ms": us / 1e3, "count": n, "name": name[:90]}
              for us, n, name in rows[:12]])
+    return per_launch
 
 
 def main() -> None:
@@ -591,25 +770,26 @@ def main() -> None:
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
 
-    t0 = time.perf_counter()
-    smi_line = phase_device()
-    say("phase", name="device", seconds=time.perf_counter() - t0)
-    t0 = time.perf_counter()
-    phase_build()
-    say("phase", name="build", seconds=time.perf_counter() - t0)
-    t0 = time.perf_counter()
-    results, timed = phase_kernels(device)
-    say("phase", name="kernels", seconds=time.perf_counter() - t0)
-    t0 = time.perf_counter()
-    counts, med, inputs = phase_main(device)
-    say("phase", name="main", seconds=time.perf_counter() - t0)
-    t0 = time.perf_counter()
-    phase_kernel_times(results, timed)
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        say("phase", name=name, seconds=time.perf_counter() - t0)
+        return out
+
+    smi_line = phase("device", phase_device)
+    phase("build", phase_build)
+    results, timed = phase("kernels", phase_kernels, device)
+    counts, med, (p_aff, q_aff) = phase("main", phase_main, device)
+    counts_ntt, med_ntt, x = phase("ntt", phase_ntt, device)
+    phase("kernel_times", phase_kernel_times, results, timed)
     del timed
-    say("phase", name="kernel_times", seconds=time.perf_counter() - t0)
-    t0 = time.perf_counter()
-    phase_profile(*inputs, med["pairing"])
-    say("phase", name="profile", seconds=time.perf_counter() - t0)
+    from bls12_381_torch import pairing as pr
+    from bls12_381_torch.ops import ntt
+
+    phase("profile", phase_profile, "pairing",
+          lambda: pr.pairing(p_aff, q_aff), med["pairing"])
+    phase("profile_ntt", phase_profile, "ntt", lambda: ntt.ntt(x),
+          med_ntt["ntt"])
 
     from bls12_381_torch.kernels import plan_exec as pe
 
@@ -623,12 +803,11 @@ def main() -> None:
                 "shape": key, "mismatches": r["mismatches"]}
 
     src = "bls12_381_torch/kernels/csrc/"
+    pallas = "bls12_381_tpu/kernels/pallas_mont.py"
     kernels = [
-        entry("sop", src + "mont.cu",
-              "bls12_381_tpu/kernels/pallas_mont.py:620", counts["sop"],
+        entry("sop", src + "mont.cu", f"{pallas}:620", counts["sop"],
               f"sop T=1 B={4 * 68 * BATCH}"),
-        entry("sqr", src + "mont.cu",
-              "bls12_381_tpu/kernels/pallas_mont.py:711", counts["sqr"],
+        entry("sqr", src + "mont.cu", f"{pallas}:711", counts["sqr"],
               f"sqr G=1 B={BATCH}"),
     ]
     for make_plan in pe.MAIN_PATH_PLANS:
@@ -638,6 +817,12 @@ def main() -> None:
             "bls12_381_tpu/kernels/plan_exec.py:778",
             counts["plan_exec_by_plan"].get(plan.name, 0),
             f"plan_exec {plan.name} B={BATCH}"))
+    # the NTT's kernels: launches per NTT at 2^20; ms and bound at the
+    # shape of its largest launch (the 1/N scaling, a stage)
+    kernels.append(entry("sop_fr", src + "fr.cu", f"{pallas}:620",
+                         counts_ntt["sop_fr"], f"sop_fr T=1 B={NTT_N}"))
+    kernels.append(entry("butterfly", src + "fr.cu", f"{pallas}:414",
+                         counts_ntt["butterfly"], f"butterfly B={NTT_N // 2}"))
     say("phase", name="total", seconds=time.perf_counter() - t_all)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)

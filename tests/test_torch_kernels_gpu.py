@@ -15,10 +15,12 @@ import pytest
 import torch
 
 from bls12_381_torch import entry, limbs, params
+from bls12_381_torch.fields import fr
 from bls12_381_torch.kernels import LAUNCHES, mont, plan_exec as pe
+from bls12_381_torch.ops import ntt
 
 pytestmark = pytest.mark.gpu
-P = params.P
+P, Q = params.P, params.Q
 EDGES = (0, 1, P - 1)
 
 
@@ -66,6 +68,54 @@ def test_plan_kernel_matches_plain(cuda, make_plan):
     got = pe.plan_exec(ops, plan)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), pe.plan_exec_plain(ops.cpu(), plan))
+
+
+def rand_fr(n: int, lanes: int, device, seed: int) -> torch.Tensor:
+    """[n, 16, lanes] random canonical Fr limbs; lanes 0..3 of every row
+    hold 0, 1, q-1 and q-2."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randint(0, 1 << 16, (n, 16, lanes), generator=gen,
+                      dtype=torch.int32)
+    x[:, 15] &= 0x3FFF
+    for lane, v in enumerate((0, 1, Q - 1, Q - 2)):
+        x[:, :, lane] = torch.tensor(params.to_limbs(v, 16))
+    return x.to(device)
+
+
+@pytest.mark.parametrize("T", [1, 2])
+def test_sop_fr_kernel_matches_plain(cuda, T):
+    a = rand_fr(T, 333, cuda, seed=20 + T)
+    b = rand_fr(T, 333, cuda, seed=30 + T).flip(-1).contiguous()
+    got = mont.sop_fr(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), mont.sop_fr_plain(a.cpu(), b.cpu()))
+
+
+def test_butterfly_kernel_matches_plain(cuda):
+    """Random lanes plus the rows of tests/test_device_fields.py that take
+    lo's -q and hi's +q corrections."""
+    a, b, w = rand_fr(3, 300, cuda, seed=41)
+    edge = {"a": [0, 1, Q - 1, Q - 2, 0, Q - 1],
+            "b": [Q - 1, 0, Q - 1, 1, 0, 1],
+            "w": [Q - 1, 5, Q - 1, 1, 7, Q - 1]}
+    for x, key in ((a, "a"), (b, "b"), (w, "w")):
+        x[:, 10:16] = fr.from_ints(edge[key], device=cuda)
+    got = mont.butterfly(a, b, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), mont.butterfly_plain(a.cpu(), b.cpu(),
+                                                       w.cpu()))
+
+
+def test_ntt_on_card_matches_cpu(cuda):
+    log_n = 12
+    x = entry.ntt_inputs(log_n, seed=5)
+    LAUNCHES.reset()
+    got = ntt.ntt(x)
+    torch.cuda.synchronize()
+    counts = LAUNCHES.snapshot()
+    assert counts["butterfly"] == log_n and counts["sop_fr"] == log_n - 1
+    assert torch.equal(got.cpu(), ntt.ntt(x.cpu()))
+    assert torch.equal(ntt.intt(got).cpu(), x.cpu())
 
 
 def test_pairing_on_card_matches_cpu(cuda):
