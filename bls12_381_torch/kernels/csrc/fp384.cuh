@@ -1,57 +1,27 @@
 // 384-bit Montgomery arithmetic for the BLS12-381 base field on Hopper.
 //
-// Shared device code of the port's Fp kernels (mont.cu, plan_exec.cu): the
-// word-level code of montgomery.cuh instantiated for p.  An Fp element lives
-// in registers as 12 little-endian 32-bit words, in Montgomery form with
-// R = 2^384.  Every function returns a canonical result (< p) from canonical
-// inputs.
+// The field struct of the port's Fp kernels (mont.cu, plan_exec.cu), which
+// instantiate the word-level code of montgomery.cuh with it.  An Fp element
+// lives in registers as 12 little-endian 32-bit words, in Montgomery form
+// with R = 2^384.
 #pragma once
 
 #include "montgomery.cuh"
 
 namespace fp384 {
 
-using montgomery::u64;
-
-constexpr int W = 12;    // 32-bit words per element
-constexpr int L16 = 24;  // 16-bit limbs per element at the boundary
-constexpr uint32_t N0 = 0xfffcfffdu;  // -p^-1 mod 2^32
-
-static __constant__ uint32_t kP[W] = {
+static __constant__ uint32_t kP[12] = {
     0xffffaaabu, 0xb9feffffu, 0xb153ffffu, 0x1eabfffeu,
     0xf6b0f624u, 0x6730d2a0u, 0xf38512bfu, 0x64774b84u,
     0x434bacd7u, 0x4b1ba7b6u, 0x397fe69au, 0x1a0111eau,
 };
 
 struct Field {
-  static constexpr int W = fp384::W;
-  static constexpr uint32_t N0 = fp384::N0;
+  static constexpr int W = 12;         // 32-bit words per element
+  static constexpr int L16 = 24;       // 16-bit limbs at the boundary
+  static constexpr int MAX_TERMS = 8;  // R/p ~ 9.84
+  static constexpr uint32_t N0 = 0xfffcfffdu;  // -p^-1 mod 2^32
   __device__ __forceinline__ static uint32_t p(int j) { return kP[j]; }
 };
-
-using montgomery::load16;
-using montgomery::load32;
-using montgomery::mul_acc;
-using montgomery::sqr_wide;
-using montgomery::store16;
-using montgomery::store32;
-using montgomery::zero_wide;
-
-__device__ __forceinline__ void mont_reduce(uint32_t (&t)[2 * W + 1],
-                                            uint32_t (&r)[W]) {
-  montgomery::mont_reduce<Field>(t, r);
-}
-
-__device__ __forceinline__ void mod_add(const uint32_t (&a)[W],
-                                        const uint32_t (&b)[W],
-                                        uint32_t (&r)[W]) {
-  montgomery::mod_add<Field>(a, b, r);
-}
-
-__device__ __forceinline__ void mod_sub(const uint32_t (&a)[W],
-                                        const uint32_t (&b)[W],
-                                        uint32_t (&r)[W]) {
-  montgomery::mod_sub<Field>(a, b, r);
-}
 
 }  // namespace fp384

@@ -3,6 +3,7 @@
 //
 //   bls_sop_fr:    out[:, b] = (sum_t a[t, :, b] * b[t, :, b]) R^-1 mod q,
 //                  a, b int32 [T, 16, B] 16-bit limbs, T <= 2; out [16, B]
+//                  (montgomery.cuh's sop_kernel for Fr)
 //   bls_butterfly: t = b w R^-1 mod q; out[0] = a + t, out[1] = a - t mod q,
 //                  a, b, w int32 [16, B]; out int32 [2, 16, B]
 //
@@ -12,38 +13,16 @@
 
 using namespace montgomery;
 using fr256::Field;
-using fr256::L16;
-using fr256::W;
 
 namespace {
 
 constexpr int kBlock = 128;
-constexpr int kMaxTerms = 2;  // T q < R
-
-__global__ void __launch_bounds__(kBlock)
-sop_fr_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
-              int32_t* __restrict__ out, int T, int B) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= B) return;
-  uint32_t acc[2 * W + 1];
-  zero_wide(acc);
-#pragma unroll 1
-  for (int t = 0; t < T; ++t) {
-    const size_t off = (size_t)t * L16 * B + lane;
-    uint32_t x[W], y[W];
-    load16(a + off, B, x);
-    load16(b + off, B, y);
-    mul_acc(acc, x, y);
-  }
-  uint32_t r[W];
-  mont_reduce<Field>(acc, r);
-  store16(out + lane, B, r);
-}
 
 __global__ void __launch_bounds__(kBlock)
 butterfly_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
                  const int32_t* __restrict__ w, int32_t* __restrict__ out,
                  int B) {
+  constexpr int W = Field::W;
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= B) return;
   uint32_t x[W], y[W];
@@ -59,18 +38,14 @@ butterfly_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
   mod_add<Field>(x, t, r);
   store16(out + lane, B, r);
   mod_sub<Field>(x, t, r);
-  store16(out + (size_t)L16 * B + lane, B, r);
+  store16(out + (size_t)Field::L16 * B + lane, B, r);
 }
 
 }  // namespace
 
 extern "C" int bls_sop_fr(const void* a, const void* b, void* out, int T,
                           int B, void* stream) {
-  if (T < 1 || T > kMaxTerms || B < 1) return (int)cudaErrorInvalidValue;
-  const int grid = (B + kBlock - 1) / kBlock;
-  sop_fr_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)a, (const int32_t*)b, (int32_t*)out, T, B);
-  return (int)cudaGetLastError();
+  return launch_sop<Field>(a, b, out, T, B, stream);
 }
 
 extern "C" int bls_butterfly(const void* a, const void* b, const void* w,

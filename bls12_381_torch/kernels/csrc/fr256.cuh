@@ -1,29 +1,27 @@
 // 256-bit Montgomery arithmetic for the BLS12-381 scalar field Fr on Hopper.
 //
-// Device code of the port's Fr kernels (fr.cu): the word-level code of
-// montgomery.cuh instantiated for q.  An Fr element lives in registers as 8
-// little-endian 32-bit words, in Montgomery form with R = 2^256 (the same R
-// as the 16 16-bit limbs at the boundary).  R/q ~ 2.21, so a fused sum of
-// products reduces to a canonical value for T <= 2 terms, and 2q < 2^256, so
-// a modular add never carries out of the 8 words.
+// The field struct of the port's Fr kernels (fr.cu), which instantiate the
+// word-level code of montgomery.cuh with it.  An Fr element lives in
+// registers as 8 little-endian 32-bit words, in Montgomery form with
+// R = 2^256 (the same R as the 16 16-bit limbs at the boundary).  R/q ~ 2.21,
+// so a fused sum of products reduces to a canonical value for T <= 2 terms,
+// and 2q < 2^256, so a modular add never carries out of the 8 words.
 #pragma once
 
 #include "montgomery.cuh"
 
 namespace fr256 {
 
-constexpr int W = 8;     // 32-bit words per element
-constexpr int L16 = 16;  // 16-bit limbs per element at the boundary
-constexpr uint32_t N0 = 0xffffffffu;  // -q^-1 mod 2^32 (q's low word is 1)
-
-static __constant__ uint32_t kQ[W] = {
+static __constant__ uint32_t kQ[8] = {
     0x00000001u, 0xffffffffu, 0xfffe5bfeu, 0x53bda402u,
     0x09a1d805u, 0x3339d808u, 0x299d7d48u, 0x73eda753u,
 };
 
 struct Field {
-  static constexpr int W = fr256::W;
-  static constexpr uint32_t N0 = fr256::N0;
+  static constexpr int W = 8;          // 32-bit words per element
+  static constexpr int L16 = 16;       // 16-bit limbs at the boundary
+  static constexpr int MAX_TERMS = 2;  // T q < R
+  static constexpr uint32_t N0 = 0xffffffffu;  // -q^-1 mod 2^32 (q's low word is 1)
   __device__ __forceinline__ static uint32_t p(int j) { return kQ[j]; }
 };
 

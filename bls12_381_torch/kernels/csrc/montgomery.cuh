@@ -7,9 +7,12 @@
 // boundary, so repacking cannot change a canonical value.  A field F is a
 // struct with
 //   static constexpr int W;            32-bit words per element
+//   static constexpr int L16;          16-bit limbs per element (2 W)
+//   static constexpr int MAX_TERMS;    terms of a fused sum, T p < R
 //   static constexpr uint32_t N0;      -p^-1 mod 2^32
 //   __device__ static uint32_t p(int j);  word j of the modulus
 // Every function returns a canonical result (< p) from canonical inputs.
+// The sum-of-products kernel at the end is instantiated once per field.
 #pragma once
 
 #include <cstdint>
@@ -213,6 +216,44 @@ __device__ __forceinline__ void mod_sub(const uint32_t (&a)[F::W],
     r[j] = (uint32_t)x;
     c = (uint32_t)(x >> 32);
   }
+}
+
+constexpr int kSopBlock = 128;
+
+// out[:, b] = (sum_t a[t, :, b] * b[t, :, b]) R^-1 mod p over int32 16-bit
+// limbs [T, L16, B] -> [L16, B], T <= MAX_TERMS: one thread per lane, the T
+// products summed in a 2W+1-word accumulator, then one reduction.
+template <class F>
+__global__ void __launch_bounds__(kSopBlock)
+sop_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
+           int32_t* __restrict__ out, int T, int B) {
+  constexpr int W = F::W;
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= B) return;
+  uint32_t acc[2 * W + 1];
+  zero_wide(acc);
+#pragma unroll 1
+  for (int t = 0; t < T; ++t) {
+    const size_t off = (size_t)t * F::L16 * B + lane;
+    uint32_t x[W], y[W];
+    load16(a + off, B, x);
+    load16(b + off, B, y);
+    mul_acc(acc, x, y);
+  }
+  uint32_t r[W];
+  mont_reduce<F>(acc, r);
+  store16(out + lane, B, r);
+}
+
+// Launch sop_kernel<F> on `stream`; returns cudaGetLastError().
+template <class F>
+int launch_sop(const void* a, const void* b, void* out, int T, int B,
+               void* stream) {
+  if (T < 1 || T > F::MAX_TERMS || B < 1) return (int)cudaErrorInvalidValue;
+  const int grid = (B + kSopBlock - 1) / kSopBlock;
+  sop_kernel<F><<<grid, kSopBlock, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)a, (const int32_t*)b, (int32_t*)out, T, B);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace montgomery

@@ -14,7 +14,8 @@
 // all mod p and canonical; sop takes n_terms <= 8 with one reduction.
 #include "fp384.cuh"
 
-using namespace fp384;
+using namespace montgomery;
+using fp384::Field;
 
 namespace {
 
@@ -28,6 +29,7 @@ plan_kernel(const int32_t* __restrict__ ops, int32_t* __restrict__ out,
             uint32_t* scratch, const int32_t* __restrict__ instr,
             int n_instr, const int32_t* __restrict__ out_slots, int n_in,
             int n_out, int B) {
+  constexpr int W = Field::W;
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= B) return;
   const size_t slot = (size_t)W * B;
@@ -36,7 +38,7 @@ plan_kernel(const int32_t* __restrict__ ops, int32_t* __restrict__ out,
 #pragma unroll 1
   for (int k = 0; k < n_in; ++k) {
     uint32_t x[W];
-    load16(ops + (size_t)k * L16 * B + lane, B, x);
+    load16(ops + (size_t)k * Field::L16 * B + lane, B, x);
     store32(s + k * slot, B, x);
   }
 
@@ -56,20 +58,20 @@ plan_kernel(const int32_t* __restrict__ ops, int32_t* __restrict__ out,
         load32(s + __ldg(ins + 4 + 2 * t) * slot, B, y);
         mul_acc(acc, x, y);
       }
-      mont_reduce(acc, r);
+      mont_reduce<Field>(acc, r);
     } else {
       uint32_t x[W], y[W];
       load32(s + __ldg(ins + 3) * slot, B, x);
       if (op == kNeg) {
 #pragma unroll
         for (int k = 0; k < W; ++k) y[k] = 0;
-        mod_sub(y, x, r);
+        mod_sub<Field>(y, x, r);
       } else {
         load32(s + __ldg(ins + 4) * slot, B, y);
         if (op == kAdd) {
-          mod_add(x, y, r);
+          mod_add<Field>(x, y, r);
         } else {
-          mod_sub(x, y, r);
+          mod_sub<Field>(x, y, r);
         }
       }
     }
@@ -80,7 +82,7 @@ plan_kernel(const int32_t* __restrict__ ops, int32_t* __restrict__ out,
   for (int o = 0; o < n_out; ++o) {
     uint32_t x[W];
     load32(s + __ldg(out_slots + o) * slot, B, x);
-    store16(out + (size_t)o * L16 * B + lane, B, x);
+    store16(out + (size_t)o * Field::L16 * B + lane, B, x);
   }
 }
 

@@ -7,8 +7,9 @@ body `_sqr_kernel_r12_scalar`); source `csrc/mont.cu` on `csrc/fp384.cuh`.
 `sop_fr` replaces `sop_pallas`'s Fr route (body `_sop_kernel_reg`, chosen at
 pallas_mont.py:682-689), `butterfly` replaces `butterfly_pallas` (bodies
 `_butterfly_kernel_16`, `_butterfly_kernel_16_vec`); source `csrc/fr.cu` on
-`csrc/fr256.cuh`.  Both field headers instantiate the word-level Montgomery
-code of `csrc/mont_words.cuh`.
+`csrc/fr256.cuh`.  Both sources instantiate the word-level Montgomery code of
+`csrc/montgomery.cuh` with their field header's struct; `sop` and `sop_fr`
+are its one sum-of-products kernel template, built for p and for q.
 
 Design.  One thread per batch lane; the lane axis is innermost, so a warp's
 loads of one limb row are 32 neighbouring words.  The 16-bit limbs of each

@@ -3,7 +3,7 @@
 `plan_exec` replaces `bls12_381_tpu/kernels/plan_exec.py::plan_exec_pallas`
 (default body `_plan_kernel`, the level-batched evaluator run by
 `run_plan(variant="vector")`).  Source: `csrc/plan_exec.cu` on
-`csrc/fp384.cuh`.
+`csrc/montgomery.cuh` with the Fp field of `csrc/fp384.cuh`.
 
 The DAG and the plan constructors are the JAX package's, copied: nodes are
 `in`, `add`, `sub`, `neg` and `sop` (T <= 6 per node; the constructors chunk
@@ -16,8 +16,8 @@ level groups (nodes of one depth, op and term count are independent).  The
 CUDA kernel is a generic interpreter: one thread per batch lane walks the
 table in the same order as every other thread, so there is no divergence;
 each node's value is 12 32-bit words in a per-lane slot of a [slot, 12, B]
-scratch tensor; a `sop` row runs the shared Montgomery sum-of-products device
-code of `csrc/fp384.cuh`, `add`/`sub`/`neg` are canonical 12-word modular
+scratch tensor; a `sop` row runs the shared Montgomery product and reduction
+of `csrc/montgomery.cuh`, `add`/`sub`/`neg` are canonical 12-word modular
 ripples (the counterparts of `_mod_add_rows`/`_mod_sub_rows`).  The plain
 version executes the SAME table, one vectorised PyTorch call per level
 group, so the CPU tests cover the table's encoding and only the CUDA

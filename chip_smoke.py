@@ -60,6 +60,7 @@ BATCH = 1024
 NTT_LOG_N = 20                     # bench.py's scalar NTT 2^20
 NTT_N = 1 << NTT_LOG_N
 SEED = 20261016
+DOUBLINGS = f"sop_fr twiddle doublings T=1 B=1..{NTT_N // 4}"
 STAGE_REPS = 7                     # host-clock runs per stage; median kept
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 # 32-bit integer multiply-adds per second: 132 SMs x 64 per clock (CUDA C
@@ -245,16 +246,33 @@ def compare(got, ref):
     return int((lanes != 0).sum()), int(diff.max()) if diff.numel() else 0
 
 
+# The port's kernels as the profiler names them on the card: the substrings
+# each name holds (one sum-of-products template serves both fields).
+KERNEL_NAMES = {"sop": ("sop_kernel", "fp384"), "sqr": ("sqr_kernel",),
+                "plan_exec": ("plan_kernel",),
+                "sop_fr": ("sop_kernel", "fr256"),
+                "butterfly": ("butterfly_kernel",)}
+
+
+def kernel_of(name: str):
+    """The port kernel a device-side event belongs to, or None."""
+    return next((k for k, subs in KERNEL_NAMES.items()
+                 if all(sub in name for sub in subs)), None)
+
+
 class KernelChecks:
     """Results of phase kernels: each kernel call held against its plain
-    version, timed with CUDA events, with its bound; and per shape the call
-    whose device time `phase_kernel_times` reads later."""
+    version, timed with CUDA events, with its bound, every time and bound
+    per launch; and per shape the call whose device time
+    `phase_kernel_times` reads later."""
 
     def __init__(self):
         self.results, self.timed, self.failures = {}, [], []
 
     def hold(self, key, call, plain, kernel, n_events, n_plain, n_bytes,
-             n_imads, **extra):
+             n_imads, launches=1, **extra):
+        """`launches`: the kernel launches one call makes; n_bytes and
+        n_imads are the call's."""
         import torch
 
         got = call()
@@ -265,10 +283,10 @@ class KernelChecks:
         bms, by = bound(n_bytes, n_imads)
         self.results[key] = dict(
             mismatches=mism, max_abs_err=err,
-            events_ms=time_events(call, n=n_events),
-            plain_ms=time_events(plain, n=n_plain, warm=1),
-            bound_ms=bms, bound_by=by, **extra)
-        self.timed.append((key, call, kernel, n_events))
+            events_ms=time_events(call, n=n_events) / launches,
+            plain_ms=time_events(plain, n=n_plain, warm=1) / launches,
+            bound_ms=bms / launches, bound_by=by, **extra)
+        self.timed.append((key, call, kernel, n_events, launches))
         say("kernels", kernel=key, **self.results[key])
         if mism:
             self.failures.append(key)
@@ -305,7 +323,7 @@ def phase_kernels(device):
             a[:, :, 3], b[:, :, 3] = edges[1], edges[2]
             a[:, :, 4], b[:, :, 4] = edges[2], edges[0]
             chk.hold(f"sop T={T} B={B}", lambda a=a, b=b: mont.sop(a, b),
-                     lambda a=a, b=b: mont.sop_plain(a, b), "sop_kernel",
+                     lambda a=a, b=b: mont.sop_plain(a, b), "sop",
                      50, 3, 4 * B * 24 * (2 * T + 1), B * sop_imads(T))
 
     # --- sqr: G in {1, 3}, B = 1024
@@ -314,7 +332,7 @@ def phase_kernels(device):
         for lane, col in enumerate(edges):
             a[:, :, lane] = col
         chk.hold(f"sqr G={G} B={BATCH}", lambda a=a: mont.sqr(a),
-                 lambda a=a: mont.sqr_plain(a), "sqr_kernel", 200, 5,
+                 lambda a=a: mont.sqr_plain(a), "sqr", 200, 5,
                  4 * G * BATCH * 24 * 2, G * BATCH * SQR_IMADS)
 
     # --- plan_exec: each main-path plan at B = 1024
@@ -327,7 +345,7 @@ def phase_kernels(device):
         chk.hold(f"plan_exec {plan.name} B={BATCH}",
                  lambda ops=ops, plan=plan: pe.plan_exec(ops, plan),
                  lambda ops=ops, plan=plan: pe.plan_exec_plain(ops, plan),
-                 "plan_kernel", 20, 2, 96 * BATCH * (plan.n_in + plan.n_out),
+                 "plan_exec", 20, 2, 96 * BATCH * (plan.n_in + plan.n_out),
                  BATCH * sum(sop_imads(t) for t in plan.sop_terms()),
                  nodes=len(plan.instr), groups=len(plan.groups),
                  sop_nodes=len(plan.sop_terms()))
@@ -346,8 +364,21 @@ def phase_kernels(device):
         a[:, :, 4], b[:, :, 4] = fr_edges[1], fr_edges[2]
         a[:, :, 5], b[:, :, 5] = fr_edges[2], fr_edges[0]
         chk.hold(f"sop_fr T={T} B={B}", lambda a=a, b=b: mont.sop_fr(a, b),
-                 lambda a=a, b=b: mont.sop_fr_plain(a, b), "sop_fr_kernel",
+                 lambda a=a, b=b: mont.sop_fr_plain(a, b), "sop_fr",
                  50, 3, 4 * B * 16 * (2 * T + 1), B * sop_imads(T, 8))
+    # the twiddle doublings of one ntt in one call: T = 1 at the widths
+    # 1, 2, ..., N/4, the step constant broadcast over the width as
+    # `fr.mul` materialises it (the kernels line's `sop_fr` row)
+    widths = [1 << i for i in range(NTT_LOG_N - 1)]
+    pairs = [(rand_fr((1, w), gen, device).transpose(0, 1).contiguous(),
+              rand_fr((1, 1), gen, device).transpose(0, 1)
+              .expand(1, 16, w).contiguous()) for w in widths]
+    chk.hold(DOUBLINGS,
+             lambda: torch.cat([mont.sop_fr(a, b) for a, b in pairs], -1),
+             lambda: torch.cat([mont.sop_fr_plain(a, b) for a, b in pairs],
+                               -1),
+             "sop_fr", 20, 2, sum(4 * w * 16 * 3 for w in widths),
+             sum(w * sop_imads(1, 8) for w in widths), launches=len(widths))
     for B in (1 << 16, NTT_N // 2):
         a, b, w = rand_fr((3, B), gen, device).unbind(1)
         # lanes 0..5: the rows whose lo takes the -q correction and whose
@@ -365,7 +396,7 @@ def phase_kernels(device):
         chk.hold(f"butterfly B={B}",
                  lambda a=a, b=b, w=w: mont.butterfly(a, b, w),
                  lambda a=a, b=b, w=w: mont.butterfly_plain(a, b, w),
-                 "butterfly_kernel", 50, 3, B * BUTTERFLY_BYTES,
+                 "butterfly", 50, 3, B * BUTTERFLY_BYTES,
                  B * BUTTERFLY_IMADS)
     if chk.failures:
         fail(f"kernel and plain version disagree: {chk.failures}")
@@ -560,8 +591,9 @@ def phase_main(device):
 
 def phase_kernel_times(results, timed) -> None:
     """Each kernel's device time per launch at the shapes of phase kernels,
-    into results[key]["ms"]: the mean duration of its launches as the
-    profiler records them on the card.  (CUDA events around back-to-back
+    into results[key]["ms"]: the mean duration of its launches (of a
+    call's launches, for a call that makes several) as the profiler
+    records them on the card.  (CUDA events around back-to-back
     calls time the host's issue rate for kernels that finish faster than
     Python and ctypes can launch them.)  One profiler session runs every
     shape's launches in turn; each kernel's events, in order, are split
@@ -569,7 +601,7 @@ def phase_kernel_times(results, timed) -> None:
     import torch
 
     def run_all():
-        for _, call, _, n in timed:
+        for _, call, _, n, _ in timed:
             for _ in range(n):
                 call()
             torch.cuda.synchronize()
@@ -578,14 +610,14 @@ def phase_kernel_times(results, timed) -> None:
     durs = {}
     for kernel in {t[2] for t in timed}:
         durs[kernel] = [end - start for name, start, end in evs
-                        if kernel in name]
-        want = sum(n for _, _, k, n in timed if k == kernel)
+                        if kernel_of(name) == kernel]
+        want = sum(n * per for _, _, k, n, per in timed if k == kernel)
         if len(durs[kernel]) != want:
             fail(f"profiler recorded {len(durs[kernel])} launches of "
                  f"{kernel}, not {want}")
-    for key, _, kernel, n in timed:
-        mine, durs[kernel] = durs[kernel][:n], durs[kernel][n:]
-        results[key]["ms"] = sum(mine) / n / 1e3
+    for key, _, kernel, n, per in timed:
+        mine, durs[kernel] = durs[kernel][:n * per], durs[kernel][n * per:]
+        results[key]["ms"] = sum(mine) / (n * per) / 1e3
         say("kernel_times", kernel=key, ms=results[key]["ms"],
             events_ms=results[key]["events_ms"],
             bound_ms=results[key]["bound_ms"])
@@ -711,10 +743,6 @@ def phase_ntt(device):
     return counts, med, x
 
 
-OUR_KERNELS = ("sop_kernel", "sqr_kernel", "plan_kernel", "sop_fr_kernel",
-               "butterfly_kernel")
-
-
 def phase_profile(label: str, fn, wall_s: float) -> dict:
     """Where one run of a path goes on the card: device time by kernel,
     from the profiler's device-side events only, each port kernel's mean
@@ -734,11 +762,11 @@ def phase_profile(label: str, fn, wall_s: float) -> dict:
     span_ms = (max(e[2] for e in evs) - min(e[1] for e in evs)) / 1e3
 
     def ours(name):
-        return any(k in name for k in OUR_KERNELS)
+        return kernel_of(name) is not None
 
     per_launch = {}
-    for k in OUR_KERNELS:
-        mine = [(us, n) for us, n, name in rows if k in name]
+    for k in KERNEL_NAMES:
+        mine = [(us, n) for us, n, name in rows if kernel_of(name) == k]
         if mine:
             us, n = map(sum, zip(*mine))
             per_launch[k] = {"launches": n, "ms_per_launch": us / n / 1e3}
@@ -817,10 +845,11 @@ def main() -> None:
             "bls12_381_tpu/kernels/plan_exec.py:778",
             counts["plan_exec_by_plan"].get(plan.name, 0),
             f"plan_exec {plan.name} B={BATCH}"))
-    # the NTT's kernels: launches per NTT at 2^20; ms and bound at the
-    # shape of its largest launch (the 1/N scaling, a stage)
+    # the NTT's kernels: launches per ntt at 2^20; ms, plain ms and bound
+    # per launch at the shapes the ntt launches (its twiddle doublings, a
+    # stage)
     kernels.append(entry("sop_fr", src + "fr.cu", f"{pallas}:620",
-                         counts_ntt["sop_fr"], f"sop_fr T=1 B={NTT_N}"))
+                         counts_ntt["sop_fr"], DOUBLINGS))
     kernels.append(entry("butterfly", src + "fr.cu", f"{pallas}:414",
                          counts_ntt["butterfly"], f"butterfly B={NTT_N // 2}"))
     say("phase", name="total", seconds=time.perf_counter() - t_all)

@@ -62,8 +62,6 @@ def test_ntt_evaluates_and_inverts():
         assert got[k] == sum(c * pow(omega, i * k, Q)
                              for i, c in enumerate(coeffs)) % Q, k
     assert [int(v) for v in fr.to_ints(ntt.intt(evals))] == coeffs
-    skip = ntt.ntt(evals, inverse=True, _skip_scale=True)
-    assert [int(v) for v in fr.to_ints(skip)] == [c * n % Q for c in coeffs]
 
 
 def test_poly_mul_matches_jax_and_convolution():
