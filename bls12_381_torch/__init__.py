@@ -2,7 +2,8 @@
 
 The PyTorch and CUDA port of `bls12_381_tpu` (which stays in the repository
 as the reference), slice by slice; the slices so far are the batched
-optimal-ate pairing and the radix-2 NTT over the scalar field.  Same numeric
+optimal-ate pairing, the radix-2 NTT over the scalar field, and the G1/G2
+group law with Pippenger multi-scalar multiplication.  Same numeric
 domain and boundary layout as the JAX package: a field element batch is an
 int32 tensor [L, *batch] of 16-bit Montgomery limbs (R = 2^384 for Fp,
 2^256 for Fr), so values compare as plain arrays.
@@ -10,14 +11,17 @@ int32 tensor [L, *batch] of 16-bit Montgomery limbs (R = 2^384 for Fp,
 Layers:
   params, hostmath — constants and the host integer arithmetic they need
   limbs            — batched 16-bit-limb Montgomery arithmetic
-  kernels          — CUDA kernels (sop, sqr, plan_exec, sop_fr, butterfly)
-                     and plain versions
+  kernels          — CUDA kernels (sop, sqr, fold_planned, plan_exec,
+                     sop_fr, butterfly) and plain versions
   fields           — Fp, the Fp2/Fp6/Fp12 tower, Fr
-  curves           — the G2 generator
+  utils            — power-of-two scans and reductions
+  curves           — G1 and G2: the complete group law, psi, to_affine
   pairing          — G2 preparation, Miller loop, final exponentiation
-  ops              — the NTT over Fr (ntt, intt, poly_mul)
+  ops              — the NTT over Fr (ntt, intt, poly_mul) and the MSM
+                     (msm_g1, msm_g1_large, msm_g2)
   convert          — arrays of the JAX package <-> the port's tensors
-  entry            — `entry()`, `ntt_entry()`: the paths and example inputs
+  entry            — `entry()`, `ntt_entry()`, `msm_entry()`: the paths and
+                     example inputs
 
 A tensor on a CUDA device goes through the kernels; a CPU tensor through
 their plain PyTorch versions.  Entry points default to `device="cuda"`.

@@ -8,6 +8,7 @@ array) and return the port's tensors on a given device, and back, for:
   - Fp and Fp2 elements, and Fp12 as nested tuples (2 x 3 x 2 Fp);
   - Fr elements (16 limbs, checked);
   - affine G1 batches (x, y, inf) and G2 batches ((x0, x1), (y0, y1), inf);
+  - projective G1 batches (x, y, z) and G2 batches of Fp2 coordinates;
   - prepared G2 coefficients (`coeffs`, `infinity`).
 """
 
@@ -94,6 +95,22 @@ def g2_affine_to_torch(q, device="cuda"):
 def g2_affine_from_torch(q):
     x, y, inf = q
     return (fp2_from_torch(x), fp2_from_torch(y), mask_from_torch(inf))
+
+
+def g1_proj_to_torch(p, device="cuda"):
+    return tuple(fp_to_torch(c, device) for c in p)
+
+
+def g1_proj_from_torch(p):
+    return tuple(fp_from_torch(c) for c in p)
+
+
+def g2_proj_to_torch(q, device="cuda"):
+    return tuple(fp2_to_torch(c, device) for c in q)
+
+
+def g2_proj_from_torch(q):
+    return tuple(fp2_from_torch(c) for c in q)
 
 
 def g2_prepared_to_torch(coeffs, infinity, device="cuda") -> G2Prepared:

@@ -1,3 +1,3 @@
-"""Curve groups: the G2 generator the pairing needs."""
+"""Curve groups G1 and G2 over the complete Weierstrass group law."""
 
-from . import g2  # noqa: F401
+from . import g1, g2  # noqa: F401

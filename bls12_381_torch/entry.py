@@ -1,11 +1,12 @@
-"""Entry points of the port's paths: the batched optimal-ate pairing and
-the radix-2 NTT over Fr.
+"""Entry points of the port's paths: the batched optimal-ate pairing, the
+radix-2 NTT over Fr and the G1/G2 multi-scalar multiplication.
 
 `entry()` mirrors `__graft_entry__.entry()` of the JAX package: it returns
 the pairing function and example inputs e([i+1]G1, [2i+1]G2), i < batch, on
 the device (the card unless the caller asks for the CPU).  `ntt_entry()`
 returns the NTT and random coefficients at N = 2^log_n, as `bench.py`'s
-`bench_ntt` times it.
+`bench_ntt` times it.  `msm_entry()` returns `msm_g1` or `msm_g2` and
+N = 2^log_n points [i+1]G with random scalars.
 """
 
 from __future__ import annotations
@@ -14,10 +15,17 @@ import torch
 
 from . import hostmath as hm
 from . import params
+from .curves import g1 as G1
+from .curves import g2 as G2
 from .fields import fp, tower as tw
 from .limbs import DTYPE, FR, resolve_device
-from .ops import ntt
+from .ops import msm, ntt
 from .pairing import pairing
+from .utils import scans
+
+# lanes i of msm_inputs with i % MSM_LANE_CYCLE == MSM_IDENTITY_LANE hold the
+# identity point, those with i % MSM_LANE_CYCLE == MSM_ZERO_LANE the scalar 0
+MSM_LANE_CYCLE, MSM_IDENTITY_LANE, MSM_ZERO_LANE = 64, 5, 9
 
 
 def tiny_pairing_inputs(batch: int, device="cuda"):
@@ -54,3 +62,55 @@ def ntt_inputs(log_n: int, batch=(), seed: int = 4, device="cuda"):
 def ntt_entry(log_n: int = 20, seed: int = 4, device="cuda"):
     """(fn, example_args): the forward NTT and one batch of coefficients."""
     return ntt.ntt, (ntt_inputs(log_n, seed=seed, device=device),)
+
+
+def _spot_check(group: str, pts, lanes, device) -> None:
+    """Raise unless the affine values of `pts` at `lanes` are [i+1]G."""
+    mod = {"g1": G1, "g2": G2}[group]
+    idx = torch.tensor(lanes, device=device)
+    ax, ay, _ = mod.to_affine(scans.tree_map(
+        lambda t: t.index_select(-1, idx), pts))
+    if group == "g1":
+        got = [(int(x), int(y)) for x, y in zip(fp.to_ints(ax),
+                                                fp.to_ints(ay))]
+        want = [hm.g1_mul(params.G1_GEN, i + 1) for i in lanes]
+    else:
+        (x0, x1), (y0, y1) = tw.fp2_to_ints(ax), tw.fp2_to_ints(ay)
+        got = [((int(a), int(b)), (int(c), int(d)))
+               for a, b, c, d in zip(x0, x1, y0, y1)]
+        want = [hm.g2_mul(params.G2_GEN, i + 1) for i in lanes]
+    if got != want:
+        raise RuntimeError(f"msm_inputs: {group} lanes {lanes} are not "
+                           "[i+1]G")
+
+
+def msm_inputs(log_n: int, group: str = "g1", seed: int = 5, device="cuda"):
+    """(points, scalars) for an MSM over N = 2^log_n terms, on a device.
+
+    Points: projective P_i = [i+1]G of the group ("g1" or "g2"), made on the
+    device by an inclusive scan of the group law over copies of the
+    generator and spot-checked at lanes 0, 1 and N-1 against hostmath; the
+    lanes with i % MSM_LANE_CYCLE == MSM_IDENTITY_LANE hold the identity.
+    Scalars: `ntt_inputs`' random Montgomery Fr [16, N] from `seed`, 0 at the
+    lanes with i % MSM_LANE_CYCLE == MSM_ZERO_LANE."""
+    mod = {"g1": G1, "g2": G2}[group]
+    dev = resolve_device(device)
+    n = 1 << log_n
+    pts = scans.inclusive_scan(mod.add, mod.generator((n,), dev),
+                               mod.identity((1,), dev))
+    _spot_check(group, pts, sorted({0, 1 % n, n - 1}), dev)
+    lane = torch.arange(n, device=dev) % MSM_LANE_CYCLE
+    pts = scans.tree_map(
+        lambda i, p: torch.where(lane == MSM_IDENTITY_LANE, i, p),
+        mod.identity((n,), dev), pts)
+    scalars = ntt_inputs(log_n, seed=seed, device=dev).masked_fill(
+        lane == MSM_ZERO_LANE, 0)
+    return pts, scalars
+
+
+def msm_entry(log_n: int = 16, group: str = "g1", seed: int = 5,
+              device="cuda"):
+    """(fn, example_args): `msm.msm_g1` or `msm.msm_g2` (window
+    `msm.MSM_WINDOW`, GLV/GLS split) and `msm_inputs`."""
+    fn = {"g1": msm.msm_g1, "g2": msm.msm_g2}[group]
+    return fn, msm_inputs(log_n, group, seed, device)

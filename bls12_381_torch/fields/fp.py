@@ -35,3 +35,9 @@ to_ints = partial(limbs.to_ints, FP)
 def inv(a):
     """a^(p-2); 0 maps to 0 (fp.rs:346 returns a CtOption; callers mask)."""
     return limbs.inv(FP, a)
+
+
+def batch_inv(a):
+    """Elementwise inverse amortized over the last batch axis (one `inv`
+    for the whole axis, g1.rs:806-839); zeros invert to zero."""
+    return limbs.batch_inv(FP, a)

@@ -8,8 +8,9 @@ Counterpart of `bls12_381_tpu/fields/tower.py` in its default
 configuration.  Every Fp12 multiplication-type operation runs as one
 expression plan (`kernels/plan_exec.py`): the plan kernel on a CUDA tensor,
 its plain version on a CPU tensor.  Fp2 and Fp6 products are folds of fused
-Fp sums of products (`fp.sop_fold`, one `sop` launch per fold) whose
-additive glue is batched into few carry networks.  Results are canonical, so
+Fp sums of products (`fp.sop_fold`: one `fold_planned` launch for four or
+more groups, else one `sop`) whose additive glue is batched into few carry
+networks.  Results are canonical, so
 they equal the JAX package's values limb for limb whatever the grouping.
 """
 
@@ -124,8 +125,24 @@ def fp2_inv(a):
     return (t0, fp.neg(t1))
 
 
+def fp2_batch_inv(a):
+    """fp2_inv with the Fp norm inversion amortized over the last batch
+    axis (`fp.batch_inv`, g1.rs:806-839 analog); zero inverts to zero."""
+    ninv = fp.batch_inv(fp.sop([(a[0], a[0]), (a[1], a[1])]))
+    t0, t1 = fp.mul_many([(a[0], ninv), (a[1], ninv)])
+    return (t0, fp.neg(t1))
+
+
 def fp2_select(mask, a, b):
     return (fp.select(mask, a[0], b[0]), fp.select(mask, a[1], b[1]))
+
+
+def fp2_is_zero(a):
+    return fp.is_zero(a[0]) & fp.is_zero(a[1])
+
+
+def fp2_eq(a, b):
+    return fp.eq(a[0], b[0]) & fp.eq(a[1], b[1])
 
 
 def fp2_zero(batch=(), device="cuda"):

@@ -1,14 +1,16 @@
 """Host-side integer arithmetic the port needs: Fp/Fp2 on Python ints.
 
 A small subset of the reference package's pure-Python oracle.  It computes
-the Frobenius coefficients that `fields/tower.py` embeds as constants, and
-the affine scalar multiples that `entry()` uses as example inputs.  Tests hold
-the port against the full oracle; nothing here is on the device path.
+the Frobenius and endomorphism coefficients that `fields/tower.py`,
+`curves/g1.py` and `curves/g2.py` embed as constants, and the affine group
+law (add, neg, scalar multiple; None is the point at infinity) that the
+entry points and the checks use.  Tests hold the port against the full
+oracle; nothing here is on the device path.
 """
 
 from __future__ import annotations
 
-from .params import B_G1, B_G2, P
+from .params import B_G1, B_G2, BLS_X, G1_GEN, P, Q
 
 # --- Fp2 = Fp[u]/(u^2 + 1); elements are (c0, c1) ------------------------
 
@@ -51,6 +53,10 @@ def fp2_inv(a):
     return (a0 * ninv % P, (-a1) * ninv % P)
 
 
+def fp2_conjugate(a):
+    return (a[0], (-a[1]) % P)
+
+
 def fp2_pow(a, e):
     result = FP2_ONE
     base = a
@@ -72,7 +78,7 @@ FROB6_C2 = fp2_pow(XI, 2 * (P - 1) // 3)
 FROB12_C1 = fp2_pow(XI, (P - 1) // 6)
 
 
-# --- affine group law (vartime; example inputs only) ----------------------
+# --- affine group law (vartime; example inputs and checks only) -----------
 
 
 class _Curve:
@@ -82,6 +88,9 @@ class _Curve:
     def __init__(self, add, sub, mul, inv, b, zero):
         self.add, self.sub, self.mul, self.inv = add, sub, mul, inv
         self.b, self.zero = b, zero
+
+    def neg(self, pt):
+        return None if pt is None else (pt[0], self.sub(self.zero, pt[1]))
 
     def double(self, pt):
         if pt is None or pt[1] == self.zero:
@@ -117,5 +126,27 @@ _G1 = _Curve(lambda a, b: (a + b) % P, lambda a, b: (a - b) % P,
              lambda a, b: a * b % P, fp_inv, B_G1, 0)
 _G2 = _Curve(fp2_add, fp2_sub, fp2_mul, fp2_inv, B_G2, FP2_ZERO)
 
-g1_mul = _G1.scalar_mul
-g2_mul = _G2.scalar_mul
+g1_add, g1_neg, g1_mul = _G1.add_points, _G1.neg, _G1.scalar_mul
+g2_add, g2_neg, g2_mul = _G2.add_points, _G2.neg, _G2.scalar_mul
+
+
+# --- endomorphism constants (computed, not transcribed) -------------------
+
+
+def _compute_beta():
+    """The cube root of unity beta of Fp with phi(x, y) = (beta x, y) equal
+    to -[z^2] on G1 (g1.rs:421-437)."""
+    for e in (1, 2):
+        beta = pow(2, e * (P - 1) // 3, P)  # 2 is a non-cube in Fp*
+        if (beta * G1_GEN[0] % P, G1_GEN[1]) == g1_neg(
+                g1_mul(G1_GEN, BLS_X * BLS_X % Q)):
+            return beta
+    raise AssertionError("no cube root of unity acts as -z^2")
+
+
+G1_BETA = _compute_beta()
+
+# psi(x, y) = (c_x conj(x), c_y conj(y)) with c_x = 1/xi^((p-1)/3),
+# c_y = 1/xi^((p-1)/2) (g2.rs:847-888)
+PSI_CX = fp2_inv(fp2_pow(XI, (P - 1) // 3))
+PSI_CY = fp2_inv(fp2_pow(XI, (P - 1) // 2))

@@ -18,17 +18,19 @@ class LaunchCounts:
     plan_exec: int = 0
     sop_fr: int = 0
     butterfly: int = 0
+    fold_planned: int = 0
     plan_exec_by_plan: collections.Counter = dataclasses.field(
         default_factory=collections.Counter)
 
     def reset(self) -> None:
         self.sop = self.sqr = self.plan_exec = 0
-        self.sop_fr = self.butterfly = 0
+        self.sop_fr = self.butterfly = self.fold_planned = 0
         self.plan_exec_by_plan.clear()
 
     def snapshot(self) -> dict:
         return {"sop": self.sop, "sqr": self.sqr, "plan_exec": self.plan_exec,
                 "sop_fr": self.sop_fr, "butterfly": self.butterfly,
+                "fold_planned": self.fold_planned,
                 "plan_exec_by_plan": dict(self.plan_exec_by_plan)}
 
 

@@ -220,29 +220,40 @@ __device__ __forceinline__ void mod_sub(const uint32_t (&a)[F::W],
 
 constexpr int kSopBlock = 128;
 
-// out[:, b] = (sum_t a[t, :, b] * b[t, :, b]) R^-1 mod p over int32 16-bit
-// limbs [T, L16, B] -> [L16, B], T <= MAX_TERMS: one thread per lane, the T
-// products summed in a 2W+1-word accumulator, then one reduction.
-template <class F>
-__global__ void __launch_bounds__(kSopBlock)
-sop_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
-           int32_t* __restrict__ out, int T, int B) {
+// One lane of a T-term sum of products: row_a(t) and row_b(t) point at the
+// first 16-bit limb of term t's operands (limbs `stride` elements apart);
+// the T products are summed in a 2W+1-word accumulator, then one reduction
+// writes the canonical (sum_t a_t b_t) R^-1 mod p to dst.  T <= MAX_TERMS.
+template <class F, class RowA, class RowB>
+__device__ __forceinline__ void sop_lane(RowA row_a, RowB row_b, int T,
+                                         size_t stride,
+                                         int32_t* __restrict__ dst) {
   constexpr int W = F::W;
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= B) return;
   uint32_t acc[2 * W + 1];
   zero_wide(acc);
 #pragma unroll 1
   for (int t = 0; t < T; ++t) {
-    const size_t off = (size_t)t * F::L16 * B + lane;
     uint32_t x[W], y[W];
-    load16(a + off, B, x);
-    load16(b + off, B, y);
+    load16(row_a(t), stride, x);
+    load16(row_b(t), stride, y);
     mul_acc(acc, x, y);
   }
   uint32_t r[W];
   mont_reduce<F>(acc, r);
-  store16(out + lane, B, r);
+  store16(dst, stride, r);
+}
+
+// out[:, b] = (sum_t a[t, :, b] * b[t, :, b]) R^-1 mod p over int32 16-bit
+// limbs [T, L16, B] -> [L16, B], T <= MAX_TERMS: one thread per lane.
+template <class F>
+__global__ void __launch_bounds__(kSopBlock)
+sop_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
+           int32_t* __restrict__ out, int T, int B) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= B) return;
+  const size_t term = (size_t)F::L16 * B;
+  sop_lane<F>([&](int t) { return a + t * term + lane; },
+              [&](int t) { return b + t * term + lane; }, T, B, out + lane);
 }
 
 // Launch sop_kernel<F> on `stream`; returns cudaGetLastError().

@@ -1,9 +1,11 @@
-"""Montgomery sum-of-products, squaring and the NTT butterfly: CUDA kernels
-and plain versions.
+"""Montgomery sum-of-products, squaring, the planned fold and the NTT
+butterfly: CUDA kernels and plain versions.
 
 `sop` replaces `bls12_381_tpu/kernels/pallas_mont.py::sop_pallas` for Fp
 (default body `_sop_kernel_r12_scalar`), `sqr` replaces `sqr_pallas` (default
-body `_sqr_kernel_r12_scalar`); source `csrc/mont.cu` on `csrc/fp384.cuh`.
+body `_sqr_kernel_r12_scalar`), `fold_planned` replaces
+`fold_planned_pallas` (bodies `_fold_planned_kernel_r12_scalar`,
+`_fold_planned_kernel_r12`); source `csrc/mont.cu` on `csrc/fp384.cuh`.
 `sop_fr` replaces `sop_pallas`'s Fr route (body `_sop_kernel_reg`, chosen at
 pallas_mont.py:682-689), `butterfly` replaces `butterfly_pallas` (bodies
 `_butterfly_kernel_16`, `_butterfly_kernel_16_vec`); source `csrc/fr.cu` on
@@ -22,7 +24,13 @@ canonical result, unpacked to 16-bit limbs.  The pre-reduction value is
 R/p ~ 9.84 gives the Fp kernel T <= 8 (the JAX package's chunk), R/q ~ 2.21
 gives the Fr kernel T <= 2 (`limbs.FieldSpec.max_terms`).  The canonical
 Montgomery value is unique for R, so the 32-bit digits cannot change a
-result (`pallas_mont.py:96-105`).  The butterfly is one Fr product
+result (`pallas_mont.py:96-105`).  The fold is the same per-lane routine
+(`montgomery.cuh`'s `sop_lane`) with one thread per (lane, group), the
+group on the grid's y axis: term t of group g multiplies rows ia[g, t] and
+ib[g, t] of a deduplicated operand stack, whose row 0 is zeros for the
+padding terms.  The [G, T] index tables are copied into the launch's
+parameter block (uint16 entries, G T <= FOLD_ENTRIES), so no call copies
+them host-to-device.  The butterfly is one Fr product
 t = b w R^-1 followed by a + t and a - t mod q, all in registers; 2q < 2^256,
 so a + t never carries out of the 8 words.
 
@@ -32,7 +40,10 @@ reduction's 12 x 12 + 12, each a lo and a hi 32-bit multiply: about 600
 IMADs per lane.  At 3.35 TB/s and 132 SMs x 64 IMAD/clock x 1.98 GHz the
 bytes take ~2.4x longer than the multiplies, so T = 1 is bound by memory:
 16-bit limbs stored in int32 double the bytes read.  Larger T moves toward
-the multiply bound.  The butterfly reads 3 x 64 and writes 2 x 64 bytes per
+the multiply bound.  The fold's bound counts each of its K distinct rows
+read once and G rows written; the simple kernel reads a row once per term
+that names it, so it gains over the stacked `sop` only the copies the
+stack no longer makes.  The butterfly reads 3 x 64 and writes 2 x 64 bytes per
 lane (320 bytes) for about 270 IMADs: bound by memory, ~50 us per NTT stage
 of 2^19 lanes.  The kernels keep every intermediate in registers (nothing
 but the operands and the result touches device memory); packing the
@@ -48,6 +59,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from .. import limbs
@@ -57,6 +69,8 @@ L = limbs.FP.n_limbs
 L_FR = limbs.FR.n_limbs
 MAX_TERMS = limbs.FP.max_terms
 MAX_TERMS_FR = limbs.FR.max_terms
+FOLD_ENTRIES = 512        # G T entries of the fold's by-value index tables
+FOLD_OPERANDS = 1 << 16   # rows of its operand stack (uint16 indices)
 
 _SIGNATURES = {
     # (a, b, out, T, B, stream)
@@ -65,6 +79,10 @@ _SIGNATURES = {
     # (a, out, G, B, stream)
     "bls_sqr": (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                 ctypes.c_int, ctypes.c_void_p),
+    # (ops, ia, ib [host int32], out, K, G, T, B, stream)
+    "bls_fold_planned": (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                         ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                         ctypes.c_int, ctypes.c_int, ctypes.c_void_p),
 }
 _SIGNATURES_FR = {
     # (a, b, out, T, B, stream)
@@ -166,6 +184,22 @@ def sqr_plain(a: torch.Tensor) -> torch.Tensor:
     return sop_plain(x, x).transpose(0, 1)
 
 
+def fold_planned_plain(ops: torch.Tensor, ia, ib) -> torch.Tensor:
+    """out[g] = (sum_t ops[ia[g, t]] ops[ib[g, t]]) R^-1 mod p for int32
+    [K, 24, B] and [G, T] index tables -> [G, 24, B]: the rows gathered into
+    [T, 24, G, B] and summed by `sop_plain`."""
+    G, T = np.shape(ia)
+    _, n, B = ops.shape
+
+    def gather(idx):
+        rows = torch.as_tensor(np.asarray(idx, np.int64).reshape(-1),
+                               device=ops.device)
+        return ops.index_select(0, rows).reshape(G, T, n, B).permute(
+            1, 2, 0, 3)
+
+    return sop_plain(gather(ia), gather(ib)).transpose(0, 1).contiguous()
+
+
 def butterfly_plain(a: torch.Tensor, b: torch.Tensor,
                     w: torch.Tensor) -> torch.Tensor:
     """(a + b w, a - b w) mod q for int32 [16, *batch] x3 -> [2, 16, *batch]:
@@ -229,6 +263,43 @@ def sqr(a: torch.Tensor) -> torch.Tensor:
         rc = _lib().bls_sqr(a.data_ptr(), out.data_ptr(), G, B, _stream(a))
         LAUNCHES.sqr += 1
     check_launch(rc, "sqr")
+    return out
+
+
+def fold_planned(ops: torch.Tensor, ia, ib) -> torch.Tensor:
+    """G fused sums of products over a deduplicated operand stack:
+    out[g] = (sum_t ops[ia[g, t]] ops[ib[g, t]]) R^-1 mod p.
+
+    ops: int32 [K, 24, B] canonical limbs whose row 0 is zeros (padding
+    terms index it); ia, ib: host int32 [G, T] tables (numpy arrays), T <= 8,
+    G T <= FOLD_ENTRIES, entries in [0, K).  Returns int32 [G, 24, B]."""
+    _check_limbs(ops, "fold_planned ops")
+    ia = np.ascontiguousarray(ia, dtype=np.int32)
+    ib = np.ascontiguousarray(ib, dtype=np.int32)
+    K, _, B = ops.shape
+    if ia.ndim != 2 or ia.shape != ib.shape:
+        raise ValueError(f"fold_planned: index tables {ia.shape} and "
+                         f"{ib.shape}; expected two equal [G, T]")
+    G, T = ia.shape
+    if not (1 <= T <= MAX_TERMS and G >= 1 and G * T <= FOLD_ENTRIES
+            and K <= FOLD_OPERANDS):
+        raise ValueError(f"fold_planned: G={G}, T={T}, K={K}; the kernel "
+                         f"takes T <= {MAX_TERMS}, G T <= {FOLD_ENTRIES}, "
+                         f"K <= {FOLD_OPERANDS}")
+    if min(ia.min(), ib.min()) < 0 or max(ia.max(), ib.max()) >= K:
+        raise ValueError(f"fold_planned: an index lies outside [0, {K})")
+    if device_kind(ops) == "cpu":
+        return fold_planned_plain(ops, ia, ib)
+    ops = ops.contiguous()
+    out = torch.empty((G, L, B), dtype=limbs.DTYPE, device=ops.device)
+    if B == 0:
+        return out
+    with torch.cuda.device(ops.device):
+        rc = _lib().bls_fold_planned(
+            ops.data_ptr(), ia.ctypes.data, ib.ctypes.data, out.data_ptr(),
+            K, G, T, B, _stream(ops))
+        LAUNCHES.fold_planned += 1
+    check_launch(rc, "fold_planned")
     return out
 
 

@@ -427,6 +427,163 @@ MAIN_PATH_PLANS = (
 )
 
 
+# ---------------------------------------------------------------------------
+# Group-law plans: the Renes-Costello-Batina complete formulas (ePrint
+# 2015/1060 Algorithms 7, 8, 9 with a = 0), one launch per group operation
+# (g1.rs:638/670/715 algebra; the JAX package's plans, plan_exec.py:451-594)
+# ---------------------------------------------------------------------------
+
+
+def fp_mul_b3(a: Node) -> Node:
+    """12 * a by additions (3 b with b = 4 on G1; g1.rs:596 trick)."""
+    d2 = add(a, a)
+    d4 = add(d2, d2)
+    d8 = add(d4, d4)
+    return add(d8, d4)
+
+
+@_named_plan
+def g1_add_plan():
+    """RCB Algorithm 7 over Fp: rows (X1 Y1 Z1 X2 Y2 Z2) -> (X3 Y3 Z3).
+    Stage-2 cross products fuse pairwise into 3 two-term sops."""
+    x1, y1, z1, x2, y2, z2 = [inp(i) for i in range(6)]
+    t0 = sop([(x1, x2)])
+    t1 = sop([(y1, y2)])
+    t2 = sop([(z1, z2)])
+    m3 = sop([(add(x1, y1), add(x2, y2))])
+    m4 = sop([(add(y1, z1), add(y2, z2))])
+    m5 = sop([(add(x1, z1), add(x2, z2))])
+    t3 = sub(m3, add(t0, t1))
+    t4 = sub(m4, add(t1, t2))
+    y3 = sub(m5, add(t0, t2))
+    t0_3 = add(add(t0, t0), t0)
+    t2b = fp_mul_b3(t2)
+    z3 = add(t1, t2b)
+    t1d = sub(t1, t2b)
+    y3b = fp_mul_b3(y3)
+    x3 = sop([(t3, t1d), (neg(t4), y3b)])
+    y3o = sop([(t1d, z3), (y3b, t0_3)])
+    z3o = sop([(z3, t4), (t0_3, t3)])
+    return (x3, y3o, z3o)
+
+
+@_named_plan
+def g1_double_plan():
+    """RCB Algorithm 9 over Fp: rows (X Y Z) -> (X3 Y3 Z3)."""
+    x, y, z = inp(0), inp(1), inp(2)
+    t0 = sop([(y, y)])
+    t1 = sop([(y, z)])
+    zz = sop([(z, z)])
+    xy = sop([(x, y)])
+    t2 = fp_mul_b3(zz)
+    z3t = add(add(t0, t0), add(t0, t0))
+    z3t = add(z3t, z3t)                        # 8 Y^2
+    y3s = add(t0, t2)
+    t0d = sub(t0, add(add(t2, t2), t2))        # t0 - 3 t2
+    xym = sop([(t0d, xy)])
+    x3 = add(xym, xym)
+    y3 = sop([(t2, z3t), (t0d, y3s)])
+    z3 = sop([(t1, z3t)])
+    return (x3, y3, z3)
+
+
+@_named_plan
+def g1_add_mixed_plan():
+    """RCB Algorithm 8 (Z2 = 1) over Fp: rows (X1 Y1 Z1 X2 Y2) ->
+    (X3 Y3 Z3).  The affine-identity select stays outside the kernel."""
+    x1, y1, z1, x2, y2 = [inp(i) for i in range(5)]
+    t0 = sop([(x1, x2)])
+    t1 = sop([(y1, y2)])
+    m3 = sop([(add(x2, y2), add(x1, y1))])
+    xz = sop([(x2, z1)])
+    yz = sop([(y2, z1)])
+    t3 = sub(m3, add(t0, t1))
+    t4 = add(yz, y1)
+    y3m = add(xz, x1)
+    t0_3 = add(add(t0, t0), t0)
+    t2 = fp_mul_b3(z1)
+    z3 = add(t1, t2)
+    t1d = sub(t1, t2)
+    y3b = fp_mul_b3(y3m)
+    x3 = sop([(t3, t1d), (neg(t4), y3b)])
+    y3o = sop([(t1d, z3), (y3b, t0_3)])
+    z3o = sop([(z3, t4), (t0_3, t3)])
+    return (x3, y3o, z3o)
+
+
+@_named_plan
+def g2_add_plan():
+    """RCB Algorithm 7 over Fp2: rows (X1 Y1 Z1 X2 Y2 Z2 as c0, c1 pairs;
+    12 rows) -> 6 rows."""
+    x1, y1, z1 = (inp(0), inp(1)), (inp(2), inp(3)), (inp(4), inp(5))
+    x2, y2, z2 = (inp(6), inp(7)), (inp(8), inp(9)), (inp(10), inp(11))
+    t0 = f2_mul(x1, x2)
+    t1 = f2_mul(y1, y2)
+    t2 = f2_mul(z1, z2)
+    m3 = f2_mul(f2_add(x1, y1), f2_add(x2, y2))
+    m4 = f2_mul(f2_add(y1, z1), f2_add(y2, z2))
+    m5 = f2_mul(f2_add(x1, z1), f2_add(x2, z2))
+    t3 = f2_sub(m3, f2_add(t0, t1))
+    t4 = f2_sub(m4, f2_add(t1, t2))
+    y3 = f2_sub(m5, f2_add(t0, t2))
+    t0_3 = f2_add(f2_dbl(t0), t0)
+    t2b = f2_mul_b3(t2)
+    z3 = f2_add(t1, t2b)
+    t1d = f2_sub(t1, t2b)
+    y3b = f2_mul_b3(y3)
+    x3 = f2_sop([(t3, t1d, False), (f2_neg(t4), y3b, False)])
+    y3o = f2_sop([(t1d, z3, False), (y3b, t0_3, False)])
+    z3o = f2_sop([(z3, t4, False), (t0_3, t3, False)])
+    return _flatten_f2s((x3, y3o, z3o))
+
+
+@_named_plan
+def g2_double_plan():
+    """RCB Algorithm 9 over Fp2: 6 rows -> 6 rows."""
+    x, y, z = (inp(0), inp(1)), (inp(2), inp(3)), (inp(4), inp(5))
+    t0 = f2_sqr(y)
+    t1 = f2_mul(y, z)
+    zz = f2_sqr(z)
+    xy = f2_mul(x, y)
+    t2 = f2_mul_b3(zz)
+    z3t = f2_dbl(f2_dbl(f2_dbl(t0)))           # 8 Y^2
+    y3s = f2_add(t0, t2)
+    t0d = f2_sub(t0, f2_add(f2_dbl(t2), t2))   # t0 - 3 t2
+    x3 = f2_dbl(f2_mul(t0d, xy))
+    y3 = f2_sop([(t2, z3t, False), (t0d, y3s, False)])
+    z3 = f2_mul(t1, z3t)
+    return _flatten_f2s((x3, y3, z3))
+
+
+@_named_plan
+def g2_add_mixed_plan():
+    """RCB Algorithm 8 (Z2 = 1) over Fp2: rows (X1 Y1 Z1 X2 Y2; 10 rows)
+    -> 6 rows."""
+    x1, y1, z1 = (inp(0), inp(1)), (inp(2), inp(3)), (inp(4), inp(5))
+    x2, y2 = (inp(6), inp(7)), (inp(8), inp(9))
+    t0 = f2_mul(x1, x2)
+    t1 = f2_mul(y1, y2)
+    m3 = f2_mul(f2_add(x2, y2), f2_add(x1, y1))
+    xz = f2_mul(x2, z1)
+    yz = f2_mul(y2, z1)
+    t3 = f2_sub(m3, f2_add(t0, t1))
+    t4 = f2_add(yz, y1)
+    y3m = f2_add(xz, x1)
+    t0_3 = f2_add(f2_dbl(t0), t0)
+    t2 = f2_mul_b3(z1)
+    z3 = f2_add(t1, t2)
+    t1d = f2_sub(t1, t2)
+    y3b = f2_mul_b3(y3m)
+    x3 = f2_sop([(t3, t1d, False), (f2_neg(t4), y3b, False)])
+    y3o = f2_sop([(t1d, z3, False), (y3b, t0_3, False)])
+    z3o = f2_sop([(z3, t4, False), (t0_3, t3, False)])
+    return _flatten_f2s((x3, y3o, z3o))
+
+
+GROUP_LAW_PLANS = (g1_add_plan, g1_double_plan, g1_add_mixed_plan,
+                   g2_add_plan, g2_double_plan, g2_add_mixed_plan)
+
+
 def _plan_schedule(outputs):
     """Level-batched schedule: nodes sharing (depth, op, T) are mutually
     independent; returns the groups in dependency order."""

@@ -10,8 +10,9 @@ Counterpart of `bls12_381_tpu/limbs.py`, with the same boundary layout:
     Every stored value is canonical (< p).
 
 Products go to the hand-written kernels of `kernels/mont.py` (`sop`, `sqr`
-for Fp, `sop_fr` for Fr): on a CUDA tensor the kernel runs, on a CPU tensor
-its plain PyTorch version.
+and, for folds of four or more groups, `fold_planned` for Fp; `sop_fr` for
+Fr): on a CUDA tensor the kernel runs, on a CPU tensor its plain PyTorch
+version.
 The additive glue (add/sub/neg, `add_many`/`sub_many`, `select`) is plain
 PyTorch on every device, as it is plain jnp in the JAX package: it works in
 int64 and resolves carry chains with the packed-adder trick of `_kogge_stone`
@@ -288,15 +289,61 @@ def mont_sqr(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
     return mont.sqr(flat.unsqueeze(0))[0].reshape((spec.n_limbs,) + batch)
 
 
+FOLD_MIN_GROUPS = 4  # the dedup route's thresholds (JAX limbs.py:503)
+FOLD_MAX_TERMS = 6
+
+
+def _sop_fold_planned(spec: FieldSpec, groups):
+    """A fold through `mont.fold_planned` (JAX `_sop_fold_planned`,
+    limbs.py:446-486): each distinct operand tensor is broadcast and stacked
+    ONCE into [K, L, B] after a zero row 0, and static [G, T] index tables
+    name each term's rows (short groups pad with index 0).  Operands are
+    keyed by the id() of the caller's tensor objects, which `groups` keeps
+    alive for the whole call."""
+    from .kernels import mont
+
+    batch = torch.broadcast_shapes(
+        *[x.shape[1:] for g in groups for pair in g for x in pair])
+    full = (spec.n_limbs,) + batch
+    ops = [torch.zeros(full, dtype=DTYPE, device=groups[0][0][0].device)]
+    ids: dict[int, int] = {}
+
+    def reg(x):
+        k = ids.get(id(x))
+        if k is None:
+            k = ids[id(x)] = len(ops)
+            ops.append(x.expand(full))
+        return k
+
+    t = max(len(g) for g in groups)
+    ia = np.zeros((len(groups), t), np.int32)
+    ib = np.zeros((len(groups), t), np.int32)
+    for gi, g in enumerate(groups):
+        for ti, (a, b) in enumerate(g):
+            ia[gi, ti], ib[gi, ti] = reg(a), reg(b)
+    stack = torch.stack(ops).reshape(len(ops), spec.n_limbs, -1)
+    out = mont.fold_planned(stack, ia, ib)
+    return list(out.reshape((len(groups),) + full).unbind(0))
+
+
 def sop_fold(spec: FieldSpec, groups):
     """Many independent sums of products folded into ONE kernel launch.
 
     groups: G lists of (a, b) pairs (uneven lengths allowed: short groups
-    are padded with zero products).  Returns a list of G results."""
+    are padded with zero products).  Returns a list of G results.  An Fp
+    fold of G >= 4 groups of T <= 6 terms (and G T within the fold kernel's
+    table) takes the operand-deduplicating `fold_planned` route, on every
+    device; other folds stack their operands per (group, term) for one
+    `sop`.  Both routes return the same canonical values."""
+    from .kernels import mont
+
     groups = [list(g) for g in groups]
     if len(groups) == 1:
         return [sum_of_products(spec, groups[0])]
     t = max(len(g) for g in groups)
+    if (spec.name == FP.name and len(groups) >= FOLD_MIN_GROUPS
+            and t <= FOLD_MAX_TERMS and len(groups) * t <= mont.FOLD_ENTRIES):
+        return _sop_fold_planned(spec, groups)
     assert t <= 8, "sop_fold groups are limited to 8 terms"
     batch = torch.broadcast_shapes(
         *[x.shape[1:] for g in groups for pair in g for x in pair])
@@ -316,6 +363,74 @@ def sop_fold(spec: FieldSpec, groups):
 def mul_many(spec: FieldSpec, pairs):
     """Independent products a_i * b_i folded into one kernel launch."""
     return sop_fold(spec, [[p] for p in pairs])
+
+
+# ---------------------------------------------------------------------------
+# Plain (non-modular) integer helpers: the GLV/GLS scalar splits
+# ---------------------------------------------------------------------------
+
+
+def _pad_rows(a: torch.Tensor, n: int) -> torch.Tensor:
+    """The first n limb rows of a, zero-padded below (int64)."""
+    a = a.long()
+    if a.shape[0] >= n:
+        return a[:n]
+    return torch.cat([a, a.new_zeros((n - a.shape[0],) + a.shape[1:])])
+
+
+def plain_mul_const(a: torch.Tensor, const: int, n_out: int) -> torch.Tensor:
+    """Exact product of a limb tensor [n, *batch] with a static nonnegative
+    integer, truncated to n_out 16-bit limbs (mod 2^(16 n_out))."""
+    assert const >= 0
+    n = a.shape[0]
+    m = params.to_limbs(const, max(const.bit_length() + 15, 16) // 16)
+    a64 = a.long()
+    # every column < min(n, len(m)) 2^32 < 2^40; n + len(m) columns hold
+    # the whole product, so the shift-add passes drop no carry
+    cols = a64.new_zeros((n + len(m),) + a.shape[1:])
+    for j, mj in enumerate(m):
+        if mj:
+            cols[j:j + n] += a64 * mj
+    return _carry_prop(cols, n_out, passes=3).to(DTYPE)
+
+
+def shift_right_limbs(a: torch.Tensor, n_limbs: int) -> torch.Tensor:
+    """Drop the low n_limbs 16-bit limbs (a >> 16 n_limbs)."""
+    return a[n_limbs:]
+
+
+def plain_sub(a: torch.Tensor, b: torch.Tensor, n: int):
+    """Exact a - b over n limbs: (diff int32 [n, *batch], borrow mask)."""
+    diff, borrow = _sub_limbs(_pad_rows(a, n), _pad_rows(b, n), n)
+    return diff.to(DTYPE), borrow != 0
+
+
+def plain_geq(a: torch.Tensor, b: torch.Tensor, n: int) -> torch.Tensor:
+    """a >= b over n limbs."""
+    _, borrow = _sub_limbs(_pad_rows(a, n), _pad_rows(b, n), n)
+    return borrow == 0
+
+
+def barrett_divmod(a: torch.Tensor, d: int, q_limbs: int):
+    """(floor(a / d), a mod d) for an n-limb tensor and a static divisor d:
+    q_hat = floor(a M / 2^(16 n)) with M = floor(2^(16 n) / d) is the
+    quotient or one below it, fixed by one masked correction.  Returns
+    (q [q_limbs, *batch], r [n, *batch]).
+
+    PRECONDITION (the caller's; the quotient is silently truncated
+    otherwise): floor(max(a) / d) < 2^(16 q_limbs).  q_limbs may come from
+    the VALUE bound of a rather than its limb count: the GLS split divides
+    a 16-limb tensor known to be < x^3 by x^2 with q_limbs = 5."""
+    n = a.shape[0]
+    q = shift_right_limbs(plain_mul_const(a, (1 << (16 * n)) // d,
+                                          n + q_limbs), n)
+    r, _ = plain_sub(a, plain_mul_const(q, d, n), n)  # exact: q d <= a
+    d_col = _col(params.to_limbs(d, n), r, DTYPE)
+    too_big = plain_geq(r, d_col, n)
+    r_fix, _ = plain_sub(r, d_col, n)
+    bump = _col((1,) + (0,) * (q_limbs - 1), q)
+    q_fix = _carry_prop_1bit(q.long() + bump, q_limbs).to(DTYPE)
+    return select(too_big, q_fix, q), select(too_big, r_fix, r)
 
 
 # ---------------------------------------------------------------------------
@@ -391,26 +506,10 @@ def inv(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
 
 def _prefix_products(spec: FieldSpec, x: torch.Tensor,
                      one1: torch.Tensor) -> torch.Tensor:
-    """Inclusive product scan along the last axis, by the JAX package's
-    power-of-two recursion (utils/scans.py): pair products, scan of the
-    pairs, then one product fills the even positions.  The tail is padded
-    to a power of two with copies of the last lane and sliced off."""
-    n = x.shape[-1]
-    pow2 = 1 << (n - 1).bit_length()
-    if pow2 != n:
-        x = torch.cat([x, x[..., -1:].expand(x.shape[:-1] + (pow2 - n,))],
-                      dim=-1)
+    """Inclusive product scan along the last axis (`utils/scans.py`)."""
+    from .utils import scans
 
-    def scan(x):
-        if x.shape[-1] == 1:
-            return x
-        even, odd = x[..., 0::2], x[..., 1::2]
-        ps = scan(mont_mul(spec, even, odd))
-        shifted = torch.cat([one1, ps[..., :-1]], dim=-1)
-        out_even = mont_mul(spec, shifted, even)
-        return torch.stack([out_even, ps], dim=-1).reshape(x.shape)
-
-    return scan(x)[..., :n]
+    return scans.inclusive_scan(lambda a, b: mont_mul(spec, a, b), x, one1)
 
 
 def batch_inv(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:

@@ -1,3 +1,3 @@
-"""Batched operations over the fields: the radix-2 NTT over Fr."""
+"""Batched operations: the radix-2 NTT over Fr and Pippenger MSM."""
 
-from . import ntt  # noqa: F401
+from . import msm, ntt  # noqa: F401

@@ -1,0 +1,234 @@
+"""Batched Pippenger multi-scalar multiplication over G1 and G2.
+
+Counterpart of `bls12_381_tpu/ops/msm.py`, step by step, so that with the
+same order of additions the projective result equals the JAX package's limb
+for limb.  Bucket accumulation is a sort and a segmented scan, with no
+scatter:
+
+  once:
+    0. split the scalars with the curve endomorphism (GLV 2-way on G1, GLS
+       4-way on G2): 2x / 4x the lanes, 1/2 / 1/4 the windows
+    1. signed c-bit digits: 2^(c-1) buckets
+    2. ONE stable argsort of every window's digit magnitudes [W, B]
+  per window (MSB first):
+    3. gather the affine (x, y) by the window's order, negate y where the
+       digit is negative, lift to projective with z = 1
+    4. segmented inclusive scan of the group law along the lanes
+       (`utils/scans.py`): each group add is one `plan_exec` launch
+    5. bucket totals at the segment tails, found by searchsorted; empty
+       buckets take the identity; bucket 0 (zero digits, identity inputs)
+       is never read
+    6. sum_b b * B_b as a suffix scan and a halving tree
+  recombine: result = sum_w 2^(c w) S_w, c doublings per window.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import hostmath as hm
+from .. import limbs, params
+from ..curves import g1 as G1
+from ..curves import g2 as G2
+from ..fields import fp, tower as tw
+from ..limbs import FR
+from ..utils import scans
+
+MSM_WINDOW = 12  # bits per window: the JAX package's config.msm_window
+
+
+def _digits_raw(canon: torch.Tensor, c: int, n_windows: int) -> torch.Tensor:
+    """c-bit digits of canonical limb tensors [n_limbs, B]: [n_windows, B]
+    int32, LSB-first windows (shifted in int64, then masked)."""
+    n_limbs = canon.shape[0]
+    x = canon.long()
+    outs = []
+    for w in range(n_windows):
+        lo_bit = c * w
+        out = torch.zeros(canon.shape[1:], dtype=torch.int64,
+                          device=canon.device)
+        # a digit straddles at most 3 limbs
+        for limb in range(lo_bit // 16,
+                          min((lo_bit + c - 1) // 16 + 1, n_limbs)):
+            shift = limb * 16 - lo_bit
+            out |= x[limb] << shift if shift >= 0 else x[limb] >> -shift
+        outs.append(out & ((1 << c) - 1))
+    return torch.stack(outs).to(torch.int32)
+
+
+def _signed_digits(canon: torch.Tensor, c: int, bits: int):
+    """Balanced c-bit digits of canonical limb tensors: (mag, neg), int32
+    magnitudes in [0, 2^(c-1)] and the sign mask, [W, B] with
+    W = ceil((bits + 1) / c), so the top window takes the last carry and
+    stays non-negative."""
+    n_windows = -(-(bits + 1) // c)
+    raw = _digits_raw(canon, c, n_windows)
+    half, full = 1 << (c - 1), 1 << c
+    mags, negs = [], []
+    carry = torch.zeros(raw.shape[1:], dtype=torch.int32, device=raw.device)
+    for w in range(n_windows):
+        t = raw[w] + carry
+        if w == n_windows - 1:
+            d = t  # <= half by construction
+        else:
+            borrow = t >= half
+            d = torch.where(borrow, t - full, t)
+            carry = borrow.to(torch.int32)
+        mags.append(d.abs())
+        negs.append(d < 0)
+    return torch.stack(mags), torch.stack(negs)
+
+
+def _segmented_scan_add(curve, pts, heads):
+    """Inclusive segmented scan of the group law along the last axis; heads
+    bool [1, B] marks where a segment starts."""
+
+    def combine(left, right):
+        (lp, lh), (rp, rh) = left, right
+        summed = curve.add(lp, rp)
+        return (scans.tree_map(lambda s, r: torch.where(rh, r, s), summed, rp),
+                lh | rh)
+
+    dev = heads.device
+    ident1 = (curve.identity((1,), dev),
+              torch.zeros((1, 1), dtype=torch.bool, device=dev))
+    out, _ = scans.inclusive_scan(combine, (pts, heads), ident1)
+    return out
+
+
+def _window_sum(curve_mod, aff_xy, order, mags_s, negs_s, c: int):
+    """One window's sum_b b * B_b from its sorted digits: aff_xy holds the
+    affine (x, y) with the lanes last; order, mags_s, negs_s are [B].
+    Returns a projective point with an empty batch shape."""
+    curve = curve_mod.CURVE
+    f = curve.f
+    half = 1 << (c - 1)
+    dev = order.device
+
+    x, y = scans.tree_map(lambda t: t.index_select(-1, order), aff_xy)
+    # the sign of a balanced digit costs one y negation
+    y = scans.tree_map(lambda n_, y_: torch.where(negs_s, n_, y_),
+                       f.neg(y), y)
+    pts = (x, y, f.one(order.shape, dev))
+    heads = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
+                       mags_s[1:] != mags_s[:-1]])[None]
+    scanned = _segmented_scan_add(curve, pts, heads)
+
+    # bucket b's total sits at the tail of its segment
+    bucket_ids = torch.arange(1, half + 1, dtype=mags_s.dtype, device=dev)
+    pos_r = torch.searchsorted(mags_s, bucket_ids, right=True)
+    pos_l = torch.searchsorted(mags_s, bucket_ids, right=False)
+    tail = (pos_r - 1).clamp(min=0)
+    buckets = scans.tree_map(
+        lambda v, i: torch.where(pos_r > pos_l, v, i),
+        scans.tree_map(lambda t: t.index_select(-1, tail), scanned),
+        curve.identity((half,), dev))
+
+    # sum_b b B_b = the sum of the suffix sums B_half, B_half + B_(half-1), ...
+    ident1 = curve.identity((1,), dev)
+    suffix = scans.suffix_scan(curve.add, buckets, ident1)
+    total = scans.tree_reduce(curve.add, suffix, ident1)
+    return scans.tree_map(lambda t: t[..., 0], total)
+
+
+def _msm_pipeline(curve_mod, aff_xy, mags, negs, c: int):
+    """The window loop over signed digits [W, B]: one stable sort up front,
+    then MSB first c doublings and one add per window."""
+    curve = curve_mod.CURVE
+    order = torch.argsort(mags, dim=-1, stable=True)
+    mags_s = torch.take_along_dim(mags, order, dim=-1)
+    negs_s = torch.take_along_dim(negs, order, dim=-1)
+    acc = curve.identity((), mags.device)
+    for w in reversed(range(mags.shape[0])):
+        for _ in range(c):
+            acc = curve.double(acc)
+        acc = curve.add(acc, _window_sum(curve_mod, aff_xy, order[w],
+                                         mags_s[w], negs_s[w], c))
+    return acc
+
+
+def msm_g1(points_proj, scalars_mont, c: int = MSM_WINDOW, glv: bool = True):
+    """sum_i [s_i] P_i over G1 for projective points (x, y, z) [24, B] and
+    Montgomery Fr scalars [16, B]; the projective sum, batch shape ().
+
+    glv=True splits each scalar with the GLV endomorphism: s = k1 + k2 z^2
+    with [z^2]P = -phi(P) = (beta x, -y), so twice the lanes run half the
+    windows (128-bit halves).  Valid for subgroup points; glv=False runs the
+    plain 255-bit digits for any curve point."""
+    canon = limbs.from_mont(FR, scalars_mont)
+    # normalize once: the window gathers move two coordinates and the scans
+    # start from z = 1; identity lanes get digit 0 (bucket 0, never read)
+    ax, ay, inf = G1.to_affine(points_proj)
+    if not glv:
+        mags, negs = _signed_digits(canon, c, 255)
+        return _msm_pipeline(G1, (ax, ay), mags.masked_fill(inf[None], 0),
+                             negs, c)
+    k2, k1 = limbs.barrett_divmod(canon, params.BLS_X ** 2, 9)
+    beta = fp.const(G1.BETA, ax.shape[1:], device=ax.device)
+    aff = tuple(torch.cat([a, b], dim=-1)
+                for a, b in zip((ax, ay), (fp.mul(beta, ax), fp.neg(ay))))
+    m1, n1 = _signed_digits(k1, c, 128)
+    m2, n2 = _signed_digits(k2, c, 128)
+    mags = torch.cat([m1, m2], dim=-1).masked_fill(
+        torch.cat([inf, inf])[None], 0)
+    return _msm_pipeline(G1, aff, mags, torch.cat([n1, n2], dim=-1), c)
+
+
+def msm_g1_large(points_proj, scalars_mont, c: int = MSM_WINDOW,
+                 glv: bool = True, chunk_log2: int = 21):
+    """msm_g1 over chunks of 2^chunk_log2 points, folded with single group
+    additions, for batches whose scan working set would not fit at once."""
+    B = scalars_mont.shape[-1]
+    cs = 1 << chunk_log2
+    if B <= cs:
+        return msm_g1(points_proj, scalars_mont, c=c, glv=glv)
+    acc = None
+    for i in range(0, B, cs):
+        part = msm_g1(tuple(t[..., i:i + cs] for t in points_proj),
+                      scalars_mont[..., i:i + cs], c=c, glv=glv)
+        acc = part if acc is None else G1.add(acc, part)
+    return acc
+
+
+def msm_g2(points_proj, scalars_mont, c: int = MSM_WINDOW, gls: bool = True):
+    """sum_i [s_i] P_i over G2 (points: tuples of Fp2 coordinates).
+
+    gls=True splits each scalar in base |z| (s = c0 + c1|z| + c2|z|^2 +
+    c3|z|^3, each c_i < 2^64): psi acts as [z] on the subgroup, so the four
+    64-bit digits run against P, -psi(P), psi^2(P), -psi^3(P), a quarter
+    of the windows.  Subgroup points only; gls=False runs the plain 255-bit
+    digits."""
+    canon = limbs.from_mont(FR, scalars_mont)
+    ax, ay, inf = G2.to_affine(points_proj)  # as in msm_g1
+    if not gls:
+        mags, negs = _signed_digits(canon, c, 255)
+        return _msm_pipeline(G2, (ax, ay), mags.masked_fill(inf[None], 0),
+                             negs, c)
+    x = params.BLS_X
+    q3, r3 = limbs.barrett_divmod(canon, x ** 3, 5)
+    q2, r2 = limbs.barrett_divmod(r3, x ** 2, 5)
+    q1, c0 = limbs.barrett_divmod(r2, x, 5)
+
+    # psi on affine points (z = 1 is fixed by the conjugation)
+    batch, dev = inf.shape, inf.device
+    cx = tw.fp2_const(hm.PSI_CX, batch, dev)
+    cy = tw.fp2_const(hm.PSI_CY, batch, dev)
+
+    def psi_aff(a):
+        return (tw.fp2_mul(tw.fp2_conjugate(a[0]), cx),
+                tw.fp2_mul(tw.fp2_conjugate(a[1]), cy))
+
+    def neg_aff(a):
+        return (a[0], tw.fp2_neg(a[1]))
+
+    p1 = (ax, ay)
+    pp = psi_aff(p1)
+    p2 = neg_aff(pp)            # [|z|]P
+    p3 = psi_aff(pp)            # [|z|^2]P
+    p4 = neg_aff(psi_aff(p3))   # [|z|^3]P
+    aff = scans.tree_map(lambda *ts: torch.cat(ts, dim=-1), p1, p2, p3, p4)
+    parts = [_signed_digits(k, c, 64) for k in (c0, q1, q2, q3)]
+    mags = torch.cat([m for m, _ in parts], dim=-1).masked_fill(
+        torch.cat([inf] * 4)[None], 0)
+    return _msm_pipeline(G2, aff, mags, torch.cat([n for _, n in parts],
+                                                  dim=-1), c)

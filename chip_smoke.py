@@ -13,14 +13,17 @@ Phases (each prints its lines and seconds; any failed check exits non-zero):
   3. kernels vs plain: each kernel against its plain PyTorch version on the
      card at the paths' shapes, random canonical inputs plus the edge
      values 0, 1, p-1 (and q-2 and the butterfly's correction rows for
-     Fr); exact equality (integers: tolerance none); CUDA events around
-     back-to-back calls (the host's issue rate for short kernels) and the
-     plain version's time (CUDA events; no yardstick).
+     Fr; for fold_planned uneven groups, repeated operands and a 6-term
+     group of p-1 rows; the group-law plans at the MSM's widths); exact
+     equality (integers: tolerance none); CUDA events around back-to-back
+     calls (the host's issue rate for short kernels) and the plain
+     version's time (CUDA events; no yardstick).
   4. main: the batched pairing at batch 1024 from the repository's test
      vectors ([a]G1, [b]G2, a, b < 1000): lane (1, 1) equals the RELIC
      value, lanes with equal a*b are equal, identity lanes are one, four
      lanes equal the plain path (CPU); launch counts of one pairing (every
-     kernel > 0, plan and sqr counts equal to the static schedule); stage
+     kernel > 0, plan, sqr, sop and fold_planned counts equal to the
+     static schedule); stage
      times and pairings/s on a host clock around synchronized work (median
      of STAGE_REPS runs), and the share of that wall time the host thread
      spent on the CPU issuing the work.
@@ -31,14 +34,22 @@ Phases (each prints its lines and seconds; any failed check exits non-zero):
      2^19-coefficient polynomials satisfies c(r) = a(r) b(r) at four
      points; ntt / intt / poly_mul seconds as in phase 4, and the NTT's
      own peak memory.
-  6. kernel times: each kernel's device time per launch at the shapes of
-     phase 3 (torch.profiler); after phases 4-5, because a profiler session
+  6. msm: `msm_g1` at 2^16 points (GLV) and `msm_g2` at 2^12 (GLS), window
+     12, from `entry.msm_entry` (P_i = [i+1]G with identity lanes, random
+     scalars with zeros): launch counts equal the static schedule
+     (fold_planned > 0 in msm_g2); the affine result equals the host's
+     [sum_i k_i (i+1) mod q]G; at 2^10 points the card equals the CPU path
+     in projective coordinates and glv=False / gls=False agree; host-clock
+     median of MSM_REPS runs after the warm-up, host CPU share, the MSM's
+     own peak memory.
+  7. kernel times: each kernel's device time per launch at the shapes of
+     phase 3 (torch.profiler); after phases 4-6, because a profiler session
      may slow the host's launches for the rest of the process.
-  7. profiles: one pairing and one NTT under torch.profiler -- device time
-     by kernel (device-side events only), the port kernels' ms per launch,
-     and the device's busy share: the union of kernel intervals over the
-     unprofiled wall time.
-  8. the `kernels` JSON line, then the device JSON line last.
+  8. profiles: one pairing, one NTT, one msm_g1 and one msm_g2 under
+     torch.profiler -- device time by kernel (device-side events only), the
+     port kernels' ms per launch, and the device's busy share: the union of
+     kernel intervals over the unprofiled wall time.
+  9. the `kernels` JSON line, then the device JSON line last.
 
 The script imports nothing of the JAX package.
 """
@@ -62,6 +73,9 @@ NTT_N = 1 << NTT_LOG_N
 SEED = 20261016
 DOUBLINGS = f"sop_fr twiddle doublings T=1 B=1..{NTT_N // 4}"
 STAGE_REPS = 7                     # host-clock runs per stage; median kept
+MSM_LOG_N = {"g1": 16, "g2": 12}   # a 2^16 KZG commitment; 4096 signatures
+MSM_CHECK_LOG_N = 10               # the card = CPU comparison
+MSM_REPS = 5
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 # 32-bit integer multiply-adds per second: 132 SMs x 64 per clock (CUDA C
 # Programming Guide throughput table, compute capability 9.0) x 1.98 GHz
@@ -151,14 +165,14 @@ def busy_us(evs) -> float:
     return total
 
 
-def host_times(fn):
-    """STAGE_REPS runs of fn: the wall seconds of each, ending in a
+def host_times(fn, reps: int = STAGE_REPS):
+    """`reps` runs of fn: the wall seconds of each, ending in a
     synchronize, and the host thread's CPU seconds spent issuing it (the
     thread clock may tick coarsely: compare sums, not single runs)."""
     import torch
 
     wall, cpu = [], []
-    for _ in range(STAGE_REPS):
+    for _ in range(reps):
         torch.cuda.synchronize()
         t0, c0 = time.perf_counter(), time.thread_time()
         fn()
@@ -249,6 +263,7 @@ def compare(got, ref):
 # The port's kernels as the profiler names them on the card: the substrings
 # each name holds (one sum-of-products template serves both fields).
 KERNEL_NAMES = {"sop": ("sop_kernel", "fp384"), "sqr": ("sqr_kernel",),
+                "fold_planned": ("fold_kernel",),
                 "plan_exec": ("plan_kernel",),
                 "sop_fr": ("sop_kernel", "fr256"),
                 "butterfly": ("butterfly_kernel",)}
@@ -258,6 +273,39 @@ def kernel_of(name: str):
     """The port kernel a device-side event belongs to, or None."""
     return next((k for k, subs in KERNEL_NAMES.items()
                  if all(sub in name for sub in subs)), None)
+
+
+FOLD_CASES = (
+    (4, 1, 68 * BATCH, [[(1, 5)], [(2, 5)], [(3, 6)], [(4, 6)]]),
+    (8, 2, 1 << 16, [[(1, 3), (2, 4)], [(1, 4), (2, 3)], [(5, 7), (6, 8)],
+                     [(5, 8), (6, 7)], [(1, 7), (2, 8)], [(1, 8), (2, 7)],
+                     [(5, 3), (6, 4)], [(5, 4), (6, 3)]]),
+    (4, 6, 1 << 16, [[(9, 9)] * 6, [(1, 2)], [(3, 4), (4, 3), (1, 1)],
+                     [(2, 5), (6, 7), (8, 1), (3, 3), (4, 4)]]),
+)
+
+
+def fold_tables(groups):
+    """[G, T] int32 index tables of groups of (ia, ib) pairs, short groups
+    padded with row 0."""
+    import numpy as np
+
+    t = max(len(g) for g in groups)
+    ia = np.zeros((len(groups), t), np.int32)
+    ib = np.zeros((len(groups), t), np.int32)
+    for gi, g in enumerate(groups):
+        for ti, (a, b) in enumerate(g):
+            ia[gi, ti], ib[gi, ti] = a, b
+    return ia, ib
+
+
+def msm_plan_shapes():
+    from bls12_381_torch.kernels import plan_exec as pe
+
+    n1, n2 = (1 << MSM_LOG_N[g] for g in ("g1", "g2"))
+    return ((pe.g1_add_plan, n1), (pe.g1_double_plan, 1),
+            (pe.g2_add_plan, 2 * n2), (pe.g2_double_plan, 1),
+            (pe.g1_add_mixed_plan, BATCH), (pe.g2_add_mixed_plan, BATCH))
 
 
 class KernelChecks:
@@ -305,6 +353,7 @@ def phase_kernels(device):
     from bls12_381_torch.kernels import mont, plan_exec as pe
 
     P, Q = params.P, params.Q
+    MSM_PLAN_SHAPES = msm_plan_shapes()
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
     edges = [edge_col(v, device) for v in (0, 1, P - 1)]
@@ -347,6 +396,44 @@ def phase_kernels(device):
                  lambda ops=ops, plan=plan: pe.plan_exec_plain(ops, plan),
                  "plan_exec", 20, 2, 96 * BATCH * (plan.n_in + plan.n_out),
                  BATCH * sum(sop_imads(t) for t in plan.sop_terms()),
+                 nodes=len(plan.instr), groups=len(plan.groups),
+                 sop_nodes=len(plan.sop_terms()))
+
+    # --- fold_planned: the pairing's line scaling (G = 4, T = 1 over 68 x
+    # 1024 lanes, rows a0 a1 c0 c1 yp xp), a fold of Fp2 products (G = 8,
+    # T = 2) and uneven groups up to T = 6 whose first group multiplies the
+    # all-(p-1) row by itself six times; lanes 0..2 of every other row hold
+    # 0, 1, p-1
+    for G, T, B, groups in FOLD_CASES:
+        K = 1 + max(i for g in groups for pair in g for i in pair)
+        ops = rand_fp((K, B), gen, device).transpose(0, 1).contiguous()
+        for lane, col in enumerate(edges):
+            ops[:, :, lane] = col
+        ops[0] = 0
+        if T == 6:
+            ops[K - 1] = edges[2].unsqueeze(-1)
+        ia, ib = fold_tables(groups)
+        chk.hold(f"fold_planned G={G} T={T} B={B}",
+                 lambda ops=ops, ia=ia, ib=ib: mont.fold_planned(ops, ia, ib),
+                 lambda ops=ops, ia=ia, ib=ib: mont.fold_planned_plain(
+                     ops, ia, ib),
+                 "fold_planned", 50, 3, 4 * B * 24 * (K + G),
+                 B * sum(sop_imads(len(g)) for g in groups))
+
+    # --- plan_exec: the group-law plans at the MSM's widths: add at the
+    # segmented scan's top level (half the GLV / GLS lanes), double at the
+    # window loop's single lane; the mixed adds (no MSM launch) at B = 1024
+    for make_plan, B in MSM_PLAN_SHAPES:
+        plan = pe.compile_plan(make_plan())
+        ops = rand_fp((plan.n_in, B), gen, device).transpose(0, 1) \
+            .contiguous()
+        for lane, col in enumerate(edges[:B]):
+            ops[:, :, lane] = col
+        chk.hold(f"plan_exec {plan.name} B={B}",
+                 lambda ops=ops, plan=plan: pe.plan_exec(ops, plan),
+                 lambda ops=ops, plan=plan: pe.plan_exec_plain(ops, plan),
+                 "plan_exec", 20, 2, 96 * B * (plan.n_in + plan.n_out),
+                 B * sum(sop_imads(t) for t in plan.sop_terms()),
                  nodes=len(plan.instr), groups=len(plan.groups),
                  sop_nodes=len(plan.sop_terms()))
 
@@ -464,11 +551,22 @@ def take_lanes(aff, lanes, device):
     return (t(x), t(y), t(inf))
 
 
+def inv_launches():
+    """(sop, sqr) launches of one Fp inversion, `limbs.pow_fixed` by p - 2:
+    the window table (2^w - 2 products), then per digit of the field's bit
+    width w squarings and one product."""
+    from bls12_381_torch import limbs
+
+    w = limbs.POW_WINDOW
+    digits = -(-limbs.FP.modulus.bit_length() // w)
+    return (1 << w) - 2 + digits, digits * w
+
+
 def expected_launches():
-    """Plan and sqr launches of one pairing, from the static schedules."""
+    """plan_exec, sqr, sop and fold_planned launches of one pairing, from
+    the static schedules."""
     import importlib
 
-    from bls12_381_torch import limbs
     from bls12_381_torch.fields import tower as tw
 
     pm = importlib.import_module("bls12_381_torch.pairing.pairing")
@@ -477,11 +575,15 @@ def expected_launches():
                     for n, mul in pm._X_RUNS)
     # final exp outside the five exp-by-|z|: 10 fp12_mul + 1 fp12_sqr
     plans = 2 * pm.N_COEFFS + 5 * per_exp_z + 11
-    # one Fp inversion: pow by p - 2, POW_WINDOW squarings per digit of
-    # the field's bit width
-    w = limbs.POW_WINDOW
-    sqrs = -(-limbs.FP.modulus.bit_length() // w) * w
-    return plans, sqrs
+    inv_sops, sqrs = inv_launches()
+    # fp2_inv in fp12_inv: the norm and a 2-group product around its fp.inv
+    sops = inv_sops + 2
+    # folds of >= 4 groups (fold_planned): the Miller loop's line scaling;
+    # in fp12_inv two fp6_mul_many and fp6_inv's three folds; three per
+    # fp12_frobenius, eight of them in the final exponentiation
+    folds = 1 + 5 + 3 * 8
+    return {"plan_exec": plans, "sqr": sqrs, "sop": sops,
+            "fold_planned": folds}
 
 
 def phase_main(device):
@@ -516,16 +618,14 @@ def phase_main(device):
     first_s = time.perf_counter() - t0
     counts = LAUNCHES.snapshot()
     peak = torch.cuda.max_memory_allocated() - held
-    plans_exp, sqrs_exp = expected_launches()
+    expected = expected_launches()
     say("main", first_pairing_seconds=first_s, launches=counts,
-        expected_plan_exec=plans_exp, expected_sqr=sqrs_exp,
-        pairing_peak_bytes=peak, held_bytes=held)
-    for name in ("sop", "sqr", "plan_exec"):
+        expected=expected, pairing_peak_bytes=peak, held_bytes=held)
+    for name in expected:
         if counts[name] <= 0:
             fail(f"kernel {name} was not launched on the main path")
-    if counts["plan_exec"] != plans_exp or counts["sqr"] != sqrs_exp:
-        fail(f"launch counts {counts} differ from the schedule "
-             f"(plan_exec {plans_exp}, sqr {sqrs_exp})")
+    if any(counts[name] != n for name, n in expected.items()):
+        fail(f"launch counts {counts} differ from the schedule {expected}")
 
     # correctness
     rows = fp12_rows(out)  # [12, L, B]
@@ -647,7 +747,8 @@ def expected_ntt_launches(n: int, inverse: bool) -> dict:
     (log2 N - 1); the inverse adds one `sop_fr` for the 1/N scaling."""
     log_n = n.bit_length() - 1
     return {"sop": 0, "sqr": 0, "plan_exec": 0, "butterfly": log_n,
-            "sop_fr": log_n - 1 + int(inverse), "plan_exec_by_plan": {}}
+            "sop_fr": log_n - 1 + int(inverse), "fold_planned": 0,
+            "plan_exec_by_plan": {}}
 
 
 def phase_ntt(device):
@@ -743,6 +844,140 @@ def phase_ntt(device):
     return counts, med, x
 
 
+def expected_msm_launches(group: str, n: int, c: int, split: bool = True):
+    """Kernel launches of one msm over n >= 16 points with window c, from
+    the schedule of ops/msm.py: from_mont of the scalars (one sop_fr); the
+    z inversions of to_affine (`batch_inv`: two product scans of 2 lg n
+    products, one Fp inversion, two products; G2 adds the norm and a
+    2-group product) and its x, y product (a 2-group sop on G1, a 4-group
+    fold_planned on G2); the GLV split's beta x (one sop) or the GLS
+    split's three affine psi (two Fp2 products each); then per window of
+    the signed digits the segmented scan (2 lg m adds over m lanes), the
+    bucket sum (a suffix scan and a halving tree over 2^(c-1) buckets:
+    3 (c - 1) adds), c doublings and one add."""
+    def lg(m):
+        return (m - 1).bit_length()
+
+    inv_sops, inv_sqrs = inv_launches()
+    inv = 4 * lg(n) + inv_sops + 2
+    lanes, bits = {("g1", True): (2 * n, 128), ("g2", True): (4 * n, 64)}.get(
+        (group, split), (n, 255))
+    windows = -(-(bits + 1) // c)
+    adds = windows * (2 * lg(lanes) + 3 * (c - 1) + 1)
+    if group == "g1":
+        sops, folds = inv + 1 + int(split), 0
+    else:
+        sops, folds = 1 + inv + 1 + (6 if split else 0), 1
+    return {"sop": sops, "sqr": inv_sqrs, "plan_exec": adds + windows * c,
+            "sop_fr": 1, "butterfly": 0, "fold_planned": folds,
+            "plan_exec_by_plan": {f"{group}_add_plan": adds,
+                                  f"{group}_double_plan": windows * c}}
+
+
+def affine_ints(group: str, point):
+    """A projective point with an empty batch shape -> host affine ints
+    (None for the identity), through the port's to_affine."""
+    from bls12_381_torch.curves import g1, g2
+    from bls12_381_torch.fields import fp, tower as tw
+
+    x, y, inf = {"g1": g1, "g2": g2}[group].to_affine(point)
+    if bool(inf):
+        return None
+    if group == "g1":
+        return (int(fp.to_ints(x)), int(fp.to_ints(y)))
+    (x0, x1), (y0, y1) = tw.fp2_to_ints(x), tw.fp2_to_ints(y)
+    return ((int(x0), int(x1)), (int(y0), int(y1)))
+
+
+def phase_msm(device):
+    """msm_g1 at 2^16 points and msm_g2 at 2^12 from `entry.msm_entry`:
+    launch counts against the static schedule, the host's expected point,
+    the 2^10 card = CPU and split / no-split checks, host-clock times (before
+    any profiler session) and the MSM's own peak memory."""
+    import torch
+
+    from bls12_381_torch import entry, hostmath as hm, params
+    from bls12_381_torch.curves import g1, g2
+    from bls12_381_torch.kernels import LAUNCHES
+    from bls12_381_torch.ops import msm
+    from bls12_381_torch.utils import scans
+
+    q = params.Q
+    r_inv = pow(1 << 256, -1, q)
+    out = {}
+    for group in ("g1", "g2"):
+        mod = {"g1": g1, "g2": g2}[group]
+        gen = {"g1": params.G1_GEN, "g2": params.G2_GEN}[group]
+        mul = {"g1": hm.g1_mul, "g2": hm.g2_mul}[group]
+        n = 1 << MSM_LOG_N[group]
+        t0 = time.perf_counter()
+        fn, (pts, sc) = entry.msm_entry(MSM_LOG_N[group], group, seed=SEED,
+                                        device=device)
+        torch.cuda.synchronize()
+        inputs_s = time.perf_counter() - t0
+
+        # the slice's path, counted
+        LAUNCHES.reset()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        res = fn(pts, sc)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        counts = LAUNCHES.snapshot()
+        peak = torch.cuda.max_memory_allocated() - held
+        want = expected_msm_launches(group, n, msm.MSM_WINDOW)
+        say("msm", group=group, n=n, c=msm.MSM_WINDOW,
+            inputs_seconds=inputs_s, first_msm_seconds=first_s,
+            launches=counts, expected=want, msm_peak_bytes=peak,
+            held_bytes=held)
+        if counts != want:
+            fail(f"msm_{group} launch counts {counts} differ from the "
+                 f"schedule {want}")
+
+        # the affine result against [sum_i k_i (i+1) mod q]G on the host
+        t0 = time.perf_counter()
+        inf = mod.is_identity(pts).cpu().tolist()
+        ks = [m * r_inv % q for m in limb_ints(sc)]
+        total = sum(k * (i + 1) for i, (k, o) in enumerate(zip(ks, inf))
+                    if not o) % q
+        if affine_ints(group, res) != mul(gen, total):
+            fail(f"msm_{group} at 2^{MSM_LOG_N[group]} differs from the "
+                 "host's [sum k_i (i+1)]G")
+        n_zero = sum(k == 0 for k in ks)
+        if not (any(inf) and n_zero):
+            fail("the MSM inputs hold no identity lane or no zero scalar")
+
+        # 2^10: the card equals the CPU path in projective coordinates;
+        # the split and the plain 255-bit digits agree
+        fn_s, (pts_s, sc_s) = entry.msm_entry(MSM_CHECK_LOG_N, group,
+                                              seed=SEED + 1, device=device)
+        card = fn_s(pts_s, sc_s)
+        torch.set_num_threads(max(1, min(8, os.cpu_count() or 1)))
+        t1 = time.perf_counter()
+        cpu_res = fn_s(scans.tree_map(lambda t: t.cpu(), pts_s), sc_s.cpu())
+        cpu_s = time.perf_counter() - t1
+        torch.set_num_threads(1)
+        if not all(torch.equal(a.cpu(), b) for a, b in
+                   zip(scans.tree_leaves(card), scans.tree_leaves(cpu_res))):
+            fail(f"msm_{group} at 2^{MSM_CHECK_LOG_N}: the card differs "
+                 "from the CPU path")
+        if not bool(mod.eq(card, fn_s(pts_s, sc_s, msm.MSM_WINDOW, False))):
+            fail(f"msm_{group} at 2^{MSM_CHECK_LOG_N}: the split and the "
+                 "plain digits disagree")
+        say("msm", group=group, checks="passed", identity_lanes=sum(inf),
+            zero_scalars=n_zero, cpu_path_seconds=cpu_s,
+            host_check_seconds=time.perf_counter() - t0)
+
+        # host clock around synchronized work, after the warm-up run above
+        wall, cpu = host_times(lambda: fn(pts, sc), reps=MSM_REPS)
+        med = statistics.median(wall)
+        say("msm", group=group, seconds=wall, median_seconds=med,
+            points_per_s=n / med, host_cpu_share=sum(cpu) / sum(wall))
+        out[group] = (counts, med, fn, pts, sc)
+    return out
+
+
 def phase_profile(label: str, fn, wall_s: float) -> dict:
     """Where one run of a path goes on the card: device time by kernel,
     from the profiler's device-side events only, each port kernel's mean
@@ -809,6 +1044,7 @@ def main() -> None:
     results, timed = phase("kernels", phase_kernels, device)
     counts, med, (p_aff, q_aff) = phase("main", phase_main, device)
     counts_ntt, med_ntt, x = phase("ntt", phase_ntt, device)
+    msms = phase("msm", phase_msm, device)
     phase("kernel_times", phase_kernel_times, results, timed)
     del timed
     from bls12_381_torch import pairing as pr
@@ -818,33 +1054,48 @@ def main() -> None:
           lambda: pr.pairing(p_aff, q_aff), med["pairing"])
     phase("profile_ntt", phase_profile, "ntt", lambda: ntt.ntt(x),
           med_ntt["ntt"])
+    for group, (_, med_msm, fn, pts, sc) in msms.items():
+        phase(f"profile_msm_{group}", phase_profile, f"msm_{group}",
+              lambda fn=fn, pts=pts, sc=sc: fn(pts, sc), med_msm)
 
     from bls12_381_torch.kernels import plan_exec as pe
 
-    def entry(name, source, replaces, launches, key):
+    def entry(name, source, replaces, launches, key, **extra):
         r = results[key]
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": None,
-                "shape": key, "mismatches": r["mismatches"]}
+                "shape": key, "mismatches": r["mismatches"], **extra}
 
     src = "bls12_381_torch/kernels/csrc/"
     pallas = "bls12_381_tpu/kernels/pallas_mont.py"
+    plan_src = "bls12_381_tpu/kernels/plan_exec.py:778"
+    msm_counts = {g: m[0] for g, m in msms.items()}
     kernels = [
         entry("sop", src + "mont.cu", f"{pallas}:620", counts["sop"],
               f"sop T=1 B={4 * 68 * BATCH}"),
         entry("sqr", src + "mont.cu", f"{pallas}:711", counts["sqr"],
               f"sqr G=1 B={BATCH}"),
+        # launches per pairing; per msm_g2 beside it
+        entry("fold_planned", src + "mont.cu", f"{pallas}:250",
+              counts["fold_planned"], f"fold_planned G=4 T=1 B={68 * BATCH}",
+              launches_msm_g2=msm_counts["g2"]["fold_planned"]),
     ]
     for make_plan in pe.MAIN_PATH_PLANS:
         plan = pe.compile_plan(make_plan())
         kernels.append(entry(
-            f"plan_exec:{plan.name}", src + "plan_exec.cu",
-            "bls12_381_tpu/kernels/plan_exec.py:778",
+            f"plan_exec:{plan.name}", src + "plan_exec.cu", plan_src,
             counts["plan_exec_by_plan"].get(plan.name, 0),
             f"plan_exec {plan.name} B={BATCH}"))
+    # the group-law plans: launches per msm of their group
+    for make_plan, B in msm_plan_shapes()[:4]:
+        plan = pe.compile_plan(make_plan())
+        kernels.append(entry(
+            f"plan_exec:{plan.name}", src + "plan_exec.cu", plan_src,
+            msm_counts[plan.name[:2]]["plan_exec_by_plan"][plan.name],
+            f"plan_exec {plan.name} B={B}"))
     # the NTT's kernels: launches per ntt at 2^20; ms, plain ms and bound
     # per launch at the shapes the ntt launches (its twiddle doublings, a
     # stage)

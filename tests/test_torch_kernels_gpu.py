@@ -11,6 +11,7 @@ On a machine with a card, from the repository root:
 machine need not have.)
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -18,6 +19,7 @@ from bls12_381_torch import entry, limbs, params
 from bls12_381_torch.fields import fr
 from bls12_381_torch.kernels import LAUNCHES, mont, plan_exec as pe
 from bls12_381_torch.ops import ntt
+from bls12_381_torch.utils import scans
 
 pytestmark = pytest.mark.gpu
 P, Q = params.P, params.Q
@@ -68,6 +70,38 @@ def test_plan_kernel_matches_plain(cuda, make_plan):
     got = pe.plan_exec(ops, plan)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), pe.plan_exec_plain(ops.cpu(), plan))
+
+
+@pytest.mark.parametrize("make_plan", pe.GROUP_LAW_PLANS,
+                         ids=lambda b: b.__name__)
+def test_group_law_plan_kernel_matches_plain(cuda, make_plan):
+    plan = pe.compile_plan(make_plan())
+    ops = rand_limbs(plan.n_in, 300, cuda, seed=plan.n_slots)
+    got = pe.plan_exec(ops, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), pe.plan_exec_plain(ops.cpu(), plan))
+
+
+@pytest.mark.parametrize("G,T", [(4, 1), (8, 2), (5, 6), (64, 8)])
+def test_fold_kernel_matches_plain(cuda, G, T):
+    """Uneven groups over a stack whose row 0 is zeros; the last row is
+    p-1 in every lane and fills group 0."""
+    K = 2 * T + 3
+    ops = rand_limbs(K, 333, cuda, seed=G + T)
+    ops[0] = 0
+    ops[K - 1] = torch.tensor(params.to_limbs(P - 1, 24),
+                              device=cuda).unsqueeze(-1)
+    rng = np.random.default_rng(G * T)
+    ia = rng.integers(1, K, (G, T)).astype(np.int32)
+    ib = rng.integers(1, K, (G, T)).astype(np.int32)
+    ia[0], ib[0] = K - 1, K - 1
+    for g in range(1, G):
+        ia[g, rng.integers(1, T + 1):] = 0
+    LAUNCHES.reset()
+    got = mont.fold_planned(ops, ia, ib)
+    torch.cuda.synchronize()
+    assert LAUNCHES.fold_planned == 1
+    assert torch.equal(got.cpu(), mont.fold_planned_plain(ops.cpu(), ia, ib))
 
 
 def rand_fr(n: int, lanes: int, device, seed: int) -> torch.Tensor:
@@ -136,3 +170,17 @@ def test_pairing_on_card_matches_cpu(cuda):
         for g2, r2 in zip(g6, r6):
             for g, r in zip(g2, r2):
                 assert torch.equal(g.cpu(), r)
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_msm_on_card_matches_cpu(cuda, group):
+    fn, (pts, sc) = entry.msm_entry(5, group, seed=3)
+    LAUNCHES.reset()
+    got = fn(pts, sc, 6)
+    torch.cuda.synchronize()
+    counts = LAUNCHES.snapshot()
+    assert counts["plan_exec"] > 0 and counts["sop_fr"] == 1
+    assert counts["fold_planned"] == (1 if group == "g2" else 0)
+    ref = fn(scans.tree_map(lambda t: t.cpu(), pts), sc.cpu(), 6)
+    assert all(torch.equal(a.cpu(), b) for a, b in
+               zip(scans.tree_leaves(got), scans.tree_leaves(ref)))
