@@ -8,10 +8,9 @@ Counterpart of `bls12_381_tpu/fields/tower.py` in its default
 configuration.  Every Fp12 multiplication-type operation runs as one
 expression plan (`kernels/plan_exec.py`): the plan kernel on a CUDA tensor,
 its plain version on a CPU tensor.  Fp2 and Fp6 products are folds of fused
-Fp sums of products (`fp.sop_fold`: one `fold_planned` launch for four or
-more groups, else one `sop`) whose additive glue is batched into few carry
-networks.  Results are canonical, so
-they equal the JAX package's values limb for limb whatever the grouping.
+Fp sums of products (`fp.sop_fold`: one `fold_planned` launch for two or
+more groups, one `sop` for a single group) whose additive glue is batched
+into few carry networks.  Results are canonical, so they equal the JAX package's values limb for limb whatever the grouping.
 """
 
 from __future__ import annotations

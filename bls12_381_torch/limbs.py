@@ -10,7 +10,7 @@ Counterpart of `bls12_381_tpu/limbs.py`, with the same boundary layout:
     Every stored value is canonical (< p).
 
 Products go to the hand-written kernels of `kernels/mont.py` (`sop`, `sqr`
-and, for folds of four or more groups, `fold_planned` for Fp; `sop_fr` for
+and, for folds of two or more groups, `fold_planned` for Fp; `sop_fr` for
 Fr): on a CUDA tensor the kernel runs, on a CPU tensor its plain PyTorch
 version.
 The additive glue (add/sub/neg, `add_many`/`sub_many`, `select`) is plain
@@ -289,19 +289,21 @@ def mont_sqr(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
     return mont.sqr(flat.unsqueeze(0))[0].reshape((spec.n_limbs,) + batch)
 
 
-FOLD_MIN_GROUPS = 4  # the dedup route's thresholds (JAX limbs.py:503)
-FOLD_MAX_TERMS = 6
-
-
 def _sop_fold_planned(spec: FieldSpec, groups):
     """A fold through `mont.fold_planned` (JAX `_sop_fold_planned`,
     limbs.py:446-486): each distinct operand tensor is broadcast and stacked
     ONCE into [K, L, B] after a zero row 0, and static [G, T] index tables
     name each term's rows (short groups pad with index 0).  Operands are
     keyed by the id() of the caller's tensor objects, which `groups` keeps
-    alive for the whole call."""
+    alive for the whole call.  Tables beyond the kernel's G T cap run as
+    several launches over chunks of groups."""
     from .kernels import mont
 
+    t = max(len(g) for g in groups)
+    per_call = mont.FOLD_ENTRIES // t
+    if len(groups) > per_call:
+        return [r for i in range(0, len(groups), per_call)
+                for r in _sop_fold_planned(spec, groups[i:i + per_call])]
     batch = torch.broadcast_shapes(
         *[x.shape[1:] for g in groups for pair in g for x in pair])
     full = (spec.n_limbs,) + batch
@@ -315,7 +317,6 @@ def _sop_fold_planned(spec: FieldSpec, groups):
             ops.append(x.expand(full))
         return k
 
-    t = max(len(g) for g in groups)
     ia = np.zeros((len(groups), t), np.int32)
     ib = np.zeros((len(groups), t), np.int32)
     for gi, g in enumerate(groups):
@@ -326,25 +327,10 @@ def _sop_fold_planned(spec: FieldSpec, groups):
     return list(out.reshape((len(groups),) + full).unbind(0))
 
 
-def sop_fold(spec: FieldSpec, groups):
-    """Many independent sums of products folded into ONE kernel launch.
-
-    groups: G lists of (a, b) pairs (uneven lengths allowed: short groups
-    are padded with zero products).  Returns a list of G results.  An Fp
-    fold of G >= 4 groups of T <= 6 terms (and G T within the fold kernel's
-    table) takes the operand-deduplicating `fold_planned` route, on every
-    device; other folds stack their operands per (group, term) for one
-    `sop`.  Both routes return the same canonical values."""
-    from .kernels import mont
-
-    groups = [list(g) for g in groups]
-    if len(groups) == 1:
-        return [sum_of_products(spec, groups[0])]
+def _sop_fold_stacked(spec: FieldSpec, groups):
+    """A fold as one sum of products over operands stacked per (group,
+    term), short groups padded with zero products."""
     t = max(len(g) for g in groups)
-    if (spec.name == FP.name and len(groups) >= FOLD_MIN_GROUPS
-            and t <= FOLD_MAX_TERMS and len(groups) * t <= mont.FOLD_ENTRIES):
-        return _sop_fold_planned(spec, groups)
-    assert t <= 8, "sop_fold groups are limited to 8 terms"
     batch = torch.broadcast_shapes(
         *[x.shape[1:] for g in groups for pair in g for x in pair])
     full = (spec.n_limbs,) + batch
@@ -358,6 +344,25 @@ def sop_fold(spec: FieldSpec, groups):
 
     pairs = [(stacked(i, 0), stacked(i, 1)) for i in range(t)]
     return list(sum_of_products(spec, pairs).unbind(1))
+
+
+def sop_fold(spec: FieldSpec, groups):
+    """Many independent sums of products folded into ONE kernel launch.
+
+    groups: G lists of (a, b) pairs, T <= 8 terms (uneven lengths allowed:
+    short groups are padded with zero products).  Returns a list of G
+    results.  An Fp fold takes the operand-deduplicating `fold_planned`
+    route on every device; an Fr fold (`sop_fr` has no fold kernel) stacks
+    its operands per (group, term) for one `sop_fr`.  A single group is one
+    sum of products."""
+    groups = [list(g) for g in groups]
+    if len(groups) == 1:
+        return [sum_of_products(spec, groups[0])]
+    assert max(len(g) for g in groups) <= 8, \
+        "sop_fold groups are limited to 8 terms"
+    if spec.name == FP.name:
+        return _sop_fold_planned(spec, groups)
+    return _sop_fold_stacked(spec, groups)
 
 
 def mul_many(spec: FieldSpec, pairs):

@@ -14,7 +14,8 @@ Phases (each prints its lines and seconds; any failed check exits non-zero):
      card at the paths' shapes, random canonical inputs plus the edge
      values 0, 1, p-1 (and q-2 and the butterfly's correction rows for
      Fr; for fold_planned uneven groups, repeated operands and a 6-term
-     group of p-1 rows; the group-law plans at the MSM's widths); exact
+     group of p-1 rows, and the folds of one pairing as it makes them;
+     the group-law plans at the MSM's widths); exact
      equality (integers: tolerance none); CUDA events around back-to-back
      calls (the host's issue rate for short kernels) and the plain
      version's time (CUDA events; no yardstick).
@@ -45,11 +46,15 @@ Phases (each prints its lines and seconds; any failed check exits non-zero):
   7. kernel times: each kernel's device time per launch at the shapes of
      phase 3 (torch.profiler); after phases 4-6, because a profiler session
      may slow the host's launches for the rest of the process.
-  8. profiles: one pairing, one NTT, one msm_g1 and one msm_g2 under
+  8. fold routes: both routes of `limbs.sop_fold` for Fp (operands copied
+     per term for one `sop`, or stacked once for one `fold_planned`) on
+     the same operands at the paths' folds of two and three groups, the
+     line scaling and T = 7, 8: equal values, device and issue ms per call.
+  9. profiles: one pairing, one NTT, one msm_g1 and one msm_g2 under
      torch.profiler -- device time by kernel (device-side events only), the
      port kernels' ms per launch, and the device's busy share: the union of
      kernel intervals over the unprofiled wall time.
-  9. the `kernels` JSON line, then the device JSON line last.
+  10. the `kernels` JSON line, then the device JSON line last.
 
 The script imports nothing of the JAX package.
 """
@@ -72,6 +77,7 @@ NTT_LOG_N = 20                     # bench.py's scalar NTT 2^20
 NTT_N = 1 << NTT_LOG_N
 SEED = 20261016
 DOUBLINGS = f"sop_fr twiddle doublings T=1 B=1..{NTT_N // 4}"
+PAIRING_FOLDS = f"fold_planned folds of one pairing, batch {BATCH}"
 STAGE_REPS = 7                     # host-clock runs per stage; median kept
 MSM_LOG_N = {"g1": 16, "g2": 12}   # a 2^16 KZG commitment; 4096 signatures
 MSM_CHECK_LOG_N = 10               # the card = CPU comparison
@@ -285,6 +291,41 @@ FOLD_CASES = (
 )
 
 
+def fold_bytes(B: int, groups) -> int:
+    """Bytes a planned fold must move: each stack row that a term names
+    read once (padding terms name the zero row and read nothing), each of
+    the G outputs written once."""
+    rows = {i for g in groups for pair in g for i in pair}
+    return 4 * B * 24 * (len(rows) + len(groups))
+
+
+def fold_groups(ia, ib):
+    """[G, T] index tables -> G lists of (ia, ib) terms, padding dropped."""
+    return [[(int(a), int(b)) for a, b in zip(ra, rb) if a > 0]
+            for ra, rb in zip(ia, ib)]
+
+
+def record_folds(fn):
+    """Run fn once and return the `fold_planned` calls it makes: each
+    call's operand stack (cloned) and index tables."""
+    import numpy as np
+
+    from bls12_381_torch.kernels import mont
+
+    calls, real = [], mont.fold_planned
+
+    def spy(ops, ia, ib):
+        calls.append((ops.clone(), np.array(ia), np.array(ib)))
+        return real(ops, ia, ib)
+
+    mont.fold_planned = spy
+    try:
+        fn()
+    finally:
+        mont.fold_planned = real
+    return calls
+
+
 def fold_tables(groups):
     """[G, T] int32 index tables of groups of (ia, ib) pairs, short groups
     padded with row 0."""
@@ -417,8 +458,31 @@ def phase_kernels(device):
                  lambda ops=ops, ia=ia, ib=ib: mont.fold_planned(ops, ia, ib),
                  lambda ops=ops, ia=ia, ib=ib: mont.fold_planned_plain(
                      ops, ia, ib),
-                 "fold_planned", 50, 3, 4 * B * 24 * (K + G),
+                 "fold_planned", 50, 3, fold_bytes(B, groups),
                  B * sum(sop_imads(len(g)) for g in groups))
+    # the folds of one pairing at batch 1024 as the pairing makes them (the
+    # line scaling, the inversions' and Frobenius maps' Fp2 / Fp6 products),
+    # replayed in one call: per launch at the pairing's own mix (the
+    # kernels line's `fold_planned` row)
+    from bls12_381_torch import pairing as pr
+
+    _, _, p_aff, q_aff = pairing_inputs(device)
+    calls = record_folds(lambda: pr.pairing(p_aff, q_aff))
+    del p_aff, q_aff
+    chk.hold(PAIRING_FOLDS,
+             lambda: torch.cat([mont.fold_planned(o, a, b).reshape(-1)
+                                for o, a, b in calls]),
+             lambda: torch.cat([mont.fold_planned_plain(o, a, b).reshape(-1)
+                                for o, a, b in calls]),
+             "fold_planned", 20, 2,
+             sum(fold_bytes(o.shape[-1], fold_groups(a, b))
+                 for o, a, b in calls),
+             sum(o.shape[-1] * sum(sop_imads(len(g))
+                                   for g in fold_groups(a, b))
+                 for o, a, b in calls),
+             launches=len(calls),
+             shapes=sorted({(len(a), a.shape[1], o.shape[-1])
+                            for o, a, b in calls}))
 
     # --- plan_exec: the group-law plans at the MSM's widths: add at the
     # segmented scan's top level (half the GLV / GLS lanes), double at the
@@ -576,24 +640,20 @@ def expected_launches():
     # final exp outside the five exp-by-|z|: 10 fp12_mul + 1 fp12_sqr
     plans = 2 * pm.N_COEFFS + 5 * per_exp_z + 11
     inv_sops, sqrs = inv_launches()
-    # fp2_inv in fp12_inv: the norm and a 2-group product around its fp.inv
-    sops = inv_sops + 2
-    # folds of >= 4 groups (fold_planned): the Miller loop's line scaling;
-    # in fp12_inv two fp6_mul_many and fp6_inv's three folds; three per
-    # fp12_frobenius, eight of them in the final exponentiation
-    folds = 1 + 5 + 3 * 8
+    # fp2_inv in fp12_inv: the norm (one sop) around its fp.inv
+    sops = inv_sops + 1
+    # folds (fold_planned): the Miller loop's line scaling; in fp12_inv two
+    # fp6_mul_many, fp6_inv's three folds and fp2_inv's two products; three
+    # per fp12_frobenius, eight of them in the final exponentiation
+    folds = 1 + 5 + 1 + 3 * 8
     return {"plan_exec": plans, "sqr": sqrs, "sop": sops,
             "fold_planned": folds}
 
 
-def phase_main(device):
+def pairing_inputs(device):
+    """The pairing's batch: [a]G1, [b]G2 with a, b < 1000 from the seed,
+    fixed lanes first (e(G1, G2), identities, equal products)."""
     import numpy as np
-    import torch
-
-    from bls12_381_torch import limbs
-    from bls12_381_torch import pairing as pr
-    from bls12_381_torch.fields import tower as tw
-    from bls12_381_torch.kernels import LAUNCHES
 
     rng = np.random.default_rng(SEED)
     a_idx = [int(v) for v in rng.integers(0, 1000, BATCH)]
@@ -602,9 +662,19 @@ def phase_main(device):
              (10, 20), (20, 10), (40, 5)]
     for lane, (a, b) in enumerate(fixed):
         a_idx[lane], b_idx[lane] = a, b
+    return (a_idx, b_idx) + encode(*load_points(a_idx, b_idx), device)
+
+
+def phase_main(device):
+    import torch
+
+    from bls12_381_torch import limbs
+    from bls12_381_torch import pairing as pr
+    from bls12_381_torch.fields import tower as tw
+    from bls12_381_torch.kernels import LAUNCHES
+
     t0 = time.perf_counter()
-    ps, qs = load_points(a_idx, b_idx)
-    p_aff, q_aff = encode(ps, qs, device)
+    a_idx, b_idx, p_aff, q_aff = pairing_inputs(device)
     torch.cuda.synchronize()
     say("main", inputs_seconds=time.perf_counter() - t0, batch=BATCH)
 
@@ -721,6 +791,65 @@ def phase_kernel_times(results, timed) -> None:
         say("kernel_times", kernel=key, ms=results[key]["ms"],
             events_ms=results[key]["events_ms"],
             bound_ms=results[key]["bound_ms"])
+
+
+# Folds timed on both routes of `limbs.sop_fold`: (what runs such a fold,
+# B, groups over operand rows 1..K, each row its own tensor)
+ROUTE_CASES = (
+    ("fp2_inv / to_affine products", BATCH, [[(1, 3)], [(2, 3)]]),
+    ("msm_g1 to_affine x, y", 1 << MSM_LOG_N["g1"], [[(1, 3)], [(2, 3)]]),
+    ("msm_g2 psi Fp2 product", 1 << MSM_LOG_N["g2"],
+     [[(1, 3), (5, 4)], [(1, 4), (2, 3)]]),
+    ("g1 is_on_curve", BATCH, [[(1, 1)], [(2, 2)], [(3, 3)]]),
+    ("pairing line scaling", 68 * BATCH,
+     [[(1, 5)], [(2, 5)], [(3, 6)], [(4, 6)]]),
+    ("G=4 T=7", BATCH, [[(1 + (g + t) % 8, 9 + (g * t) % 8)
+                         for t in range(7)] for g in range(4)]),
+    ("G=4 T=8", BATCH, [[(1 + (g + t) % 8, 9 + (g * t) % 8)
+                         for t in range(8)] for g in range(4)]),
+)
+
+
+def phase_fold_routes(device) -> None:
+    """Both routes of an Fp fold on the same operands: `limbs.
+    _sop_fold_stacked` (operands copied per (group, term), one `sop`) and
+    `limbs._sop_fold_planned` (each distinct operand stacked once, one
+    `fold_planned`), at the folds of two and three groups the paths make,
+    the line scaling and T = 7, 8: equal values, and per call the device ms of all its
+    device work (kernels and copies; profiler, device-side events) and the
+    issue ms (CUDA events around back-to-back calls)."""
+    import torch
+
+    from bls12_381_torch import limbs
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 3)
+    routes = {"stacked": limbs._sop_fold_stacked,
+              "planned": limbs._sop_fold_planned}
+    for label, B, idx in ROUTE_CASES:
+        K = max(i for g in idx for pair in g for i in pair)
+        rows = [None] + list(rand_fp((K, B), gen, device).unbind(1))
+        groups = [[(rows[a], rows[b]) for a, b in g] for g in idx]
+        outs = {k: torch.stack(fn(limbs.FP, groups))
+                for k, fn in routes.items()}
+        if not torch.equal(outs["stacked"], outs["planned"]):
+            fail(f"fold routes disagree at {label}")
+        res = {"case": label, "G": len(idx), "T": max(map(len, idx)),
+               "B": B}
+        n = 20
+        for k, fn in routes.items():
+            res[f"{k}_issue_ms"] = time_events(
+                lambda fn=fn: fn(limbs.FP, groups), n=n)
+
+            def run(fn=fn):
+                for _ in range(n):
+                    fn(limbs.FP, groups)
+
+            res[f"{k}_device_ms"] = sum(
+                e - s for _, s, e in device_events(run)) / n / 1e3
+        res["planned_over_stacked_device"] = (res["planned_device_ms"]
+                                              / res["stacked_device_ms"])
+        say("fold_routes", **res)
 
 
 def limb_ints(t) -> list:
@@ -848,10 +977,10 @@ def expected_msm_launches(group: str, n: int, c: int, split: bool = True):
     """Kernel launches of one msm over n >= 16 points with window c, from
     the schedule of ops/msm.py: from_mont of the scalars (one sop_fr); the
     z inversions of to_affine (`batch_inv`: two product scans of 2 lg n
-    products, one Fp inversion, two products; G2 adds the norm and a
-    2-group product) and its x, y product (a 2-group sop on G1, a 4-group
-    fold_planned on G2); the GLV split's beta x (one sop) or the GLS
-    split's three affine psi (two Fp2 products each); then per window of
+    products, one Fp inversion, two products; G2 adds the norm, one sop,
+    and two products, one fold) and its x, y products (one fold_planned);
+    the GLV split's beta x (one sop) or the GLS split's three affine psi
+    (two Fp2 products, one fold each); then per window of
     the signed digits the segmented scan (2 lg m adds over m lanes), the
     bucket sum (a suffix scan and a halving tree over 2^(c-1) buckets:
     3 (c - 1) adds), c doublings and one add."""
@@ -865,9 +994,9 @@ def expected_msm_launches(group: str, n: int, c: int, split: bool = True):
     windows = -(-(bits + 1) // c)
     adds = windows * (2 * lg(lanes) + 3 * (c - 1) + 1)
     if group == "g1":
-        sops, folds = inv + 1 + int(split), 0
+        sops, folds = inv + int(split), 1
     else:
-        sops, folds = 1 + inv + 1 + (6 if split else 0), 1
+        sops, folds = 1 + inv, 2 + (6 if split else 0)
     return {"sop": sops, "sqr": inv_sqrs, "plan_exec": adds + windows * c,
             "sop_fr": 1, "butterfly": 0, "fold_planned": folds,
             "plan_exec_by_plan": {f"{group}_add_plan": adds,
@@ -1047,6 +1176,7 @@ def main() -> None:
     msms = phase("msm", phase_msm, device)
     phase("kernel_times", phase_kernel_times, results, timed)
     del timed
+    phase("fold_routes", phase_fold_routes, device)
     from bls12_381_torch import pairing as pr
     from bls12_381_torch.ops import ntt
 
@@ -1078,9 +1208,11 @@ def main() -> None:
               f"sop T=1 B={4 * 68 * BATCH}"),
         entry("sqr", src + "mont.cu", f"{pallas}:711", counts["sqr"],
               f"sqr G=1 B={BATCH}"),
-        # launches per pairing; per msm_g2 beside it
+        # launches per pairing, ms and bounds per launch at the pairing's
+        # own folds; launches per msm beside them
         entry("fold_planned", src + "mont.cu", f"{pallas}:250",
-              counts["fold_planned"], f"fold_planned G=4 T=1 B={68 * BATCH}",
+              counts["fold_planned"], PAIRING_FOLDS,
+              launches_msm_g1=msm_counts["g1"]["fold_planned"],
               launches_msm_g2=msm_counts["g2"]["fold_planned"]),
     ]
     for make_plan in pe.MAIN_PATH_PLANS:

@@ -26,7 +26,7 @@ from bls12_381_torch import convert, hostmath as hm
 from bls12_381_torch.curves import g1, g2
 from bls12_381_torch.fields import fp, tower as tw
 from bls12_381_torch.kernels import plan_exec as pe
-from bls12_381_torch.params import G1_GEN, G2_GEN, P
+from bls12_381_torch.params import G1_GEN, G2_GEN, P, Q
 from bls12_381_torch.utils import scans
 
 torch.set_num_threads(1)
@@ -52,7 +52,7 @@ def g2_proj(pt):
     if pt is None:
         return ((0, 0), (1, 0), (0, 0))
     lam = r2()
-    return (hm.fp2_mul(pt[0], lam), hm.fp2_mul(pt[1], lam), lam)
+    return (jhm.fp2_mul(pt[0], lam), jhm.fp2_mul(pt[1], lam), lam)
 
 
 def enc_g1(pts):
@@ -79,9 +79,9 @@ def same_g2(port, jax_pt):
 
 
 GROUPS = {
-    "g1": dict(mul=hm.g1_mul, neg=hm.g1_neg, gen=G1_GEN, proj=g1_proj,
+    "g1": dict(mul=jhm.g1_mul, neg=jhm.g1_neg, gen=G1_GEN, proj=g1_proj,
                enc=enc_g1, same=same_g1, port=g1, jax=jg1, zero=0, one=1),
-    "g2": dict(mul=hm.g2_mul, neg=hm.g2_neg, gen=G2_GEN, proj=g2_proj,
+    "g2": dict(mul=jhm.g2_mul, neg=jhm.g2_neg, gen=G2_GEN, proj=g2_proj,
                enc=enc_g2, same=same_g2, port=g2, jax=jg2, zero=(0, 0),
                one=(1, 0)),
 }
@@ -190,19 +190,34 @@ def test_batch_inverses_of_small_batches():
     x0, x1 = tw.fp2_to_ints(tw.fp2_batch_inv(
         tw.fp2_from_ints(vals2, device="cpu")))
     assert [(int(a), int(b)) for a, b in zip(x0, x1)] == [(0, 0)] + [
-        hm.fp2_inv(v) for v in vals2[1:]]
+        jhm.fp2_inv(v) for v in vals2[1:]]
 
 
 def test_psi_and_endomorphism_constants_match_jax():
     assert g1.BETA == jg1.BETA
     assert (hm.PSI_CX, hm.PSI_CY) == (jhm.PSI_CX, jhm.PSI_CY)
-    pts = [hm.g2_mul(G2_GEN, rng.randrange(1, 1 << 30)) for _ in range(3)]
+    pts = [jhm.g2_mul(G2_GEN, rng.randrange(1, 1 << 30)) for _ in range(3)]
     jp, tp = enc_g2([g2_proj(p) for p in pts] + [g2_proj(None)])
     assert same_g2(g2.psi(tp), jg2.psi(jp))
-    for k in (3, 1 << 20):
-        assert hm.g1_mul(G1_GEN, k) == jhm.g1_mul(G1_GEN, k)
-        assert hm.g2_add(hm.g2_mul(G2_GEN, k), G2_GEN) == jhm.g2_mul(
-            G2_GEN, k + 1)
+
+
+
+def test_port_hostmath_matches_jax_hostmath():
+    """The port's host group law (the checks' oracle in `chip_smoke.py`)
+    equals the JAX package's: multiples by full-width scalars, sums, P + P,
+    P + (-P) and the identity."""
+    ks = [0, 1, 3, 1 << 20, Q - 1] + [rng.randrange(Q) for _ in range(3)]
+    for gen, mul, add, neg, jmul, jadd in (
+            (G1_GEN, hm.g1_mul, hm.g1_add, hm.g1_neg, jhm.g1_mul, jhm.g1_add),
+            (G2_GEN, hm.g2_mul, hm.g2_add, hm.g2_neg, jhm.g2_mul,
+             jhm.g2_add)):
+        pts = [mul(gen, k) for k in ks]
+        assert pts == [jmul(gen, k) for k in ks]
+        assert pts[0] is None and pts[4] == neg(gen)
+        for a, b in zip(pts, pts[1:] + pts[:1]):
+            assert add(a, b) == jadd(a, b)
+        assert add(pts[5], pts[5]) == jadd(pts[5], pts[5])
+        assert add(pts[5], neg(pts[5])) is None
 
 
 def test_generators_and_from_affine():

@@ -108,9 +108,10 @@ def make_groups(G, T, pool_j, pool_t):
     return groups_j, groups_t
 
 
-@pytest.mark.parametrize("G", [4, 8])
-@pytest.mark.parametrize("T", [1, 2, 6])
+@pytest.mark.parametrize("G", [2, 3, 4, 8])
+@pytest.mark.parametrize("T", [1, 2, 6, 8])
 def test_dedup_route_matches_jax_sop_fold(monkeypatch, G, T):
+    """Every Fp fold of two or more groups takes the planned route."""
     pool = [both(rvals(NB)) for _ in range(5)]
     groups_j, groups_t = make_groups(G, T, [j for j, _ in pool],
                                      [t for _, t in pool])
@@ -153,22 +154,35 @@ def test_dedup_route_broadcasts_operands(monkeypatch):
         assert np.array_equal(convert.fp_from_torch(g), np.asarray(w))
 
 
-@pytest.mark.parametrize("case", ["G2", "G3", "Fr_G4", "T7"])
-def test_other_folds_take_the_stacked_route(monkeypatch, case):
-    """Fewer than four groups, Fr folds and groups of more than six terms
-    stay on the stacked `sop` route (values as the JAX package's)."""
-    calls = recording(monkeypatch)
-    spec, jspec, jfield, mod = (limbs.FR, jlb.FR, jfr, Q) if case == "Fr_G4" \
-        else (limbs.FP, jlb.FP, jfp, P)
-    G, T = {"G2": (2, 2), "G3": (3, 6), "Fr_G4": (4, 2), "T7": (4, 7)}[case]
-    pool = [both(rvals(NB, mod, [0, 1, mod - 1]), jfield) for _ in range(4)]
+def test_dedup_route_splits_large_tables(monkeypatch):
+    """A fold beyond the kernel's G T table cap runs as launches over
+    chunks of groups, each within the cap."""
+    T = 8
+    G = mont.FOLD_ENTRIES // T + 3
+    pool = [both(rvals(4)) for _ in range(3)]
     groups_j, groups_t = make_groups(G, T, [j for j, _ in pool],
                                      [t for _, t in pool])
-    if case == "Fr_G4":  # Fr chunks at 2 terms; keep each group within one
-        groups_j = [g[:1] for g in groups_j]
-        groups_t = [g[:1] for g in groups_t]
-    got = limbs.sop_fold(spec, groups_t)
-    want = jlb.sop_fold(jspec, groups_j)
+    calls = recording(monkeypatch)
+    got = limbs.sop_fold(limbs.FP, groups_t)
+    want = jlb.sop_fold(jlb.FP, groups_j)
+    assert [c[1].shape[0] for c in calls] == [G - 3, 3]
+    assert all(c[1].size <= mont.FOLD_ENTRIES for c in calls)
+    assert len(got) == G
+    for g, w in zip(got, want):
+        assert np.array_equal(convert.fp_from_torch(g), np.asarray(w))
+
+
+@pytest.mark.parametrize("G", [2, 4])
+def test_other_folds_take_the_stacked_route(monkeypatch, G):
+    """Fr folds (`sop_fr` has no fold kernel) stay on the stacked route,
+    with the JAX package's values."""
+    calls = recording(monkeypatch)
+    pool = [both(rvals(NB, Q, [0, 1, Q - 1]), jfr) for _ in range(4)]
+    # Fr chunks at 2 terms; keep each group within one
+    groups_j, groups_t = make_groups(G, 1, [j for j, _ in pool],
+                                     [t for _, t in pool])
+    got = limbs.sop_fold(limbs.FR, groups_t)
+    want = jlb.sop_fold(jlb.FR, groups_j)
     assert calls == []
     for g, w in zip(got, want):
         assert np.array_equal(convert.fp_from_torch(g), np.asarray(w))

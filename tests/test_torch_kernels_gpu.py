@@ -180,7 +180,9 @@ def test_msm_on_card_matches_cpu(cuda, group):
     torch.cuda.synchronize()
     counts = LAUNCHES.snapshot()
     assert counts["plan_exec"] > 0 and counts["sop_fr"] == 1
-    assert counts["fold_planned"] == (1 if group == "g2" else 0)
+    # to_affine's x, y products; on G2 also fp2_batch_inv's two products
+    # and the GLS split's six Fp2 products (psi)
+    assert counts["fold_planned"] == {"g1": 1, "g2": 8}[group]
     ref = fn(scans.tree_map(lambda t: t.cpu(), pts), sc.cpu(), 6)
     assert all(torch.equal(a.cpu(), b) for a, b in
                zip(scans.tree_leaves(got), scans.tree_leaves(ref)))

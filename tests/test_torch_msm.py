@@ -1,13 +1,15 @@
 """The port's Pippenger MSM (bls12_381_torch.ops.msm) on the CPU against the
-host oracle's serial fold sum_i [k_i] P_i and the JAX package's `msm_g1`,
-plus the scalar splits it runs on (`limbs.barrett_divmod`, the signed
-digits) against the JAX package.
+JAX package: its host oracle's serial fold sum_i [k_i] P_i
+(`bls12_381_tpu.hostmath`) and its `msm_g1`, plus the scalar splits the MSM
+runs on (`limbs.barrett_divmod`, the signed digits).
 
 Tolerance: none (integer arithmetic) -- group elements compare exactly:
-affine against the host oracle, projective limb for limb against the JAX
-package (the same stable sort gives the same order of additions).  Inputs
-are seeded multiples of the generators and seeded scalars, with zero
-scalars, identity points and the scalar q-1.
+affine against the JAX package's host oracle (the port's projective result
+decoded by the JAX package's `to_ints` and a host inversion), projective
+limb for limb against the JAX package's `msm_g1` (the same stable sort gives
+the same order of additions).  Inputs are seeded multiples of the
+generators and seeded scalars, with zero scalars, identity points and the
+scalar q-1.
 """
 
 import random
@@ -18,16 +20,17 @@ import torch
 
 import conftest  # noqa: F401
 import jax.numpy as jnp
+from bls12_381_tpu import hostmath as jhm
 from bls12_381_tpu import limbs as jlb
 from bls12_381_tpu.curves import g1 as jg1
-from bls12_381_tpu.fields import fp as jfp, fr as jfr
+from bls12_381_tpu.fields import fp as jfp, fr as jfr, tower as jtw
 from bls12_381_tpu.ops import msm as jmsm
+from bls12_381_tpu.params import BLS_X, G1_GEN, G2_GEN, P, Q
 
-from bls12_381_torch import convert, entry, hostmath as hm, limbs
+from bls12_381_torch import convert, entry, limbs
 from bls12_381_torch.curves import g1, g2
-from bls12_381_torch.fields import fp, fr, tower as tw
+from bls12_381_torch.fields import fr, tower as tw
 from bls12_381_torch.ops import msm
-from bls12_381_torch.params import BLS_X, G1_GEN, G2_GEN, Q
 
 torch.set_num_threads(1)
 rng = random.Random(13)
@@ -60,20 +63,26 @@ def serial(mul, add, host_pts, ks):
 
 
 def dec_g1(proj):
-    x, y, inf = g1.to_affine(proj)
-    return None if bool(inf) else (int(fp.to_ints(x)), int(fp.to_ints(y)))
+    """A port projective point, batch shape () -> host affine ints (None
+    for the identity), decoded on the JAX package's side."""
+    x, y, z = (int(jfp.to_ints(c)) for c in convert.g1_proj_from_torch(proj))
+    if z == 0:
+        return None
+    zi = pow(z, -1, P)
+    return (x * zi % P, y * zi % P)
 
 
 def dec_g2(proj):
-    x, y, inf = g2.to_affine(proj)
-    if bool(inf):
+    x, y, z = (tuple(int(v) for v in jtw.fp2_to_ints(c))
+               for c in convert.g2_proj_from_torch(proj))
+    if z == (0, 0):
         return None
-    (x0, x1), (y0, y1) = tw.fp2_to_ints(x), tw.fp2_to_ints(y)
-    return ((int(x0), int(x1)), (int(y0), int(y1)))
+    zi = jhm.fp2_inv(z)
+    return (jhm.fp2_mul(x, zi), jhm.fp2_mul(y, zi))
 
 
 def rand_g1(n):
-    return [hm.g1_mul(G1_GEN, rng.randrange(1, 1 << 20)) for _ in range(n)]
+    return [jhm.g1_mul(G1_GEN, rng.randrange(1, 1 << 20)) for _ in range(n)]
 
 
 def test_msm_g1_matches_serial_and_jax():
@@ -82,7 +91,7 @@ def test_msm_g1_matches_serial_and_jax():
     pts = rand_g1(n)
     jp, tp = g1_points(pts)
     got = msm.msm_g1(tp, fr.from_ints(ks, device="cpu"), c=4)
-    assert dec_g1(got) == serial(hm.g1_mul, hm.g1_add, pts, ks)
+    assert dec_g1(got) == serial(jhm.g1_mul, jhm.g1_add, pts, ks)
     want = jmsm.msm_g1(jp, jfr.from_ints(ks), c=4)
     for a, b in zip(convert.g1_proj_from_torch(got), want):
         assert np.array_equal(a, np.asarray(b))
@@ -90,11 +99,11 @@ def test_msm_g1_matches_serial_and_jax():
 
 def test_msm_with_zero_scalars_and_identity_points():
     ks = [0, 1, 2, 0, 5, 0, 7, Q - 1]
-    pts = [hm.g1_mul(G1_GEN, i + 1) for i in range(8)]
+    pts = [jhm.g1_mul(G1_GEN, i + 1) for i in range(8)]
     pts[2] = pts[5] = None
     _, tp = g1_points(pts)
     got = msm.msm_g1(tp, fr.from_ints(ks, device="cpu"), c=4)
-    assert dec_g1(got) == serial(hm.g1_mul, hm.g1_add, pts, ks)
+    assert dec_g1(got) == serial(jhm.g1_mul, jhm.g1_add, pts, ks)
 
 
 def test_msm_g1_large_folds_chunks():
@@ -105,16 +114,16 @@ def test_msm_g1_large_folds_chunks():
     sc = fr.from_ints(ks, device="cpu")
     got = msm.msm_g1_large(tp, sc, c=4, chunk_log2=2)
     assert bool(g1.eq(got, msm.msm_g1(tp, sc, c=4)))
-    assert dec_g1(got) == serial(hm.g1_mul, hm.g1_add, pts, ks)
+    assert dec_g1(got) == serial(jhm.g1_mul, jhm.g1_add, pts, ks)
 
 
 def test_msm_g2_matches_serial():
     n = 8
     ks = [rng.randrange(Q) for _ in range(n - 1)] + [Q - 1]
-    pts = [hm.g2_mul(G2_GEN, rng.randrange(1, 1 << 20)) for _ in range(n)]
+    pts = [jhm.g2_mul(G2_GEN, rng.randrange(1, 1 << 20)) for _ in range(n)]
     pts[3] = None
     got = msm.msm_g2(g2_points(pts), fr.from_ints(ks, device="cpu"), c=4)
-    assert dec_g2(got) == serial(hm.g2_mul, hm.g2_add, pts, ks)
+    assert dec_g2(got) == serial(jhm.g2_mul, jhm.g2_add, pts, ks)
 
 
 @pytest.mark.parametrize("group", ["g1", "g2"])
@@ -122,10 +131,10 @@ def test_msm_entry_on_cpu(group):
     """msm_inputs: [i+1]G with identity lanes and zero scalars; the MSM of
     them is [sum_i k_i (i+1)]G over the other lanes."""
     fn, (pts, sc) = entry.msm_entry(4, group, seed=7, device="cpu")
-    mod, mul, gen = {"g1": (g1, hm.g1_mul, G1_GEN),
-                     "g2": (g2, hm.g2_mul, G2_GEN)}[group]
+    mod, mul, gen = {"g1": (g1, jhm.g1_mul, G1_GEN),
+                     "g2": (g2, jhm.g2_mul, G2_GEN)}[group]
     inf = mod.is_identity(pts).tolist()
-    ks = [int(k) for k in limbs.to_ints(limbs.FR, sc)]
+    ks = [int(k) for k in jfr.to_ints(convert.fr_from_torch(sc))]
     assert inf[entry.MSM_IDENTITY_LANE] and sum(inf) == 1
     assert ks[entry.MSM_ZERO_LANE] == 0 and all(ks[:entry.MSM_ZERO_LANE])
     total = sum(k * (i + 1) for i, (k, o) in enumerate(zip(ks, inf))
