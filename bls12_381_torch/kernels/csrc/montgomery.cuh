@@ -44,17 +44,17 @@ __device__ __forceinline__ void store16(int32_t* __restrict__ dst,
   }
 }
 
-// Scratch that a thread writes and reads back in one launch: plain
-// (coherent) pointers, never the read-only data path.
+// 32-bit words that a block writes and reads back in one launch (the plan
+// kernel's shared-memory slots), `stride` words apart.
 template <int W>
-__device__ __forceinline__ void load32(const uint32_t* src, size_t stride,
+__device__ __forceinline__ void load32(const uint32_t* src, int stride,
                                        uint32_t (&x)[W]) {
 #pragma unroll
   for (int k = 0; k < W; ++k) x[k] = src[k * stride];
 }
 
 template <int W>
-__device__ __forceinline__ void store32(uint32_t* dst, size_t stride,
+__device__ __forceinline__ void store32(uint32_t* dst, int stride,
                                         const uint32_t (&x)[W]) {
 #pragma unroll
   for (int k = 0; k < W; ++k) dst[k * stride] = x[k];

@@ -9,35 +9,51 @@ The DAG and the plan constructors are the JAX package's, copied: nodes are
 `in`, `add`, `sub`, `neg` and `sop` (T <= 6 per node; the constructors chunk
 longer sums), interned so that structurally equal nodes are one object.
 
-Design.  `compile_plan` turns a plan into an int32 instruction table once
-(cached per plan, uploaded once per device).  Each row is
-[op, dst slot, n_terms, src slots...]; rows are ordered by `_plan_schedule`'s
-level groups (nodes of one depth, op and term count are independent).  The
-CUDA kernel is a generic interpreter: one thread per batch lane walks the
-table in the same order as every other thread, so there is no divergence;
-each node's value is 12 32-bit words in a per-lane slot of a [slot, 12, B]
-scratch tensor; a `sop` row runs the shared Montgomery product and reduction
-of `csrc/montgomery.cuh`, `add`/`sub`/`neg` are canonical 12-word modular
-ripples (the counterparts of `_mod_add_rows`/`_mod_sub_rows`).  The plain
-version executes the SAME table, one vectorised PyTorch call per level
-group, so the CPU tests cover the table's encoding and only the CUDA
-arithmetic is left for the card.
+Design.  `compile_plan` turns a plan into an instruction table once (cached
+per plan, uploaded once per device).  Each row is [op, dst slot, n_terms,
+src slots...]; rows are ordered by `_plan_schedule`'s level groups (nodes of
+one depth, op and term count), and the groups of one depth form a *phase*:
+its nodes read only values of earlier phases, so they can all run at once.
+A value lives in a slot from its phase to the phase of its last read
+(outputs to the end); a slot freed after phase p is taken by a node of a
+later phase, never of phase p itself, so `n_slots` is the plan's peak live
+count (<= 70 for every plan here, against up to 464 nodes) and a slot index
+fits in 8 bits.  The kernel reads the table as one compact byte program
+(`_encode_program`: 16-bit phase and row offsets, 8-bit rows; <= 3 KB),
+staged into each block's shared memory.
+
+The CUDA kernel gives each block of 192 threads a tile of Lt lanes
+(`launch_shape`) and a [slot][word][lane] array of 32-bit words in shared
+memory.  The block loads its inputs once, then for each phase its threads
+take the phase's (node, lane) items, node-major, one per thread per round:
+a `sop` row runs the Montgomery product and reduction of
+`csrc/montgomery.cuh`, `add`/`sub`/`neg` the canonical 12-word modular
+ripples.  Every thread reads its operands, the block meets at a barrier,
+then writes its result, and meets again: a round reads all its sources
+before it writes any destination.  The plain version executes the SAME
+table the same way, one phase at a time, one vectorised PyTorch call per
+level group, so the CPU tests cover the table and its slot reuse and only
+the CUDA arithmetic is left for the card.
 
 Bound on the card.  Per lane a plan reads K and writes O values (96 bytes
 each as int32 limbs) and does ~2 ((T + 1) 144 + 12) 32-bit multiplies per
-T-term sop node, so on paper every plan is bound by its multiplies.  The
-kernel is far from that: one thread per lane gives a batch of 1024 only 32
-warps on the card's 132 SMs, and every node round-trips its 48 bytes
-through device memory (L2 at this size).  Spreading a level's independent
-nodes across threads, reusing slots by liveness and keeping slots in shared
-memory are left to a later change.
+T-term sop node, so every plan is bound by its multiplies.  Nothing but the
+inputs and outputs touches device memory (no global scratch).  What is left
+is the DAG's depth at a narrow batch (each phase costs at least its slowest
+node's dependent multiply-add chain, and narrow phases leave threads
+waiting at the barrier), and at a wide one the threads an SM holds
+resident: slots take ~50 bytes per (value, lane) of shared memory and each
+thread up to 85 registers.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import functools
+import heapq
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -47,10 +63,15 @@ from . import LAUNCHES, build
 from .mont import check_launch, device_kind, sop_plain
 
 L = limbs.FP.n_limbs
-WORDS = 12            # 32-bit words per Fp value in the kernel's scratch
+WORDS = 12            # 32-bit words per Fp value in the kernel's slots
 MAX_TERMS = 8         # the kernel's sop bound (T p < R)
 INSTR_WIDTH = 3 + 2 * MAX_TERMS
 OP_CODES = {"add": 1, "sub": 2, "neg": 3, "sop": 4}
+MAX_SLOTS = 256            # 8-bit slot indices
+THREADS = 192              # per block: the kernel's __launch_bounds__
+MAX_LANE_TILE = 64
+SMEM_BUDGET = 64 * 1024    # bytes per block: three blocks fit an SM's 228 KB
+SM_COUNT = 132             # H100 SXM; the wrapper asks the card
 
 
 # ---------------------------------------------------------------------------
@@ -584,32 +605,39 @@ GROUP_LAW_PLANS = (g1_add_plan, g1_double_plan, g1_add_mixed_plan,
                    g2_add_plan, g2_double_plan, g2_add_mixed_plan)
 
 
-def _plan_schedule(outputs):
-    """Level-batched schedule: nodes sharing (depth, op, T) are mutually
-    independent; returns the groups in dependency order."""
+def _sources(n: Node) -> tuple:
+    """The nodes a node reads, in its row's order (a sop's pairs flat)."""
+    if n.op == "sop":
+        return tuple(x for pair in n.args for x in pair)
+    return n.args
+
+
+def _depths(outputs) -> dict:
+    """Depth of every node the outputs reach, in post-order: 0 for inputs,
+    else one more than its deepest source (so every depth up to the
+    largest holds a node)."""
     depth = {}
 
     def visit(n):
         d = depth.get(n)
-        if d is not None:
-            return d
-        if n.op == "in":
-            d = 0
-        elif n.op == "sop":
-            d = 1 + max(max(visit(a), visit(b)) for a, b in n.args)
-        else:
-            d = 1 + max(visit(c) for c in n.args)
-        depth[n] = d
+        if d is None:
+            d = depth[n] = 0 if n.op == "in" else \
+                1 + max(visit(x) for x in _sources(n))
         return d
 
     for o in outputs:
         visit(o)
+    return depth
+
+
+def _plan_schedule(outputs):
+    """Level-batched schedule: nodes sharing (depth, op, T) are mutually
+    independent; returns the groups in dependency order."""
     groups = {}
-    for n, d in depth.items():
-        if n.op == "in":
-            continue
-        key = (d, n.op, len(n.args) if n.op == "sop" else 0)
-        groups.setdefault(key, []).append(n)
+    for n, d in _depths(outputs).items():
+        if n.op != "in":
+            key = (d, n.op, len(n.args) if n.op == "sop" else 0)
+            groups.setdefault(key, []).append(n)
     return [groups[k] for k in sorted(groups)]
 
 
@@ -618,15 +646,36 @@ def _plan_schedule(outputs):
 # ---------------------------------------------------------------------------
 
 
+def slot_words(lt: int) -> int:
+    """32-bit words of one slot in a block of lt lanes ([word][lane]).  Under
+    a warp's width one padding word per lane makes the slot stride 13 lt,
+    an odd multiple of lt: the 32 / lt nodes a warp covers then read one
+    word from distinct banks whenever their slots differ mod 32 / lt (the
+    lowest-free allocation makes that the common case).  From lt = 32 a
+    warp is 32 lanes of one node, conflict-free unpadded."""
+    return lt * (WORDS + (lt < 32))
+
+
+class _Tables(NamedTuple):
+    program: torch.Tensor     # uint8: the kernel's byte program
+    load_rows: torch.Tensor   # int64: operand rows loaded ...
+    load_slots: torch.Tensor  # ... into these slots
+    out_slots: torch.Tensor   # int64
+    phases: list              # per phase: (op, dst, src_a, src_b) per group
+
+
 @dataclasses.dataclass(eq=False)
 class CompiledPlan:
-    """A plan as an int32 instruction table in level-group order."""
+    """A plan as an instruction table in level-group order, cut into
+    phases (the groups of one depth), with slots reused by liveness."""
 
     name: str
-    n_in: int
-    n_slots: int
-    instr: np.ndarray      # [n_instr, INSTR_WIDTH] int32
+    n_in: int              # operand rows the plan takes
+    n_slots: int           # value slots: the plan's peak live count
+    instr: np.ndarray      # [n_rows, INSTR_WIDTH] int32: op, dst, T, srcs
     groups: tuple          # ((start, stop), ...) row ranges of level groups
+    phases: tuple          # ((start, stop), ...) row ranges of depths
+    loads: np.ndarray      # [n_loads, 2] int32: (operand row, slot)
     out_slots: np.ndarray  # [n_out] int32
     _tables: dict = dataclasses.field(default_factory=dict, repr=False)
 
@@ -639,20 +688,47 @@ class CompiledPlan:
         rows = self.instr[self.instr[:, 0] == OP_CODES["sop"]]
         return [int(t) for t in rows[:, 2]]
 
-    def tables(self, device: torch.device):
-        """(instr, out_slots, group index tensors) on a device, made once."""
+    @functools.cached_property
+    def program(self) -> np.ndarray:
+        """The kernel's byte program (`_encode_program`)."""
+        return _encode_program(self)
+
+    def smem_bytes(self, lt: int) -> int:
+        """Shared memory of a block of lt lanes: the program, staged once
+        per block, then the slot array."""
+        return len(self.program) + 4 * self.n_slots * slot_words(lt)
+
+    def launch_shape(self, B: int, n_sm: int = SM_COUNT):
+        """(lane tile Lt, threads, shared-memory bytes) of a launch over B
+        lanes.  Lt is the largest power of two <= MAX_LANE_TILE that still
+        gives at least half of the n_sm SMs a block and keeps the block's
+        shared memory within SMEM_BUDGET; one lane where nothing wider does.
+        (On the H100 a narrow batch is latency-bound, so 128 tiles of 8
+        lanes beat 256 of 4 at B = 1024; a wide one is bound by resident
+        threads, which 64-lane tiles of 192 threads maximise.)"""
+        lt = MAX_LANE_TILE
+        while lt > 1 and (-(-B // lt) < n_sm // 2
+                          or self.smem_bytes(lt) > SMEM_BUDGET):
+            lt //= 2
+        return lt, THREADS, self.smem_bytes(lt)
+
+    def tables(self, device: torch.device) -> _Tables:
+        """The tables on a device, made once."""
         t = self._tables.get(device)
         if t is None:
             def idx(a):
                 return torch.as_tensor(np.ascontiguousarray(a),
                                        dtype=torch.int64, device=device)
 
-            t = self._tables[device] = (
-                torch.as_tensor(self.instr, device=device),
-                torch.as_tensor(self.out_slots, device=device),
-                [tuple(idx(c) for c in _group_columns(self.instr[s:e]))
-                 for s, e in self.groups],
-            )
+            phases = [[(int(self.instr[s, 0]),
+                        *(idx(c) for c in _group_columns(self.instr[s:e])))
+                       for s, e in self.groups if p0 <= s < p1]
+                      for p0, p1 in self.phases]
+            t = self._tables[device] = _Tables(
+                program=torch.as_tensor(self.program, device=device),
+                load_rows=idx(self.loads[:, 0]),
+                load_slots=idx(self.loads[:, 1]),
+                out_slots=idx(self.out_slots), phases=phases)
         return t
 
 
@@ -665,29 +741,105 @@ def _group_columns(rows: np.ndarray):
     return (rows[:, 1], rows[:, 3], rows[:, 4])
 
 
+def n_sources(op: int, n_terms: int) -> int:
+    """Source slots of a row."""
+    if op == OP_CODES["sop"]:
+        return 2 * n_terms
+    return 1 if op == OP_CODES["neg"] else 2
+
+
+def _encode_program(plan: CompiledPlan) -> np.ndarray:
+    """The table as the kernel reads it (`csrc/plan_exec.cu`), little-endian
+    bytes, each section starting at a multiple of 4 and the whole padded
+    to 16 (the kernel stages it with 16-byte loads):
+      header   u16[8]   n_phases, n_loads, n_out, n_slots, then the byte
+                        offsets of the four sections below
+      phases   u16[n_phases + 1]   first row of each phase, then n_rows
+      rows_at  u16[n_rows]         word offset of each row in `rows`
+      io       u8[2 n_loads + n_out]   (operand row, slot) of each load,
+                        then the output slots
+      rows     per row [op | T << 4, dst, src...] as bytes, padded to 4
+                        (T = 0 for add / sub / neg; neg has one source)."""
+    rows, rows_at = bytearray(), []
+    for r in plan.instr:
+        op, dst, t = (int(x) for x in r[:3])
+        rows_at.append(len(rows) // 4)
+        row = bytes([op | t << 4, dst, *(int(x) for x in
+                                         r[3:3 + n_sources(op, t)])])
+        rows += row + bytes(-len(row) % 4)
+    sections = (
+        np.array([s for s, _ in plan.phases] + [len(plan.instr)], "<u2"),
+        np.array(rows_at, "<u2"),
+        np.concatenate([plan.loads.reshape(-1), plan.out_slots])
+        .astype(np.uint8),
+        np.frombuffer(bytes(rows), np.uint8),
+    )
+    body, offsets = bytearray(16), []
+    for sec in sections:
+        offsets.append(len(body))
+        raw = sec.tobytes()
+        body += raw + bytes(-len(raw) % 4)
+    body += bytes(-len(body) % 16)
+    if len(body) >= 1 << 16:
+        raise ValueError(f"plan {plan.name}: program of {len(body)} bytes "
+                         "(16-bit offsets)")
+    body[:16] = np.array([len(plan.phases), len(plan.loads), plan.n_out,
+                          plan.n_slots, *offsets], "<u2").tobytes()
+    return np.frombuffer(bytes(body), np.uint8).copy()
+
+
 _COMPILED: dict = {}
 
 
 def compile_plan(outputs) -> CompiledPlan:
-    """The plan's instruction table, built once per plan."""
+    """The plan's table, built once per plan: rows in level-group order, the
+    phase boundaries where the depth changes, and slots by liveness.  A
+    value holds its slot from its phase to the phase of its last read
+    (outputs, inputs among them, to the end); the slot then goes back to a
+    free list, from which the lowest is taken by the next node of a LATER
+    phase that needs one, so no slot is written in the phase that reads
+    it.  Greedy in phase order, this uses the peak live count of slots."""
     outputs = tuple(outputs)
     plan = _COMPILED.get(outputs)
     if plan is not None:
         return plan
+    depth = _depths(outputs)
     schedule = _plan_schedule(outputs)
-    in_nodes = {o for o in outputs if o.op == "in"}
+    last = {}
     for group in schedule:
         for n in group:
-            srcs = (x for pair in n.args for x in pair) if n.op == "sop" \
-                else n.args
-            in_nodes.update(x for x in srcs if x.op == "in")
-    n_in = 1 + max(n.args[0] for n in in_nodes)
-    slot = {n: n.args[0] for n in in_nodes}
-    rows, groups = [], []
+            for x in _sources(n):
+                last[x] = max(last.get(x, 0), depth[n])
+    last.update((o, 1 + max(depth.values())) for o in outputs)
+    inputs = sorted((x for x in last if x.op == "in"),
+                    key=lambda x: x.args[0])
+    free, slot, freed_after = [], {}, collections.defaultdict(list)
+    n_slots = 0
+
+    def take(v):
+        nonlocal n_slots
+        if free:
+            slot[v] = heapq.heappop(free)
+        else:
+            slot[v], n_slots = n_slots, n_slots + 1
+        freed_after[last[v]].append(slot[v])
+
+    for x in inputs:
+        take(x)
+    rows, groups, starts, phase_depth = [], [], [], 0
     for group in schedule:
+        d = depth[group[0]]
+        if d != phase_depth:
+            # a new phase (depths are consecutive): what phase d - 1 read
+            # last is free now
+            for s in freed_after.pop(d - 1, ()):
+                heapq.heappush(free, s)
+            starts.append(len(rows))
+            phase_depth = d
         start = len(rows)
         for n in group:
-            slot[n] = n_in + len(rows)
+            srcs = [slot[x] for x in _sources(n)]
+            take(n)
             row = np.zeros(INSTR_WIDTH, np.int32)
             row[0], row[1] = OP_CODES[n.op], slot[n]
             if n.op == "sop":
@@ -695,18 +847,22 @@ def compile_plan(outputs) -> CompiledPlan:
                     raise ValueError(f"sop node of {len(n.args)} terms; the "
                                      f"kernel takes at most {MAX_TERMS}")
                 row[2] = len(n.args)
-                srcs = [slot[x] for pair in n.args for x in pair]
-            else:
-                srcs = [slot[x] for x in n.args]
             row[3:3 + len(srcs)] = srcs
             rows.append(row)
         groups.append((start, len(rows)))
+    n_in = 1 + max(x.args[0] for x in inputs)
+    if n_slots > MAX_SLOTS or n_in > MAX_SLOTS:
+        raise ValueError(f"plan of {n_slots} slots and {n_in} operand rows; "
+                         f"the kernel's 8-bit indices take {MAX_SLOTS}")
     plan = _COMPILED[outputs] = CompiledPlan(
         name=_PLAN_NAMES.get(outputs, f"plan[{len(rows)} nodes]"),
         n_in=n_in,
-        n_slots=n_in + len(rows),
+        n_slots=n_slots,
         instr=np.stack(rows) if rows else np.zeros((0, INSTR_WIDTH), np.int32),
         groups=tuple(groups),
+        phases=tuple(zip(starts, starts[1:] + [len(rows)])),
+        loads=np.array([(x.args[0], slot[x]) for x in inputs],
+                       np.int32).reshape(-1, 2),
         out_slots=np.array([slot[o] for o in outputs], np.int32),
     )
     return plan
@@ -717,42 +873,52 @@ def compile_plan(outputs) -> CompiledPlan:
 # ---------------------------------------------------------------------------
 
 
-def plan_exec_plain(ops: torch.Tensor, plan: CompiledPlan) -> torch.Tensor:
-    """Walk the plan's instruction table with PyTorch: one vectorised call
-    per level group over all of its rows.  int32 [K, L, B] -> [O, L, B]."""
-    _, _, groups = plan.tables(ops.device)
-    B = ops.shape[2]
-    vals = torch.empty((plan.n_slots, L, B), dtype=limbs.DTYPE,
-                       device=ops.device)
-    vals[:plan.n_in] = ops[:plan.n_in]
-    for (start, _), (dst, src_a, src_b) in zip(plan.groups, groups):
-        op = int(plan.instr[start, 0])
-        if op == OP_CODES["sop"]:
-            # [G, T, L, B] -> [T, L, G, B]
-            a = vals[src_a].permute(1, 2, 0, 3)
-            b = vals[src_b].permute(1, 2, 0, 3)
-            r = sop_plain(a, b)
+def _eval_group(vals: torch.Tensor, op: int, src_a, src_b) -> torch.Tensor:
+    """One level group's values [G, L, B] from the slots it reads."""
+    if op == OP_CODES["sop"]:
+        # [G, T, L, B] -> [T, L, G, B]
+        r = sop_plain(vals[src_a].permute(1, 2, 0, 3),
+                      vals[src_b].permute(1, 2, 0, 3))
+    else:
+        x = vals[src_a].transpose(0, 1)  # [L, G, B]
+        if op == OP_CODES["neg"]:
+            r = limbs.neg(limbs.FP, x)
         else:
-            x = vals[src_a].transpose(0, 1)  # [L, G, B]
-            if op == OP_CODES["neg"]:
-                r = limbs.neg(limbs.FP, x)
-            else:
-                y = vals[src_b].transpose(0, 1)
-                fn = limbs.add if op == OP_CODES["add"] else limbs.sub
-                r = fn(limbs.FP, x, y)
-        vals[dst] = r.transpose(0, 1)
-    _, out_slots, _ = plan.tables(ops.device)
-    return vals[out_slots.long()]
+            fn = limbs.add if op == OP_CODES["add"] else limbs.sub
+            r = fn(limbs.FP, x, vals[src_b].transpose(0, 1))
+    return r.transpose(0, 1)
+
+
+def plan_exec_plain(ops: torch.Tensor, plan: CompiledPlan) -> torch.Tensor:
+    """Walk the plan's table with PyTorch, one phase at a time: every level
+    group of a phase gathers its sources (one vectorised call per group)
+    before any of them writes its destinations, as the kernel's barrier
+    orders them.  int32 [K, L, B] -> [O, L, B]."""
+    t = plan.tables(ops.device)
+    vals = torch.zeros((plan.n_slots, L, ops.shape[2]), dtype=limbs.DTYPE,
+                       device=ops.device)
+    vals[t.load_slots] = ops[t.load_rows]
+    for phase in t.phases:
+        results = [(dst, _eval_group(vals, op, a, b))
+                   for op, dst, a, b in phase]
+        for dst, r in results:
+            vals[dst] = r
+    return vals[t.out_slots]
 
 
 _SIGNATURES = {
-    # (ops, out, scratch, instr, n_instr, out_slots, n_in, n_out, B,
-    #  instr_width, stream)
+    # (ops, out, program, program bytes, B, log2 lane tile, threads,
+    #  shared bytes, stream)
     "bls_plan_exec": (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                      ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p),
+                      ctypes.c_int, ctypes.c_void_p),
 }
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device `index`."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def plan_exec(ops: torch.Tensor, plan: CompiledPlan) -> torch.Tensor:
@@ -771,16 +937,14 @@ def plan_exec(ops: torch.Tensor, plan: CompiledPlan) -> torch.Tensor:
                       device=ops.device)
     if B == 0:
         return out
-    instr, out_slots, _ = plan.tables(ops.device)
-    scratch = torch.empty((plan.n_slots, WORDS, B), dtype=torch.int32,
-                          device=ops.device)
+    lt, threads, smem = plan.launch_shape(B, sm_count(ops.device.index))
+    program = plan.tables(ops.device).program
     lib = build.load("plan_exec", _SIGNATURES)
     with torch.cuda.device(ops.device):
         stream = torch.cuda.current_stream(ops.device).cuda_stream
-        rc = lib.bls_plan_exec(
-            ops.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-            instr.data_ptr(), len(plan.instr), out_slots.data_ptr(),
-            plan.n_in, plan.n_out, B, INSTR_WIDTH, stream)
+        rc = lib.bls_plan_exec(ops.data_ptr(), out.data_ptr(),
+                               program.data_ptr(), program.numel(), B,
+                               lt.bit_length() - 1, threads, smem, stream)
         LAUNCHES.plan_exec += 1
         LAUNCHES.plan_exec_by_plan[plan.name] += 1
     check_launch(rc, f"plan_exec {plan.name}")

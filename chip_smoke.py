@@ -15,7 +15,9 @@ Phases (each prints its lines and seconds; any failed check exits non-zero):
      values 0, 1, p-1 (and q-2 and the butterfly's correction rows for
      Fr; for fold_planned uneven groups, repeated operands and a 6-term
      group of p-1 rows, and the folds of one pairing as it makes them;
-     the group-law plans at the MSM's widths); exact
+     every plan at one lane, a ragged last tile and batch 1024, the
+     group-law plans also at the MSM's widths, each with its launch shape:
+     lane tile, blocks, threads, shared memory, phases, registers); exact
      equality (integers: tolerance none); CUDA events around back-to-back
      calls (the host's issue rate for short kernels) and the plain
      version's time (CUDA events; no yardstick).
@@ -64,6 +66,7 @@ from __future__ import annotations
 import gc
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -82,6 +85,7 @@ STAGE_REPS = 7                     # host-clock runs per stage; median kept
 MSM_LOG_N = {"g1": 16, "g2": 12}   # a 2^16 KZG commitment; 4096 signatures
 MSM_CHECK_LOG_N = 10               # the card = CPU comparison
 MSM_REPS = 5
+PLAN_RAGGED = 1021                 # 255 tiles of 4 lanes and one of 1
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 # 32-bit integer multiply-adds per second: 132 SMs x 64 per clock (CUDA C
 # Programming Guide throughput table, compute capability 9.0) x 1.98 GHz
@@ -222,6 +226,27 @@ def phase_build():
     for stem in build.SOURCES:
         for line in build.ptxas_report(stem):
             print(f"[build:{stem}] {line}", flush=True)
+    regs, spills = ptxas_usage("plan_exec", "plan_kernel")
+    say("build", plan_kernel_registers=regs, plan_kernel_spill_bytes=spills)
+    return regs
+
+
+def ptxas_usage(stem: str, kernel: str):
+    """(registers, spill store + load bytes) of a kernel, from `ptxas -v`'s
+    lines in its library's build log."""
+    from bls12_381_torch.kernels import build
+
+    regs = spills = None
+    mine = False
+    for line in build.ptxas_report(stem):
+        if "Compiling entry" in line:
+            mine = kernel in line
+        elif mine and (m := re.search(r"Used (\d+) registers", line)):
+            regs = int(m[1])
+        elif mine and (m := re.search(
+                r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            spills = int(m[1]) + int(m[2])
+    return regs, spills
 
 
 def rand_fp(shape, gen, device):
@@ -255,6 +280,18 @@ def edge_col(value: int, device, n_limbs: int = 24):
 
     return torch.tensor(params.to_limbs(value, n_limbs), dtype=torch.int32,
                         device=device)
+
+
+def plan_edge_lanes(ops, P: int) -> None:
+    """Lanes 0..3 of a plan's operands [K, 24, B], as many as B holds: every
+    row p-1, every row 0, rows cycling 0, 1, p-1, every row 1."""
+    rows = ops.shape[0]
+    cols = {v: edge_col(v, ops.device) for v in (0, 1, P - 1)}
+    lanes = ([P - 1] * rows, [0] * rows,
+             [(0, 1, P - 1)[k % 3] for k in range(rows)], [1] * rows)
+    for lane, values in enumerate(lanes[:ops.shape[2]]):
+        for k, v in enumerate(values):
+            ops[k, :, lane] = cols[v]
 
 
 def compare(got, ref):
@@ -381,8 +418,9 @@ class KernelChecks:
             self.failures.append(key)
 
 
-def phase_kernels(device):
-    """Each kernel against its plain version at the main paths' shapes.
+def phase_kernels(device, plan_regs):
+    """Each kernel against its plain version at the main paths' shapes
+    (`plan_regs`: the plan kernel's registers, printed with its launches).
 
     Returns the results and, per shape, the call whose device time
     `phase_kernel_times` reads later: a profiler session may slow the
@@ -425,20 +463,34 @@ def phase_kernels(device):
                  lambda a=a: mont.sqr_plain(a), "sqr", 200, 5,
                  4 * G * BATCH * 24 * 2, G * BATCH * SQR_IMADS)
 
-    # --- plan_exec: each main-path plan at B = 1024
-    for make_plan in pe.MAIN_PATH_PLANS:
+    # --- plan_exec: every plan at one lane, a ragged last tile and the
+    # pairing's batch; the group-law plans also at the MSM's widths: add at
+    # the segmented scan's top level (half the GLV / GLS lanes), double at
+    # the window loop's single lane
+    def hold_plan(make_plan, B):
         plan = pe.compile_plan(make_plan())
-        ops = rand_fp((plan.n_in, BATCH), gen, device).transpose(0, 1) \
+        ops = rand_fp((plan.n_in, B), gen, device).transpose(0, 1) \
             .contiguous()
-        for lane, col in enumerate(edges):
-            ops[:, :, lane] = col
-        chk.hold(f"plan_exec {plan.name} B={BATCH}",
+        plan_edge_lanes(ops, P)
+        lt, threads, smem = plan.launch_shape(B, pe.sm_count(device.index))
+        chk.hold(f"plan_exec {plan.name} B={B}",
                  lambda ops=ops, plan=plan: pe.plan_exec(ops, plan),
                  lambda ops=ops, plan=plan: pe.plan_exec_plain(ops, plan),
-                 "plan_exec", 20, 2, 96 * BATCH * (plan.n_in + plan.n_out),
-                 BATCH * sum(sop_imads(t) for t in plan.sop_terms()),
+                 "plan_exec", 20, 2, 96 * B * (plan.n_in + plan.n_out),
+                 B * sum(sop_imads(t) for t in plan.sop_terms()),
                  nodes=len(plan.instr), groups=len(plan.groups),
-                 sop_nodes=len(plan.sop_terms()))
+                 phases=len(plan.phases), slots=plan.n_slots,
+                 sop_nodes=len(plan.sop_terms()), lane_tile=lt,
+                 blocks=-(-B // lt), threads=threads, smem_bytes=smem,
+                 registers=plan_regs)
+
+    msm_widths = {}
+    for make_plan, B in MSM_PLAN_SHAPES:
+        msm_widths.setdefault(make_plan, set()).add(B)
+    for make_plan in pe.MAIN_PATH_PLANS + pe.GROUP_LAW_PLANS:
+        for B in sorted({1, PLAN_RAGGED, BATCH} | msm_widths.get(make_plan,
+                                                                 set())):
+            hold_plan(make_plan, B)
 
     # --- fold_planned: the pairing's line scaling (G = 4, T = 1 over 68 x
     # 1024 lanes, rows a0 a1 c0 c1 yp xp), a fold of Fp2 products (G = 8,
@@ -483,23 +535,6 @@ def phase_kernels(device):
              launches=len(calls),
              shapes=sorted({(len(a), a.shape[1], o.shape[-1])
                             for o, a, b in calls}))
-
-    # --- plan_exec: the group-law plans at the MSM's widths: add at the
-    # segmented scan's top level (half the GLV / GLS lanes), double at the
-    # window loop's single lane; the mixed adds (no MSM launch) at B = 1024
-    for make_plan, B in MSM_PLAN_SHAPES:
-        plan = pe.compile_plan(make_plan())
-        ops = rand_fp((plan.n_in, B), gen, device).transpose(0, 1) \
-            .contiguous()
-        for lane, col in enumerate(edges[:B]):
-            ops[:, :, lane] = col
-        chk.hold(f"plan_exec {plan.name} B={B}",
-                 lambda ops=ops, plan=plan: pe.plan_exec(ops, plan),
-                 lambda ops=ops, plan=plan: pe.plan_exec_plain(ops, plan),
-                 "plan_exec", 20, 2, 96 * B * (plan.n_in + plan.n_out),
-                 B * sum(sop_imads(t) for t in plan.sop_terms()),
-                 nodes=len(plan.instr), groups=len(plan.groups),
-                 sop_nodes=len(plan.sop_terms()))
 
     # --- Fr: sop_fr (T = 1, 2) and butterfly at B = 2^16 with edge rows,
     # and at the NTT's shapes: the 1/N scaling (T = 1, B = N) and a stage
@@ -1169,8 +1204,8 @@ def main() -> None:
         return out
 
     smi_line = phase("device", phase_device)
-    phase("build", phase_build)
-    results, timed = phase("kernels", phase_kernels, device)
+    plan_regs = phase("build", phase_build)
+    results, timed = phase("kernels", phase_kernels, device, plan_regs)
     counts, med, (p_aff, q_aff) = phase("main", phase_main, device)
     counts_ntt, med_ntt, x = phase("ntt", phase_ntt, device)
     msms = phase("msm", phase_msm, device)

@@ -62,24 +62,65 @@ def test_sqr_kernel_matches_plain(cuda, G):
     assert torch.equal(got.cpu(), mont.sqr_plain(a.cpu()))
 
 
+# plan widths: a single lane, narrow grids of one-lane tiles, a ragged last
+# tile (1021 = 255 tiles of 4 lanes and one of 1), full tiles
+PLAN_WIDTHS = [1, 7, 130, 1021, 1024]
+
+
+def plan_operands(plan, B: int, device) -> torch.Tensor:
+    """[n_in, 24, B] random canonical limbs; the first lanes hold every row
+    p-1, every row 0, and rows cycling 0, 1, p-1, as many as B has room
+    for."""
+    n = plan.n_in
+    x = rand_limbs(n, max(B, 3), "cpu", seed=plan.n_slots + B)[..., :B]
+    cols = [torch.tensor(params.to_limbs(v, 24)) for v in EDGES]
+    for lane, pattern in enumerate(
+            ([2] * n, [0] * n, [k % 3 for k in range(n)])[:B]):
+        for k, e in enumerate(pattern):
+            x[k, :, lane] = cols[e]
+    return x.contiguous().to(device)
+
+
+@pytest.mark.parametrize("B", PLAN_WIDTHS)
 @pytest.mark.parametrize("make_plan", pe.MAIN_PATH_PLANS,
                          ids=lambda b: pe.compile_plan(b()).name)
-def test_plan_kernel_matches_plain(cuda, make_plan):
+def test_plan_kernel_matches_plain(cuda, make_plan, B):
     plan = pe.compile_plan(make_plan())
-    ops = rand_limbs(plan.n_in, 130, cuda, seed=plan.n_slots)
+    ops = plan_operands(plan, B, cuda)
     got = pe.plan_exec(ops, plan)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), pe.plan_exec_plain(ops.cpu(), plan))
 
 
+@pytest.mark.parametrize("B", PLAN_WIDTHS)
 @pytest.mark.parametrize("make_plan", pe.GROUP_LAW_PLANS,
                          ids=lambda b: b.__name__)
-def test_group_law_plan_kernel_matches_plain(cuda, make_plan):
+def test_group_law_plan_kernel_matches_plain(cuda, make_plan, B):
     plan = pe.compile_plan(make_plan())
-    ops = rand_limbs(plan.n_in, 300, cuda, seed=plan.n_slots)
+    ops = plan_operands(plan, B, cuda)
     got = pe.plan_exec(ops, plan)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), pe.plan_exec_plain(ops.cpu(), plan))
+
+
+def test_plan_kernel_reads_phase_before_writing(cuda):
+    """A hand-made table whose one phase writes the slots it reads,
+    (s0, s1) <- (s0 + s1, s0 - s1): the kernel's barrier gives the
+    read-before-write values, as the plain version does."""
+    instr = np.zeros((2, pe.INSTR_WIDTH), np.int32)
+    instr[0, [0, 1, 3, 4]] = pe.OP_CODES["add"], 0, 0, 1
+    instr[1, [0, 1, 3, 4]] = pe.OP_CODES["sub"], 1, 0, 1
+    plan = pe.CompiledPlan(
+        name="swap", n_in=2, n_slots=2, instr=instr,
+        groups=((0, 1), (1, 2)), phases=((0, 2),),
+        loads=np.array([[0, 0], [1, 1]], np.int32),
+        out_slots=np.array([0, 1], np.int32))
+    ops = rand_limbs(2, 300, cuda, seed=3)
+    got = pe.plan_exec(ops, plan)
+    torch.cuda.synchronize()
+    a, b = ops.cpu()
+    assert torch.equal(got.cpu(), torch.stack([limbs.add(limbs.FP, a, b),
+                                               limbs.sub(limbs.FP, a, b)]))
 
 
 @pytest.mark.parametrize("G,T", [(4, 1), (8, 2), (5, 6), (64, 8)])

@@ -75,13 +75,81 @@ def test_plan_matches_jax_eval_plan_host(name, args):
         assert got == exp, (name, b)
 
 
+def sources(n):
+    return [x for pair in n.args for x in pair] if n.op == "sop" else \
+        list(n.args)
+
+
+def depths(outputs) -> dict:
+    depth = {}
+
+    def visit(n):
+        if n not in depth:
+            depth[n] = 0 if n.op == "in" else \
+                1 + max(visit(x) for x in sources(n))
+        return depth[n]
+
+    for o in outputs:
+        visit(o)
+    return depth
+
+
+def replay_table(outputs, compiled):
+    """Walk the compiled table phase by phase, tracking which DAG node each
+    slot holds, with the DAG as the judge.  Every row is the node of its
+    position in the schedule; every read gets the node the DAG names; no
+    slot is written twice, or written and read, in one phase; phases break
+    exactly where the depth changes; the outputs end in their slots; and
+    `n_slots` is the peak live count, a value living from its phase to the
+    phase of its last read (outputs to the end)."""
+    outputs = tuple(outputs)
+    depth = depths(outputs)
+    nodes = [n for g in pe._plan_schedule(outputs) for n in g]
+    assert len(nodes) == len(compiled.instr)
+    op_of = {v: k for k, v in pe.OP_CODES.items()}
+    held = {}
+    for row_k, s in compiled.loads.tolist():
+        assert s not in held
+        held[s] = pe.inp(row_k)
+    starts = [s for s, _ in compiled.phases]
+    assert [e for _, e in compiled.phases] == starts[1:] + [len(nodes)]
+    for p0, p1 in compiled.phases:
+        assert len({depth[n] for n in nodes[p0:p1]}) == 1
+        assert p0 == 0 or depth[nodes[p0 - 1]] < depth[nodes[p0]]
+        read, written = set(), {}
+        for row, n in zip(compiled.instr[p0:p1], nodes[p0:p1]):
+            op, dst, t = (int(x) for x in row[:3])
+            assert op_of[op] == n.op
+            assert t == (len(n.args) if n.op == "sop" else 0)
+            srcs = row[3:3 + pe.n_sources(op, t)].tolist()
+            assert [held.get(s) for s in srcs] == sources(n)
+            read.update(srcs)
+            assert dst not in written
+            written[dst] = n
+        assert not read & written.keys()
+        held.update(written)
+    assert [held[s] for s in compiled.out_slots.tolist()] == list(outputs)
+    # the peak live count, from the DAG alone
+    last = {}
+    for n in nodes:
+        for x in sources(n):
+            last[x] = max(last.get(x, 0), depth[n])
+    end = 1 + max(depth.values())
+    last.update((o, end) for o in outputs)
+    peak = max(sum(depth[v] <= p <= last[v] for v in last)
+               for p in range(end))
+    assert compiled.n_slots == peak
+    assert max(held) < compiled.n_slots
+
+
 @pytest.mark.parametrize("name,args", MAIN_PATH,
                          ids=[n + "".join(map(str, a)) for n, a in MAIN_PATH])
 def test_table_follows_jax_schedule(name, args):
     """The instruction table holds the JAX plan's level groups in order:
-    the same (op, term count) and size per group, every source slot
-    written before it is read, and outputs that are slots of the table."""
-    compiled = pe.compile_plan(getattr(pe, name)(*args))
+    the same (op, term count) and size per group; its replay against the
+    port's DAG finds every read right and no slot hazard in a phase."""
+    outputs = getattr(pe, name)(*args)
+    compiled = pe.compile_plan(outputs)
     schedule = jpe._plan_schedule(getattr(jpe, name)(*args))
     assert len(compiled.groups) == len(schedule)
     op_of = {v: k for k, v in pe.OP_CODES.items()}
@@ -91,15 +159,96 @@ def test_table_follows_jax_schedule(name, args):
         assert {op_of[int(r[0])] for r in rows} == {group[0].op}
         if group[0].op == "sop":
             assert set(rows[:, 2].tolist()) == {len(group[0].args)}
-    written = set(range(compiled.n_in))
-    for row in compiled.instr:
-        op, dst, n_terms = (int(x) for x in row[:3])
-        n_src = 2 * n_terms if op == pe.OP_CODES["sop"] else \
-            (1 if op == pe.OP_CODES["neg"] else 2)
-        assert set(row[3:3 + n_src].tolist()) <= written
-        written.add(dst)
-    assert set(compiled.out_slots.tolist()) <= written
-    assert compiled.n_slots == compiled.n_in + len(compiled.instr)
+    replay_table(outputs, compiled)
+
+
+@pytest.mark.parametrize("make_plan", pe.GROUP_LAW_PLANS,
+                         ids=lambda b: b.__name__)
+def test_group_law_table_replays(make_plan):
+    replay_table(make_plan(), pe.compile_plan(make_plan()))
+
+
+ALL_PLANS = pe.MAIN_PATH_PLANS + pe.GROUP_LAW_PLANS
+
+
+def decode_program(prog: np.ndarray):
+    """The kernel's byte program back to (phases, instr, loads, out_slots,
+    n_slots), reading the layout csrc/plan_exec.cu reads."""
+    buf = prog.tobytes()
+
+    def u16(off, n):
+        return np.frombuffer(buf, "<u2", n, off).tolist()
+
+    n_phases, n_loads, n_out, n_slots, o_ph, o_at, o_io, o_rows = u16(0, 8)
+    bounds = u16(o_ph, n_phases + 1)
+    rows_at = u16(o_at, bounds[-1])
+    io = list(buf[o_io:o_io + 2 * n_loads + n_out])
+    instr = np.zeros((len(rows_at), pe.INSTR_WIDTH), np.int32)
+    for i, at in enumerate(rows_at):
+        row = buf[o_rows + 4 * at:]
+        op, t = row[0] & 15, row[0] >> 4
+        n_src = pe.n_sources(op, t)
+        instr[i, :3 + n_src] = [op, row[1], t, *row[2:2 + n_src]]
+    return (tuple(zip(bounds, bounds[1:])), instr,
+            np.array(io[:2 * n_loads]).reshape(-1, 2), io[2 * n_loads:],
+            n_slots)
+
+
+@pytest.mark.parametrize("make_plan", ALL_PLANS,
+                         ids=lambda b: pe.compile_plan(b()).name)
+def test_program_encodes_table(make_plan):
+    """The kernel's compact program holds the same table: rows, phases,
+    loads and outputs, in a few KB."""
+    c = pe.compile_plan(make_plan())
+    prog = c.tables(torch.device("cpu")).program.numpy()
+    assert np.array_equal(prog, c.program)
+    phases, instr, loads, outs, n_slots = decode_program(prog)
+    assert phases == c.phases
+    assert np.array_equal(instr, c.instr)
+    assert np.array_equal(loads, c.loads)
+    assert outs == c.out_slots.tolist() and n_slots == c.n_slots
+    assert len(prog) <= 3 * 1024
+
+
+@pytest.mark.parametrize("make_plan", ALL_PLANS,
+                         ids=lambda b: pe.compile_plan(b()).name)
+def test_launch_shape(make_plan):
+    """One lane at B = 1 and 130; at the pairing's batch 8 lanes, a block for
+    128 of the 132 SMs; a power of two that keeps half the SMs busy and
+    the block's program and slots within the shared-memory budget."""
+    c = pe.compile_plan(make_plan())
+    assert c.launch_shape(1)[0] == c.launch_shape(130)[0] == 1
+    assert c.launch_shape(1024)[0] == 8
+    for B in (1, 7, 130, 1021, 1024, 1 << 13, 1 << 16):
+        lt, threads, smem = c.launch_shape(B)
+        assert lt & (lt - 1) == 0 and lt <= pe.MAX_LANE_TILE
+        assert threads == pe.THREADS
+        assert smem == len(c.program) + 4 * c.n_slots * pe.slot_words(lt)
+        assert smem <= pe.SMEM_BUDGET
+        assert lt == 1 or -(-B // lt) >= pe.SM_COUNT // 2
+
+
+def test_plain_reads_phase_before_writing():
+    """A hand-made table whose one phase writes the slots it reads,
+    (s0, s1) <- (s0 + s1, s0 - s1): the plain version reads every source
+    of the phase before it writes, as the kernel's barrier does, so it
+    gives (a + b, a - b), not the in-order (a + b, a)."""
+    instr = np.zeros((2, pe.INSTR_WIDTH), np.int32)
+    instr[0, [0, 1, 3, 4]] = pe.OP_CODES["add"], 0, 0, 1
+    instr[1, [0, 1, 3, 4]] = pe.OP_CODES["sub"], 1, 0, 1
+    plan = pe.CompiledPlan(
+        name="swap", n_in=2, n_slots=2, instr=instr,
+        groups=((0, 1), (1, 2)), phases=((0, 2),),
+        loads=np.array([[0, 0], [1, 1]], np.int32),
+        out_slots=np.array([0, 1], np.int32))
+    cases = [(P - 1, P - 1), (0, 1), (rng.randrange(P), rng.randrange(P))]
+    a = fp.from_ints([x for x, _ in cases], to_mont=False, device="cpu")
+    b = fp.from_ints([y for _, y in cases], to_mont=False, device="cpu")
+    s, d = pe.plan_exec(torch.stack([a, b]), plan)
+    assert fp.to_ints(s, from_mont=False).tolist() == \
+        [(x + y) % P for x, y in cases]
+    assert fp.to_ints(d, from_mont=False).tolist() == \
+        [(x - y) % P for x, y in cases]
 
 
 def _tiny_plan(m):
