@@ -19,18 +19,22 @@ class LaunchCounts:
     sop_fr: int = 0
     butterfly: int = 0
     fold_planned: int = 0
+    pow_fixed: int = 0
+    pow_fixed_fr: int = 0
     plan_exec_by_plan: collections.Counter = dataclasses.field(
         default_factory=collections.Counter)
 
     def reset(self) -> None:
         self.sop = self.sqr = self.plan_exec = 0
         self.sop_fr = self.butterfly = self.fold_planned = 0
+        self.pow_fixed = self.pow_fixed_fr = 0
         self.plan_exec_by_plan.clear()
 
     def snapshot(self) -> dict:
         return {"sop": self.sop, "sqr": self.sqr, "plan_exec": self.plan_exec,
                 "sop_fr": self.sop_fr, "butterfly": self.butterfly,
                 "fold_planned": self.fold_planned,
+                "pow_fixed": self.pow_fixed, "pow_fixed_fr": self.pow_fixed_fr,
                 "plan_exec_by_plan": dict(self.plan_exec_by_plan)}
 
 

@@ -16,12 +16,20 @@ static __constant__ uint32_t kP[12] = {
     0x434bacd7u, 0x4b1ba7b6u, 0x397fe69au, 0x1a0111eau,
 };
 
+// R mod p: one in Montgomery form
+static __constant__ uint32_t kOne[12] = {
+    0x0002fffdu, 0x76090000u, 0xc40c0002u, 0xebf4000bu,
+    0x53c758bau, 0x5f489857u, 0x70525745u, 0x77ce5853u,
+    0xa256ec6du, 0x5c071a97u, 0xfa80e493u, 0x15f65ec3u,
+};
+
 struct Field {
   static constexpr int W = 12;         // 32-bit words per element
   static constexpr int L16 = 24;       // 16-bit limbs at the boundary
   static constexpr int MAX_TERMS = 8;  // R/p ~ 9.84
   static constexpr uint32_t N0 = 0xfffcfffdu;  // -p^-1 mod 2^32
   __device__ __forceinline__ static uint32_t p(int j) { return kP[j]; }
+  __device__ __forceinline__ static uint32_t one(int j) { return kOne[j]; }
 };
 
 }  // namespace fp384

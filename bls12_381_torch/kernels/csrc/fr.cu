@@ -1,11 +1,14 @@
-// Montgomery sum-of-products and NTT butterfly kernels for the BLS12-381
-// scalar field Fr (wrappers and notes: kernels/mont.py).
+// Montgomery sum-of-products, NTT butterfly and fixed-exponent power kernels
+// for the BLS12-381 scalar field Fr (wrappers and notes: kernels/mont.py).
 //
 //   bls_sop_fr:    out[:, b] = (sum_t a[t, :, b] * b[t, :, b]) R^-1 mod q,
 //                  a, b int32 [T, 16, B] 16-bit limbs, T <= 2; out [16, B]
 //                  (montgomery.cuh's sop_kernel for Fr)
 //   bls_butterfly: t = b w R^-1 mod q; out[0] = a + t, out[1] = a - t mod q,
 //                  a, b, w int32 [16, B]; out int32 [2, 16, B]
+//   bls_pow_fixed_fr: out[:, b] = a[:, b]^e R^(1-e) mod q, a int32 [16, B];
+//                  e as n_digits <= 256 host uint8 4-bit digits, most
+//                  significant first (montgomery.cuh's pow_kernel for Fr)
 //
 // One thread per lane, every intermediate in registers; the C functions
 // launch on the given stream and return cudaGetLastError().
@@ -46,6 +49,12 @@ butterfly_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
 extern "C" int bls_sop_fr(const void* a, const void* b, void* out, int T,
                           int B, void* stream) {
   return launch_sop<Field>(a, b, out, T, B, stream);
+}
+
+extern "C" int bls_pow_fixed_fr(const void* a, void* out,
+                                const uint8_t* digits, int n_digits, int B,
+                                void* stream) {
+  return launch_pow<Field>(a, out, digits, n_digits, B, stream);
 }
 
 extern "C" int bls_butterfly(const void* a, const void* b, const void* w,

@@ -17,12 +17,19 @@ static __constant__ uint32_t kQ[8] = {
     0x09a1d805u, 0x3339d808u, 0x299d7d48u, 0x73eda753u,
 };
 
+// R mod q: one in Montgomery form
+static __constant__ uint32_t kOne[8] = {
+    0xfffffffeu, 0x00000001u, 0x00034802u, 0x5884b7fau,
+    0xecbc4ff5u, 0x998c4fefu, 0xacc5056fu, 0x1824b159u,
+};
+
 struct Field {
   static constexpr int W = 8;          // 32-bit words per element
   static constexpr int L16 = 16;       // 16-bit limbs at the boundary
   static constexpr int MAX_TERMS = 2;  // T q < R
   static constexpr uint32_t N0 = 0xffffffffu;  // -q^-1 mod 2^32 (q's low word is 1)
   __device__ __forceinline__ static uint32_t p(int j) { return kQ[j]; }
+  __device__ __forceinline__ static uint32_t one(int j) { return kOne[j]; }
 };
 
 }  // namespace fr256

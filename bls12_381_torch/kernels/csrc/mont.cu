@@ -1,5 +1,5 @@
-// Montgomery sum-of-products and squaring kernels for the BLS12-381 base
-// field (wrappers and notes: kernels/mont.py).
+// Montgomery sum-of-products, squaring, planned-fold and fixed-exponent power
+// kernels for the BLS12-381 base field (wrappers and notes: kernels/mont.py).
 //
 //   bls_sop: out[:, b] = (sum_t a[t, :, b] * b[t, :, b]) R^-1 mod p,
 //            a, b int32 [T, 24, B] 16-bit limbs, T <= 8; out int32 [24, B]
@@ -11,6 +11,11 @@
 //            ops int32 [K, 24, B] (row 0 zeros: short groups pad with index
 //            0), ia/ib host int32 [G, T] tables, T <= 8, G T <= kFoldEntries;
 //            out int32 [G, 24, B]
+//   bls_pow_fixed:
+//            out[:, b] = a[:, b]^e R^(1-e) mod p (the Montgomery form of a^e),
+//            a int32 [24, B]; e as n_digits host uint8 4-bit digits, most
+//            significant first, n_digits <= 256 (montgomery.cuh's pow_kernel
+//            for Fp)
 //
 // One thread per (group,) lane; the C functions launch on the given stream
 // and return cudaGetLastError().
@@ -52,18 +57,14 @@ fold_kernel(const int32_t* __restrict__ ops, int32_t* __restrict__ out,
 __global__ void __launch_bounds__(kBlock)
 sqr_kernel(const int32_t* __restrict__ a, int32_t* __restrict__ out, int G,
            int B) {
-  constexpr int W = Field::W;
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (long long)G * B) return;
   const int g = (int)(idx / B), lane = (int)(idx % B);
   const size_t off = (size_t)g * Field::L16 * B + lane;
-  uint32_t x[W];
+  uint32_t x[Field::W];
   load16(a + off, B, x);
-  uint32_t t[2 * W + 1];
-  sqr_wide(x, t);
-  uint32_t r[W];
-  mont_reduce<Field>(t, r);
-  store16(out + off, B, r);
+  mont_sqr<Field>(x, x);
+  store16(out + off, B, x);
 }
 
 }  // namespace
@@ -80,6 +81,11 @@ extern "C" int bls_sqr(const void* a, void* out, int G, int B, void* stream) {
   sqr_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
       (const int32_t*)a, (int32_t*)out, G, B);
   return (int)cudaGetLastError();
+}
+
+extern "C" int bls_pow_fixed(const void* a, void* out, const uint8_t* digits,
+                             int n_digits, int B, void* stream) {
+  return launch_pow<Field>(a, out, digits, n_digits, B, stream);
 }
 
 extern "C" int bls_fold_planned(const void* ops, const int32_t* ia,

@@ -10,9 +10,11 @@
 //   static constexpr int L16;          16-bit limbs per element (2 W)
 //   static constexpr int MAX_TERMS;    terms of a fused sum, T p < R
 //   static constexpr uint32_t N0;      -p^-1 mod 2^32
-//   __device__ static uint32_t p(int j);  word j of the modulus
+//   __device__ static uint32_t p(int j);    word j of the modulus
+//   __device__ static uint32_t one(int j);  word j of R mod p
 // Every function returns a canonical result (< p) from canonical inputs.
-// The sum-of-products kernel at the end is instantiated once per field.
+// The sum-of-products and fixed-exponent power kernels at the end are
+// instantiated once per field.
 #pragma once
 
 #include <cstdint>
@@ -167,6 +169,26 @@ __device__ __forceinline__ void mont_reduce(uint32_t (&t)[2 * F::W + 1],
   for (int j = 0; j < W; ++j) r[j] = ge ? d[j] : t[W + j];
 }
 
+// r = a b R^-1 mod p (r may be a or b).
+template <class F>
+__device__ __forceinline__ void mont_mul(const uint32_t (&a)[F::W],
+                                         const uint32_t (&b)[F::W],
+                                         uint32_t (&r)[F::W]) {
+  uint32_t t[2 * F::W + 1];
+  zero_wide(t);
+  mul_acc(t, a, b);
+  mont_reduce<F>(t, r);
+}
+
+// r = a^2 R^-1 mod p (r may be a): sqr_wide, the sqr kernel's body.
+template <class F>
+__device__ __forceinline__ void mont_sqr(const uint32_t (&a)[F::W],
+                                         uint32_t (&r)[F::W]) {
+  uint32_t t[2 * F::W + 1];
+  sqr_wide(a, t);
+  mont_reduce<F>(t, r);
+}
+
 // r = (a + b) mod p
 template <class F>
 __device__ __forceinline__ void mod_add(const uint32_t (&a)[F::W],
@@ -264,6 +286,89 @@ int launch_sop(const void* a, const void* b, void* out, int T, int B,
   const int grid = (B + kSopBlock - 1) / kSopBlock;
   sop_kernel<F><<<grid, kSopBlock, 0, (cudaStream_t)stream>>>(
       (const int32_t*)a, (const int32_t*)b, (int32_t*)out, T, B);
+  return (int)cudaGetLastError();
+}
+
+// Fixed-exponent power: the JAX package's `limbs.pow_fixed` chain (a scan of
+// sqr_pallas and sop_pallas launches, limbs.py:693) in one launch.  The
+// exponent's 4-bit digits, most significant first, travel by value in the
+// launch's parameter block (every thread reads the same digit: a broadcast
+// from the constant cache).  One thread per lane runs the whole chain with
+// the accumulator in registers; its 16-entry window table (R mod p, a, a^2
+// .. a^15) lives in shared memory, word-major with the lane innermost, so a
+// warp's reads of one word fall in 32 banks.  Every step returns the
+// canonical value, so skipping the leading zero digits and the products by
+// entry 0 (R mod p) keeps the JAX schedule's result.  Bound: the chain of
+// dependent products per lane (latency), not the 2 L16 words it moves.
+constexpr int kPowDigits = 256;  // 1024-bit exponents
+constexpr int kPowLanes = 128;   // lanes (threads) per block
+
+struct PowDigits {
+  uint8_t d[kPowDigits];
+};
+
+template <class F>
+__global__ void __launch_bounds__(kPowLanes)
+pow_kernel(const int32_t* __restrict__ a, int32_t* __restrict__ out,
+           int n_digits, int B, const __grid_constant__ PowDigits e) {
+  constexpr int W = F::W, n = kPowLanes;
+  constexpr int entry = W * n;  // words from one table entry to the next
+  extern __shared__ uint32_t table[];  // [16][W][kPowLanes]
+  const int lane = blockIdx.x * n + threadIdx.x;
+  if (lane >= B) return;  // lanes share no data: no barrier follows
+  uint32_t* mine = table + threadIdx.x;
+  uint32_t base[W], x[W];
+#pragma unroll
+  for (int j = 0; j < W; ++j) x[j] = F::one(j);
+  store32(mine, n, x);
+  load16(a + lane, B, base);
+#pragma unroll
+  for (int j = 0; j < W; ++j) x[j] = base[j];
+  store32(mine + entry, n, x);
+#pragma unroll 1
+  for (int k = 2; k < 16; ++k) {
+    mont_mul<F>(x, base, x);
+    store32(mine + k * entry, n, x);
+  }
+  int i = 0;
+  while (i < n_digits && e.d[i] == 0) ++i;
+  uint32_t acc[W];
+  load32(mine + (i < n_digits ? e.d[i] : 0) * entry, n, acc);
+#pragma unroll 1
+  for (++i; i < n_digits; ++i) {
+#pragma unroll
+    for (int s = 0; s < 4; ++s) mont_sqr<F>(acc, acc);
+    const int d = e.d[i];
+    if (d != 0) {
+      load32(mine + d * entry, n, x);
+      mont_mul<F>(acc, x, acc);
+    }
+  }
+  store16(out + lane, B, acc);
+}
+
+// Launch pow_kernel<F> on `stream`; digits: n_digits host bytes, each < 16.
+// Returns cudaGetLastError() (or the error of raising the shared-memory
+// cap).
+template <class F>
+int launch_pow(const void* a, void* out, const uint8_t* digits, int n_digits,
+               int B, void* stream) {
+  if (n_digits < 0 || n_digits > kPowDigits || B < 1)
+    return (int)cudaErrorInvalidValue;
+  PowDigits e = {};
+  for (int i = 0; i < n_digits; ++i) {
+    if (digits[i] > 15) return (int)cudaErrorInvalidValue;
+    e.d[i] = digits[i];
+  }
+  constexpr int smem = 16 * F::W * (int)sizeof(uint32_t) * kPowLanes;
+  if (smem > 48 * 1024) {  // above 48 KB only after raising the cap
+    const cudaError_t err = cudaFuncSetAttribute(
+        pow_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int grid = (B + kPowLanes - 1) / kPowLanes;
+  pow_kernel<F><<<grid, kPowLanes, smem, (cudaStream_t)stream>>>(
+      (const int32_t*)a, (int32_t*)out, n_digits, B, e);
   return (int)cudaGetLastError();
 }
 

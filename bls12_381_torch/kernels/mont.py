@@ -1,5 +1,5 @@
-"""Montgomery sum-of-products, squaring, the planned fold and the NTT
-butterfly: CUDA kernels and plain versions.
+"""Montgomery sum-of-products, squaring, the planned fold, the NTT
+butterfly and the fixed-exponent power: CUDA kernels and plain versions.
 
 `sop` replaces `bls12_381_tpu/kernels/pallas_mont.py::sop_pallas` for Fp
 (default body `_sop_kernel_r12_scalar`), `sqr` replaces `sqr_pallas` (default
@@ -12,6 +12,11 @@ pallas_mont.py:682-689), `butterfly` replaces `butterfly_pallas` (bodies
 `csrc/fr256.cuh`.  Both sources instantiate the word-level Montgomery code of
 `csrc/montgomery.cuh` with their field header's struct; `sop` and `sop_fr`
 are its one sum-of-products kernel template, built for p and for q.
+`pow_fixed` (Fp, `csrc/mont.cu`) and `pow_fixed_fr` (Fr, `csrc/fr.cu`) are
+its fixed-exponent power template: the JAX package's `limbs.pow_fixed`
+(limbs.py:693, a scan of `sqr_pallas` and `sop_pallas` launches: 14 table
+products, then 4 squares and a product per 4-bit digit) in one launch, so
+`sqr_pallas`'s body (`sqr_wide`) reaches the paths through it.
 
 Design.  One thread per batch lane; the lane axis is innermost, so a warp's
 loads of one limb row are 32 neighbouring words.  The 16-bit limbs of each
@@ -32,7 +37,17 @@ padding terms.  The [G, T] index tables are copied into the launch's
 parameter block (uint16 entries, G T <= FOLD_ENTRIES), so no call copies
 them host-to-device.  The butterfly is one Fr product
 t = b w R^-1 followed by a + t and a - t mod q, all in registers; 2q < 2^256,
-so a + t never carries out of the 8 words.
+so a + t never carries out of the 8 words.  The power kernel runs
+one lane's whole chain in one thread: the exponent's digits by value in
+the launch's parameter block (uint8, up to POW_DIGITS), the window table
+in shared memory (16 x W words per lane, lane innermost), the accumulator
+in registers; it skips the leading zero digits and the products by entry
+0 (R mod p), which leaves every canonical value as the JAX schedule has
+it.  A block holds 128 lanes (`kPowLanes`, fixed at compile time): at
+B = 1024 a launch at p - 2 took 0.560 ms with 128 lanes per block, 0.635
+with 64 and 0.708 with 32, and 0.556 at B = 1 (`chip_smoke.py`, NVIDIA
+H100 80GB HBM3 at 700 W; PERF.md).  Why the smaller blocks are slower has
+not been traced.
 
 Bound on the card.  A T = 1 Fp product reads 2 x 24 and writes 24 int32
 words per lane (288 bytes) and does 2 x 12 x 12 word products plus the
@@ -45,7 +60,10 @@ read once and G rows written; the simple kernel reads a row once per term
 that names it, so it gains over the stacked `sop` only the copies the
 stack no longer makes.  The butterfly reads 3 x 64 and writes 2 x 64 bytes per
 lane (320 bytes) for about 270 IMADs: bound by memory, ~50 us per NTT stage
-of 2^19 lanes.  The kernels keep every intermediate in registers (nothing
+of 2^19 lanes.  A power moves 2 L words per lane but runs ~480 dependent
+products (p - 2): at B = 1024 its multiplies are ~14 us of the card's
+rate, spread over only 32 warps, so its time is the chain's latency.
+The kernels keep every intermediate in registers (nothing
 but the operands and the result touches device memory); packing the
 boundary to 32-bit words would halve their bytes and is left to a later
 change.
@@ -72,6 +90,11 @@ MAX_TERMS_FR = limbs.FR.max_terms
 FOLD_ENTRIES = 512        # G T entries of the fold's by-value index tables
 FOLD_OPERANDS = 1 << 16   # rows of its operand stack (uint16 indices)
 
+POW_WINDOW = 4            # bits per digit of pow_fixed (the JAX default)
+POW_DIGITS = 256          # digits the pow kernel takes by value (1024 bits)
+
+_POW_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+             ctypes.c_int, ctypes.c_void_p)
 _SIGNATURES = {
     # (a, b, out, T, B, stream)
     "bls_sop": (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -83,6 +106,8 @@ _SIGNATURES = {
     "bls_fold_planned": (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                          ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                          ctypes.c_int, ctypes.c_int, ctypes.c_void_p),
+    # (a, out, digits [host uint8], n_digits, B, stream)
+    "bls_pow_fixed": _POW_ARGS,
 }
 _SIGNATURES_FR = {
     # (a, b, out, T, B, stream)
@@ -91,6 +116,8 @@ _SIGNATURES_FR = {
     # (a, b, w, out, B, stream)
     "bls_butterfly": (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                       ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p),
+    # (a, out, digits [host uint8], n_digits, B, stream)
+    "bls_pow_fixed_fr": _POW_ARGS,
 }
 
 
@@ -208,6 +235,42 @@ def butterfly_plain(a: torch.Tensor, b: torch.Tensor,
     return torch.stack([limbs.add(limbs.FR, a, t), limbs.sub(limbs.FR, a, t)])
 
 
+def pow_digits(exponent: int, modulus: int) -> np.ndarray:
+    """The POW_WINDOW-bit digits of a nonnegative exponent, most significant
+    first, as uint8: the JAX package's schedule (`limbs.pow_fixed`,
+    limbs.py:707-716), the exponent zero-padded to the larger of its own and
+    the modulus's bit width, rounded up to whole digits."""
+    if not isinstance(exponent, int) or exponent < 0:
+        raise ValueError(f"pow_fixed: exponent {exponent!r} is not an int "
+                         ">= 0")
+    width = max(exponent.bit_length(), modulus.bit_length())
+    n = -(-width // POW_WINDOW)
+    mask = (1 << POW_WINDOW) - 1
+    return np.array([(exponent >> (POW_WINDOW * (n - 1 - i))) & mask
+                     for i in range(n)], np.uint8)
+
+
+def pow_fixed_plain(spec: limbs.FieldSpec, a: torch.Tensor,
+                    exponent: int) -> torch.Tensor:
+    """a^exponent for int32 [L, *batch] by the JAX package's schedule
+    (limbs.py:693-735) over the plain products: the table (one, a and 14
+    products), then per digit POW_WINDOW squarings and one product by the
+    digit's entry, one for digit 0."""
+    def mul(x, y):
+        return _sop_plain(spec, x.unsqueeze(0), y.unsqueeze(0))
+
+    one = limbs._col(spec.one_mont, a, limbs.DTYPE).expand(a.shape)
+    table = [one, a]
+    for _ in range(2, 1 << POW_WINDOW):
+        table.append(mul(table[-1], a))
+    acc = one
+    for d in pow_digits(exponent, spec.modulus):
+        for _ in range(POW_WINDOW):
+            acc = mul(acc, acc)
+        acc = mul(acc, table[d])
+    return acc
+
+
 # ---------------------------------------------------------------------------
 # Wrappers
 # ---------------------------------------------------------------------------
@@ -323,3 +386,47 @@ def butterfly(a: torch.Tensor, b: torch.Tensor,
         LAUNCHES.butterfly += 1
     check_launch(rc, "butterfly")
     return out
+
+
+def _pow_launch(fn, spec: limbs.FieldSpec, a: torch.Tensor, exponent: int,
+                name: str):
+    """Validate and launch a fixed-exponent power kernel on int32 [L, B];
+    returns None for a CPU tensor (the caller runs the plain version)."""
+    n = spec.n_limbs
+    if a.dtype != limbs.DTYPE or a.dim() != 2 or a.shape[0] != n:
+        raise ValueError(f"{name}: expected int32 [{n}, B], got "
+                         f"{tuple(a.shape)} {a.dtype}")
+    digits = pow_digits(exponent, spec.modulus)
+    if len(digits) > POW_DIGITS:
+        raise ValueError(f"{name}: a {exponent.bit_length()}-bit exponent; "
+                         f"the kernel takes up to {POW_WINDOW * POW_DIGITS} "
+                         "bits")
+    if device_kind(a) == "cpu":
+        return None
+    a = a.contiguous()
+    out = torch.empty_like(a)
+    B = a.shape[1]
+    if B == 0:
+        return out
+    with torch.cuda.device(a.device):
+        rc = fn()(a.data_ptr(), out.data_ptr(), digits.ctypes.data,
+                  len(digits), B, _stream(a))
+        setattr(LAUNCHES, name, getattr(LAUNCHES, name) + 1)
+    check_launch(rc, name)
+    return out
+
+
+def pow_fixed(a: torch.Tensor, exponent: int) -> torch.Tensor:
+    """a^exponent in Montgomery form for a public exponent < 2^1024: int32
+    [24, B] -> [24, B], the whole chain in one launch."""
+    out = _pow_launch(lambda: _lib().bls_pow_fixed, limbs.FP, a, exponent,
+                      "pow_fixed")
+    return pow_fixed_plain(limbs.FP, a, exponent) if out is None else out
+
+
+def pow_fixed_fr(a: torch.Tensor, exponent: int) -> torch.Tensor:
+    """a^exponent mod q in Montgomery form for a public exponent < 2^1024:
+    int32 [16, B] -> [16, B], the whole chain in one launch."""
+    out = _pow_launch(lambda: _lib_fr().bls_pow_fixed_fr, limbs.FR, a,
+                      exponent, "pow_fixed_fr")
+    return pow_fixed_plain(limbs.FR, a, exponent) if out is None else out

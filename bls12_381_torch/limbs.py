@@ -11,8 +11,9 @@ Counterpart of `bls12_381_tpu/limbs.py`, with the same boundary layout:
 
 Products go to the hand-written kernels of `kernels/mont.py` (`sop`, `sqr`
 and, for folds of two or more groups, `fold_planned` for Fp; `sop_fr` for
-Fr): on a CUDA tensor the kernel runs, on a CPU tensor its plain PyTorch
-version.
+Fr), and fixed-exponent powers (`pow_fixed`, `inv`) to one launch of
+`pow_fixed` / `pow_fixed_fr`: on a CUDA tensor the kernel runs, on a CPU
+tensor its plain PyTorch version.
 The additive glue (add/sub/neg, `add_many`/`sub_many`, `select`) is plain
 PyTorch on every device, as it is plain jnp in the JAX package: it works in
 int64 and resolves carry chains with the packed-adder trick of `_kogge_stone`
@@ -461,33 +462,20 @@ def select(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 
-POW_WINDOW = 4  # bits per digit of pow_fixed, the JAX package's default
-
-
 def pow_fixed(spec: FieldSpec, a: torch.Tensor, exponent: int) -> torch.Tensor:
-    """a^exponent by MSB-first fixed-window square-and-multiply.
+    """a^exponent for a public exponent (a Python int): the whole fixed-
+    window square-and-multiply chain in ONE launch of the field's power
+    kernel (`mont.pow_fixed` for Fp, `mont.pow_fixed_fr` for Fr) over the
+    flattened batch.  On a CPU tensor its plain version runs the JAX
+    package's schedule (limbs.py:693-735); every step is canonical, so the
+    values agree limb for limb."""
+    from .kernels import mont
 
-    The exponent is a public Python int, so the digit schedule and the table
-    lookups are static: each window is POW_WINDOW squarings and one product
-    by the table entry of its digit, the JAX package's schedule (zero-padded
-    to the field's bit width, digit 0 multiplying by one)."""
-    full = one(spec, a.shape[1:], device=a.device)
     if exponent == 0:
-        return full
-    width = max(exponent.bit_length(), spec.modulus.bit_length())
-    n_digits = -(-width // POW_WINDOW)
-    mask = (1 << POW_WINDOW) - 1
-    digits = [(exponent >> (POW_WINDOW * (n_digits - 1 - i))) & mask
-              for i in range(n_digits)]
-    table = [full, a.expand(full.shape)]
-    for _ in range(2, 1 << POW_WINDOW):
-        table.append(mont_mul(spec, table[-1], a))
-    acc = full
-    for d in digits:
-        for _ in range(POW_WINDOW):
-            acc = mont_sqr(spec, acc)
-        acc = mont_mul(spec, acc, table[d])
-    return acc
+        return one(spec, a.shape[1:], device=a.device)
+    flat, batch = _flat_batch(a, 1)
+    fn = {FP.name: mont.pow_fixed, FR.name: mont.pow_fixed_fr}[spec.name]
+    return fn(flat, exponent).reshape((spec.n_limbs,) + batch)
 
 
 def pow_runtime(spec: FieldSpec, a: torch.Tensor,

@@ -9,7 +9,7 @@ Phases (each prints its lines and seconds; any failed check exits non-zero):
   1. device: name, count, power limit (nvidia-smi), torch / CUDA / nvcc.
   2. build: every kernel of `bls12_381_torch/kernels/csrc/` with nvcc for
      sm_90a (one process per source, in parallel), with ptxas registers,
-     shared memory and spills.
+     shared memory and spills (the plan and power kernels' also as JSON).
   3. kernels vs plain: each kernel against its plain PyTorch version on the
      card at the paths' shapes, random canonical inputs plus the edge
      values 0, 1, p-1 (and q-2 and the butterfly's correction rows for
@@ -17,16 +17,20 @@ Phases (each prints its lines and seconds; any failed check exits non-zero):
      group of p-1 rows, and the folds of one pairing as it makes them;
      every plan at one lane, a ragged last tile and batch 1024, the
      group-law plans also at the MSM's widths, each with its launch shape:
-     lane tile, blocks, threads, shared memory, phases, registers); exact
-     equality (integers: tolerance none); CUDA events around back-to-back
-     calls (the host's issue rate for short kernels) and the plain
-     version's time (CUDA events; no yardstick).
+     lane tile, blocks, threads, shared memory, phases, registers; `sop`
+     also on the products one msm_g1 makes, recorded and replayed;
+     `pow_fixed` at p - 2 and (p+1)/4, B = 1 and 1024, and `pow_fixed_fr`
+     at q - 2, B = 1024, over the edge lanes 0, 1, 2, m-1, m-2, R mod m);
+     exact equality (integers:
+     tolerance none); CUDA events around back-to-back calls (the host's
+     issue rate for short kernels) and the plain version's time (CUDA
+     events; no yardstick).
   4. main: the batched pairing at batch 1024 from the repository's test
      vectors ([a]G1, [b]G2, a, b < 1000): lane (1, 1) equals the RELIC
      value, lanes with equal a*b are equal, identity lanes are one, four
      lanes equal the plain path (CPU); launch counts of one pairing (every
-     kernel > 0, plan, sqr, sop and fold_planned counts equal to the
-     static schedule); stage
+     kernel of the path > 0; plan, sop, fold_planned and pow_fixed counts,
+     and sqr = 0, equal to the static schedule); stage
      times and pairings/s on a host clock around synchronized work (median
      of STAGE_REPS runs), and the share of that wall time the host thread
      spent on the CPU issuing the work.
@@ -86,6 +90,8 @@ MSM_LOG_N = {"g1": 16, "g2": 12}   # a 2^16 KZG commitment; 4096 signatures
 MSM_CHECK_LOG_N = 10               # the card = CPU comparison
 MSM_REPS = 5
 PLAN_RAGGED = 1021                 # 255 tiles of 4 lanes and one of 1
+MSM_SOPS = f"sop products of one msm_g1 at 2^{MSM_LOG_N['g1']}"
+POW_BLOCK = 128                    # lanes per block of pow_kernel (kPowLanes)
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 # 32-bit integer multiply-adds per second: 132 SMs x 64 per clock (CUDA C
 # Programming Guide throughput table, compute capability 9.0) x 1.98 GHz
@@ -113,9 +119,37 @@ def sop_imads(T: int, words: int = 12) -> int:
     return 2 * words * words * (T + 1) + words
 
 
-SQR_IMADS = 2 * (78 + 144) + 12  # 66 off-diagonal + 12 squares, reduction
+def sqr_imads(words: int = 12) -> int:
+    """32-bit multiplies of a square (sqr_wide): the words (words - 1) / 2
+    off-diagonal and `words` diagonal word products, then the reduction."""
+    return 2 * (words * (words + 1) // 2 + words * words) + words
+
+
 BUTTERFLY_IMADS = sop_imads(1, 8)  # one Fr product; the add/sub are IADDs
 BUTTERFLY_BYTES = 4 * 16 * 5       # a, b, w read; lo, hi written (int32)
+
+
+def pow_chain(exponent: int, modulus: int):
+    """(squares, products) one lane of the power kernel runs for this
+    exponent: the window table's 14 products, then after the leading
+    nonzero digit 4 squares per digit and a product per nonzero digit."""
+    from bls12_381_torch.kernels import mont
+
+    digits = [int(d) for d in mont.pow_digits(exponent, modulus)]
+    rest = digits[next((i for i, d in enumerate(digits) if d), len(digits)):]
+    rest = rest[1:]
+    return 4 * len(rest), 14 + sum(1 for d in rest if d)
+
+
+def pow_work(spec, exponent: int, B: int):
+    """(bytes, 32-bit multiplies) of one power launch over B lanes: the
+    operand read and the result written once (int32 limbs); squares by
+    the sqr kernel's body."""
+    words = spec.n_limbs // 2
+    squares, products = pow_chain(exponent, spec.modulus)
+    return (4 * spec.n_limbs * 2 * B,
+            B * (squares * sqr_imads(words)
+                 + products * sop_imads(1, words)))
 
 
 def bound(n_bytes: float, n_imads: float):
@@ -226,9 +260,11 @@ def phase_build():
     for stem in build.SOURCES:
         for line in build.ptxas_report(stem):
             print(f"[build:{stem}] {line}", flush=True)
-    regs, spills = ptxas_usage("plan_exec", "plan_kernel")
-    say("build", plan_kernel_registers=regs, plan_kernel_spill_bytes=spills)
-    return regs
+    usage = {"plan_exec": ptxas_usage("plan_exec", "plan_kernel"),
+             "pow_fixed": ptxas_usage("mont", "pow_kernel"),
+             "pow_fixed_fr": ptxas_usage("fr", "pow_kernel")}
+    say("build", registers_and_spill_bytes=usage)
+    return usage
 
 
 def ptxas_usage(stem: str, kernel: str):
@@ -282,6 +318,17 @@ def edge_col(value: int, device, n_limbs: int = 24):
                         device=device)
 
 
+def pow_operand(spec, B: int, gen, device):
+    """Random canonical limbs [L, B] of the field; lanes 1..6 hold 0, 1, 2,
+    m-1, m-2 and R mod m, as many as B has room for."""
+    m, L = spec.modulus, spec.n_limbs
+    x = (rand_fp if L == 24 else rand_fr)((B,), gen, device)
+    edges = (0, 1, 2, m - 1, m - 2, (1 << (16 * L)) % m)
+    for lane, v in enumerate(edges[:max(B - 1, 0)]):
+        x[:, lane + 1] = edge_col(v, device, L)
+    return x
+
+
 def plan_edge_lanes(ops, P: int) -> None:
     """Lanes 0..3 of a plan's operands [K, 24, B], as many as B holds: every
     row p-1, every row 0, rows cycling 0, 1, p-1, every row 1."""
@@ -309,7 +356,9 @@ KERNEL_NAMES = {"sop": ("sop_kernel", "fp384"), "sqr": ("sqr_kernel",),
                 "fold_planned": ("fold_kernel",),
                 "plan_exec": ("plan_kernel",),
                 "sop_fr": ("sop_kernel", "fr256"),
-                "butterfly": ("butterfly_kernel",)}
+                "butterfly": ("butterfly_kernel",),
+                "pow_fixed": ("pow_kernel", "fp384"),
+                "pow_fixed_fr": ("pow_kernel", "fr256")}
 
 
 def kernel_of(name: str):
@@ -342,24 +391,27 @@ def fold_groups(ia, ib):
             for ra, rb in zip(ia, ib)]
 
 
-def record_folds(fn):
-    """Run fn once and return the `fold_planned` calls it makes: each
-    call's operand stack (cloned) and index tables."""
+def record_calls(kernel: str, fn):
+    """Run fn once and return the calls it makes of the wrapper
+    `mont.<kernel>`: each call's arguments, tensors cloned (a fold's
+    operand stack), arrays copied (its index tables)."""
     import numpy as np
+    import torch
 
     from bls12_381_torch.kernels import mont
 
-    calls, real = [], mont.fold_planned
+    calls, real = [], getattr(mont, kernel)
 
-    def spy(ops, ia, ib):
-        calls.append((ops.clone(), np.array(ia), np.array(ib)))
-        return real(ops, ia, ib)
+    def spy(*args):
+        calls.append(tuple(x.clone() if isinstance(x, torch.Tensor)
+                           else np.array(x) for x in args))
+        return real(*args)
 
-    mont.fold_planned = spy
+    setattr(mont, kernel, spy)
     try:
         fn()
     finally:
-        mont.fold_planned = real
+        setattr(mont, kernel, real)
     return calls
 
 
@@ -396,31 +448,34 @@ class KernelChecks:
         self.results, self.timed, self.failures = {}, [], []
 
     def hold(self, key, call, plain, kernel, n_events, n_plain, n_bytes,
-             n_imads, launches=1, **extra):
+             n_imads, launches=1, ref=None, **extra):
         """`launches`: the kernel launches one call makes; n_bytes and
-        n_imads are the call's."""
+        n_imads are the call's; `ref`: plain()'s value where the caller
+        has it already; n_plain = 0 leaves the plain version untimed."""
         import torch
 
         got = call()
-        ref = plain()
+        ref = plain() if ref is None else ref
         torch.cuda.synchronize()
         mism, err = compare(got, ref)
         del got, ref
         bms, by = bound(n_bytes, n_imads)
+        plain_ms = time_events(plain, n=n_plain, warm=1) / launches \
+            if n_plain else None
         self.results[key] = dict(
             mismatches=mism, max_abs_err=err,
             events_ms=time_events(call, n=n_events) / launches,
-            plain_ms=time_events(plain, n=n_plain, warm=1) / launches,
-            bound_ms=bms / launches, bound_by=by, **extra)
+            plain_ms=plain_ms, bound_ms=bms / launches, bound_by=by, **extra)
         self.timed.append((key, call, kernel, n_events, launches))
         say("kernels", kernel=key, **self.results[key])
         if mism:
             self.failures.append(key)
 
 
-def phase_kernels(device, plan_regs):
+def phase_kernels(device, usage):
     """Each kernel against its plain version at the main paths' shapes
-    (`plan_regs`: the plan kernel's registers, printed with its launches).
+    (`usage`: ptxas registers and spill bytes by kernel, printed with the
+    plan and power kernels' launches).
 
     Returns the results and, per shape, the call whose device time
     `phase_kernel_times` reads later: a profiler session may slow the
@@ -428,7 +483,7 @@ def phase_kernels(device, plan_regs):
     paths' host-clock timings."""
     import torch
 
-    from bls12_381_torch import params
+    from bls12_381_torch import entry, limbs, params
     from bls12_381_torch.kernels import mont, plan_exec as pe
 
     P, Q = params.P, params.Q
@@ -438,8 +493,10 @@ def phase_kernels(device, plan_regs):
     edges = [edge_col(v, device) for v in (0, 1, P - 1)]
     chk = KernelChecks()
 
-    # --- sop: T in {1, 2, 6, 8}, B in {1024, 4 * 68 * 1024}
-    for B in (BATCH, 4 * 68 * BATCH):
+    # --- sop: T in {1, 2, 6, 8} at the pairing's batch (its one sop, the
+    # norm of fp2_inv, is T = 2 there) and the MSM's widest products (its
+    # scans and to_affine, T = 1 at 2^16)
+    for B in (BATCH, 1 << MSM_LOG_N["g1"]):
         for T in (1, 2, 6, 8):
             a = rand_fp((T, B), gen, device).transpose(0, 1).contiguous()
             b = rand_fp((T, B), gen, device).transpose(0, 1).contiguous()
@@ -461,7 +518,7 @@ def phase_kernels(device, plan_regs):
             a[:, :, lane] = col
         chk.hold(f"sqr G={G} B={BATCH}", lambda a=a: mont.sqr(a),
                  lambda a=a: mont.sqr_plain(a), "sqr", 200, 5,
-                 4 * G * BATCH * 24 * 2, G * BATCH * SQR_IMADS)
+                 4 * G * BATCH * 24 * 2, G * BATCH * sqr_imads())
 
     # --- plan_exec: every plan at one lane, a ragged last tile and the
     # pairing's batch; the group-law plans also at the MSM's widths: add at
@@ -482,7 +539,7 @@ def phase_kernels(device, plan_regs):
                  phases=len(plan.phases), slots=plan.n_slots,
                  sop_nodes=len(plan.sop_terms()), lane_tile=lt,
                  blocks=-(-B // lt), threads=threads, smem_bytes=smem,
-                 registers=plan_regs)
+                 registers=usage["plan_exec"][0])
 
     msm_widths = {}
     for make_plan, B in MSM_PLAN_SHAPES:
@@ -519,7 +576,7 @@ def phase_kernels(device, plan_regs):
     from bls12_381_torch import pairing as pr
 
     _, _, p_aff, q_aff = pairing_inputs(device)
-    calls = record_folds(lambda: pr.pairing(p_aff, q_aff))
+    calls = record_calls("fold_planned", lambda: pr.pairing(p_aff, q_aff))
     del p_aff, q_aff
     chk.hold(PAIRING_FOLDS,
              lambda: torch.cat([mont.fold_planned(o, a, b).reshape(-1)
@@ -535,6 +592,44 @@ def phase_kernels(device, plan_regs):
              launches=len(calls),
              shapes=sorted({(len(a), a.shape[1], o.shape[-1])
                             for o, a, b in calls}))
+
+    # the products of one msm_g1 as it makes them (to_affine's product
+    # scans and per-lane products, the GLV split's beta x), replayed in one
+    # call: per launch at the MSM's own mix (the kernels line's `sop` row
+    # reads it beside the pairing's norm)
+    fn, (pts, sc) = entry.msm_entry(MSM_LOG_N["g1"], "g1", seed=SEED,
+                                    device=device)
+    sops = record_calls("sop", lambda: fn(pts, sc))
+    del fn, pts, sc
+    chk.hold(MSM_SOPS,
+             lambda: torch.cat([mont.sop(a, b).reshape(-1) for a, b in sops]),
+             lambda: torch.cat([mont.sop_plain(a, b).reshape(-1)
+                                for a, b in sops]),
+             "sop", 20, 2,
+             sum(4 * a.shape[2] * 24 * (2 * a.shape[0] + 1) for a, _ in sops),
+             sum(a.shape[2] * sop_imads(a.shape[0]) for a, _ in sops),
+             launches=len(sops),
+             shapes=sorted({(a.shape[0], a.shape[2]) for a, _ in sops}))
+
+    # --- pow_fixed: Fp at B = 1 and 1024, at p - 2 (the inversion) and
+    # (p+1)/4 (a square root's exponent); pow_fixed_fr at B = 1024, q - 2
+    # (pow_operand's edge lanes)
+    for spec, wrapper, B, label, e in (
+            (limbs.FP, "pow_fixed", 1, "p-2", P - 2),
+            (limbs.FP, "pow_fixed", 1, "(p+1)/4", (P + 1) // 4),
+            (limbs.FP, "pow_fixed", BATCH, "p-2", P - 2),
+            (limbs.FP, "pow_fixed", BATCH, "(p+1)/4", (P + 1) // 4),
+            (limbs.FR, "pow_fixed_fr", BATCH, "q-2", Q - 2)):
+        a = pow_operand(spec, B, gen, device)
+        ref = mont.pow_fixed_plain(spec, a, e)
+        fn = getattr(mont, wrapper)
+        regs, spills = usage[wrapper]
+        chk.hold(f"{wrapper} {label} B={B}", lambda fn=fn, a=a, e=e: fn(a, e),
+                 lambda spec=spec, a=a, e=e: mont.pow_fixed_plain(spec, a, e),
+                 wrapper, 20, 1, *pow_work(spec, e, B), ref=ref,
+                 lanes=POW_BLOCK, blocks=-(-B // POW_BLOCK), registers=regs,
+                 spill_bytes=spills)
+        del a, ref
 
     # --- Fr: sop_fr (T = 1, 2) and butterfly at B = 2^16 with edge rows,
     # and at the NTT's shapes: the 1/N scaling (T = 1, B = N) and a stage
@@ -650,20 +745,9 @@ def take_lanes(aff, lanes, device):
     return (t(x), t(y), t(inf))
 
 
-def inv_launches():
-    """(sop, sqr) launches of one Fp inversion, `limbs.pow_fixed` by p - 2:
-    the window table (2^w - 2 products), then per digit of the field's bit
-    width w squarings and one product."""
-    from bls12_381_torch import limbs
-
-    w = limbs.POW_WINDOW
-    digits = -(-limbs.FP.modulus.bit_length() // w)
-    return (1 << w) - 2 + digits, digits * w
-
-
 def expected_launches():
-    """plan_exec, sqr, sop and fold_planned launches of one pairing, from
-    the static schedules."""
+    """plan_exec, sqr, sop, fold_planned and pow_fixed launches of one
+    pairing, from the static schedules."""
     import importlib
 
     from bls12_381_torch.fields import tower as tw
@@ -674,15 +758,14 @@ def expected_launches():
                     for n, mul in pm._X_RUNS)
     # final exp outside the five exp-by-|z|: 10 fp12_mul + 1 fp12_sqr
     plans = 2 * pm.N_COEFFS + 5 * per_exp_z + 11
-    inv_sops, sqrs = inv_launches()
-    # fp2_inv in fp12_inv: the norm (one sop) around its fp.inv
-    sops = inv_sops + 1
     # folds (fold_planned): the Miller loop's line scaling; in fp12_inv two
     # fp6_mul_many, fp6_inv's three folds and fp2_inv's two products; three
     # per fp12_frobenius, eight of them in the final exponentiation
     folds = 1 + 5 + 1 + 3 * 8
-    return {"plan_exec": plans, "sqr": sqrs, "sop": sops,
-            "fold_planned": folds}
+    # fp2_inv in fp12_inv: the norm (one sop) and its fp.inv, one
+    # pow_fixed (no sqr chain)
+    return {"plan_exec": plans, "sqr": 0, "sop": 1, "fold_planned": folds,
+            "pow_fixed": 1, "pow_fixed_fr": 0}
 
 
 def pairing_inputs(device):
@@ -726,8 +809,8 @@ def phase_main(device):
     expected = expected_launches()
     say("main", first_pairing_seconds=first_s, launches=counts,
         expected=expected, pairing_peak_bytes=peak, held_bytes=held)
-    for name in expected:
-        if counts[name] <= 0:
+    for name, n in expected.items():
+        if n > 0 and counts[name] <= 0:
             fail(f"kernel {name} was not launched on the main path")
     if any(counts[name] != n for name, n in expected.items()):
         fail(f"launch counts {counts} differ from the schedule {expected}")
@@ -912,7 +995,7 @@ def expected_ntt_launches(n: int, inverse: bool) -> dict:
     log_n = n.bit_length() - 1
     return {"sop": 0, "sqr": 0, "plan_exec": 0, "butterfly": log_n,
             "sop_fr": log_n - 1 + int(inverse), "fold_planned": 0,
-            "plan_exec_by_plan": {}}
+            "pow_fixed": 0, "pow_fixed_fr": 0, "plan_exec_by_plan": {}}
 
 
 def phase_ntt(device):
@@ -1012,8 +1095,9 @@ def expected_msm_launches(group: str, n: int, c: int, split: bool = True):
     """Kernel launches of one msm over n >= 16 points with window c, from
     the schedule of ops/msm.py: from_mont of the scalars (one sop_fr); the
     z inversions of to_affine (`batch_inv`: two product scans of 2 lg n
-    products, one Fp inversion, two products; G2 adds the norm, one sop,
-    and two products, one fold) and its x, y products (one fold_planned);
+    products, one Fp inversion (one pow_fixed), two products; G2 adds the
+    norm, one sop, and two products, one fold) and its x, y products (one
+    fold_planned);
     the GLV split's beta x (one sop) or the GLS split's three affine psi
     (two Fp2 products, one fold each); then per window of
     the signed digits the segmented scan (2 lg m adds over m lanes), the
@@ -1022,8 +1106,7 @@ def expected_msm_launches(group: str, n: int, c: int, split: bool = True):
     def lg(m):
         return (m - 1).bit_length()
 
-    inv_sops, inv_sqrs = inv_launches()
-    inv = 4 * lg(n) + inv_sops + 2
+    inv = 4 * lg(n) + 2
     lanes, bits = {("g1", True): (2 * n, 128), ("g2", True): (4 * n, 64)}.get(
         (group, split), (n, 255))
     windows = -(-(bits + 1) // c)
@@ -1032,8 +1115,9 @@ def expected_msm_launches(group: str, n: int, c: int, split: bool = True):
         sops, folds = inv + int(split), 1
     else:
         sops, folds = 1 + inv, 2 + (6 if split else 0)
-    return {"sop": sops, "sqr": inv_sqrs, "plan_exec": adds + windows * c,
+    return {"sop": sops, "sqr": 0, "plan_exec": adds + windows * c,
             "sop_fr": 1, "butterfly": 0, "fold_planned": folds,
+            "pow_fixed": 1, "pow_fixed_fr": 0,
             "plan_exec_by_plan": {f"{group}_add_plan": adds,
                                   f"{group}_double_plan": windows * c}}
 
@@ -1204,8 +1288,8 @@ def main() -> None:
         return out
 
     smi_line = phase("device", phase_device)
-    plan_regs = phase("build", phase_build)
-    results, timed = phase("kernels", phase_kernels, device, plan_regs)
+    usage = phase("build", phase_build)
+    results, timed = phase("kernels", phase_kernels, device, usage)
     counts, med, (p_aff, q_aff) = phase("main", phase_main, device)
     counts_ntt, med_ntt, x = phase("ntt", phase_ntt, device)
     msms = phase("msm", phase_msm, device)
@@ -1223,7 +1307,7 @@ def main() -> None:
         phase(f"profile_msm_{group}", phase_profile, f"msm_{group}",
               lambda fn=fn, pts=pts, sc=sc: fn(pts, sc), med_msm)
 
-    from bls12_381_torch.kernels import plan_exec as pe
+    from bls12_381_torch.kernels import mont, plan_exec as pe
 
     def entry(name, source, replaces, launches, key, **extra):
         r = results[key]
@@ -1238,11 +1322,36 @@ def main() -> None:
     pallas = "bls12_381_tpu/kernels/pallas_mont.py"
     plan_src = "bls12_381_tpu/kernels/plan_exec.py:778"
     msm_counts = {g: m[0] for g, m in msms.items()}
+
+    def beside(prefix, key):
+        """Another shape's numbers for a row: ms, bound, plain, errors."""
+        r = results[key]
+        return {f"{prefix}_shape": key, **{f"{prefix}_{k}": r[k] for k in (
+            "ms", "bound_ms", "plain_ms", "mismatches", "max_abs_err")}}
+
     kernels = [
+        # per launch at the pairing's one sop (fp2_inv's norm) and at the
+        # products of one msm_g1; launches per pairing and per msm
         entry("sop", src + "mont.cu", f"{pallas}:620", counts["sop"],
-              f"sop T=1 B={4 * 68 * BATCH}"),
+              f"sop T=2 B={BATCH}",
+              launches_msm_g1=msm_counts["g1"]["sop"],
+              launches_msm_g2=msm_counts["g2"]["sop"],
+              **beside("msm_g1", MSM_SOPS)),
         entry("sqr", src + "mont.cu", f"{pallas}:711", counts["sqr"],
-              f"sqr G=1 B={BATCH}"),
+              f"sqr G=1 B={BATCH}",
+              note="on no path: its body (sqr_wide) runs inside pow_fixed"),
+        # the JAX chain of sqr_pallas / sop_pallas launches in one launch
+        entry("pow_fixed", src + "mont.cu", f"{pallas}:711",
+              counts["pow_fixed"], f"pow_fixed p-2 B={BATCH}",
+              launches_msm_g1=msm_counts["g1"]["pow_fixed"],
+              launches_msm_g2=msm_counts["g2"]["pow_fixed"],
+              note="the JAX chain is bls12_381_tpu/limbs.py:693 (pow_fixed, "
+                   "a scan over sqr_pallas and sop_pallas); Fr's twin "
+                   "pow_fixed_fr (csrc/fr.cu) beside it",
+              lanes=POW_BLOCK, registers=usage["pow_fixed"][0],
+              spill_bytes=usage["pow_fixed"][1],
+              **beside("b1", "pow_fixed p-2 B=1"),
+              **beside("fr", f"pow_fixed_fr q-2 B={BATCH}")),
         # launches per pairing, ms and bounds per launch at the pairing's
         # own folds; launches per msm beside them
         entry("fold_planned", src + "mont.cu", f"{pallas}:250",

@@ -181,6 +181,41 @@ def test_butterfly_kernel_matches_plain(cuda):
                                                        w.cpu()))
 
 
+# 0 (every digit zero: one), 1 (a itself) and 2^1024 - 1 (the 256-digit cap)
+# beside the paths' own exponents
+POW_EXPONENTS = {"p-2": P - 2, "(p+1)/4": (P + 1) // 4, "q-2": Q - 2,
+                 "0": 0, "1": 1, "2^1024-1": (1 << 1024) - 1}
+
+
+def pow_operand(spec, B: int, device, seed: int) -> torch.Tensor:
+    """[L, B] random canonical limbs; lanes 1..6 hold 0, 1, 2, m-1, m-2
+    and R mod m, as many as B has room for (lane 0 stays random)."""
+    L, m = spec.n_limbs, spec.modulus
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randint(0, 1 << 16, (L, B), generator=gen, dtype=torch.int32)
+    x[L - 1] %= spec.p_limbs[L - 1]
+    edges = (0, 1, 2, m - 1, m - 2, (1 << (16 * L)) % m)
+    for lane, v in enumerate(edges[:max(B - 1, 0)]):
+        x[:, lane + 1] = torch.tensor(params.to_limbs(v, L))
+    return x.to(device)
+
+
+@pytest.mark.parametrize("name", list(POW_EXPONENTS))
+@pytest.mark.parametrize("B", [1, 33, 1024])
+@pytest.mark.parametrize("wrapper", ["pow_fixed", "pow_fixed_fr"])
+def test_pow_kernel_matches_plain(cuda, wrapper, B, name):
+    """One launch, B = 33 a ragged block; over Fr, p-2 and (p+1)/4 are
+    wider than q."""
+    spec = limbs.FP if wrapper == "pow_fixed" else limbs.FR
+    a = pow_operand(spec, B, cuda, seed=B)
+    e = POW_EXPONENTS[name]
+    LAUNCHES.reset()
+    got = getattr(mont, wrapper)(a, e)
+    torch.cuda.synchronize()
+    assert LAUNCHES.snapshot()[wrapper] == 1
+    assert torch.equal(got, mont.pow_fixed_plain(spec, a, e))
+
+
 def test_ntt_on_card_matches_cpu(cuda):
     log_n = 12
     x = entry.ntt_inputs(log_n, seed=5)
@@ -200,7 +235,9 @@ def test_pairing_on_card_matches_cpu(cuda):
     out = fn(p, q)
     torch.cuda.synchronize()
     counts = LAUNCHES.snapshot()
-    assert min(counts["sop"], counts["sqr"], counts["plan_exec"]) > 0
+    # fp12_inv's one Fp inversion is one pow_fixed launch, no sqr chain
+    assert counts["pow_fixed"] == 1 and counts["sqr"] == 0
+    assert min(counts["sop"], counts["plan_exec"]) > 0
 
     def to_cpu(x):
         return tuple(to_cpu(y) for y in x) if isinstance(x, tuple) \
@@ -221,6 +258,7 @@ def test_msm_on_card_matches_cpu(cuda, group):
     torch.cuda.synchronize()
     counts = LAUNCHES.snapshot()
     assert counts["plan_exec"] > 0 and counts["sop_fr"] == 1
+    assert counts["pow_fixed"] == 1 and counts["sqr"] == 0
     # to_affine's x, y products; on G2 also fp2_batch_inv's two products
     # and the GLS split's six Fp2 products (psi)
     assert counts["fold_planned"] == {"g1": 1, "g2": 8}[group]
