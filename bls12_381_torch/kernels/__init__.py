@@ -3,6 +3,9 @@
 Each wrapper adds one to its count in `LAUNCHES` where it launches its CUDA
 kernel, and nowhere else (a CPU tensor takes the plain PyTorch version and
 counts nothing), so a run can show which kernels its path went through.
+`copied_rows` is not a launch count: it counts the operands `mont.sop_rows`
+had to copy before a launch because their batch axes do not collapse to two
+lane strides (on either device, so the CPU tests see it too).
 """
 
 from __future__ import annotations
@@ -21,13 +24,14 @@ class LaunchCounts:
     fold_planned: int = 0
     pow_fixed: int = 0
     pow_fixed_fr: int = 0
+    copied_rows: int = 0
     plan_exec_by_plan: collections.Counter = dataclasses.field(
         default_factory=collections.Counter)
 
     def reset(self) -> None:
         self.sop = self.sqr = self.plan_exec = 0
         self.sop_fr = self.butterfly = self.fold_planned = 0
-        self.pow_fixed = self.pow_fixed_fr = 0
+        self.pow_fixed = self.pow_fixed_fr = self.copied_rows = 0
         self.plan_exec_by_plan.clear()
 
     def snapshot(self) -> dict:
@@ -35,6 +39,7 @@ class LaunchCounts:
                 "sop_fr": self.sop_fr, "butterfly": self.butterfly,
                 "fold_planned": self.fold_planned,
                 "pow_fixed": self.pow_fixed, "pow_fixed_fr": self.pow_fixed_fr,
+                "copied_rows": self.copied_rows,
                 "plan_exec_by_plan": dict(self.plan_exec_by_plan)}
 
 

@@ -1,17 +1,18 @@
 // Montgomery sum-of-products, NTT butterfly and fixed-exponent power kernels
 // for the BLS12-381 scalar field Fr (wrappers and notes: kernels/mont.py).
 //
-//   bls_sop_fr:    out[:, b] = (sum_t a[t, :, b] * b[t, :, b]) R^-1 mod q,
-//                  a, b int32 [T, 16, B] 16-bit limbs, T <= 2; out [16, B]
-//                  (montgomery.cuh's sop_kernel for Fr)
+//   bls_sop_rows_fr: out[g, :, b] = (sum_{t < n_g} row[ia[g,t]][:, b]
+//                  * row[ib[g,t]][:, b]) R^-1 mod q, G groups of n_g <= 2
+//                  terms over a host table of rows (device pointer and
+//                  element strides); out int32 [G, 16, B] (montgomery.cuh's
+//                  sop_rows_kernel for Fr: the wrappers `sop_fr`, `sop_rows`)
 //   bls_butterfly: t = b w R^-1 mod q; out[0] = a + t, out[1] = a - t mod q,
 //                  a, b, w int32 [16, B]; out int32 [2, 16, B]
 //   bls_pow_fixed_fr: out[:, b] = a[:, b]^e R^(1-e) mod q, a int32 [16, B];
 //                  e as n_digits <= 256 host uint8 4-bit digits, most
 //                  significant first (montgomery.cuh's pow_kernel for Fr)
 //
-// One thread per lane, every intermediate in registers; the C functions
-// launch on the given stream and return cudaGetLastError().
+// The C functions launch on the given stream and return cudaGetLastError().
 #include "fr256.cuh"
 
 using namespace montgomery;
@@ -46,9 +47,13 @@ butterfly_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
 
 }  // namespace
 
-extern "C" int bls_sop_fr(const void* a, const void* b, void* out, int T,
-                          int B, void* stream) {
-  return launch_sop<Field>(a, b, out, T, B, stream);
+extern "C" int bls_sop_rows_fr(const SopRow* rows, int n_rows,
+                               const uint16_t* ia, const uint16_t* ib,
+                               const uint8_t* counts, void* out, int G, int T,
+                               int B, int n_inner, int lt, int gpb, int split,
+                               void* stream) {
+  return launch_sop_rows<Field>(rows, n_rows, ia, ib, counts, out, G, T, B,
+                                n_inner, lt, gpb, split, stream);
 }
 
 extern "C" int bls_pow_fixed_fr(const void* a, void* out,

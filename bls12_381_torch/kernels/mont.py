@@ -1,53 +1,69 @@
-"""Montgomery sum-of-products, squaring, the planned fold, the NTT
-butterfly and the fixed-exponent power: CUDA kernels and plain versions.
+"""Montgomery sums of products, squaring, the NTT butterfly and the
+fixed-exponent power: CUDA kernels and plain versions.
 
-`sop` replaces `bls12_381_tpu/kernels/pallas_mont.py::sop_pallas` for Fp
-(default body `_sop_kernel_r12_scalar`), `sqr` replaces `sqr_pallas` (default
-body `_sqr_kernel_r12_scalar`), `fold_planned` replaces
-`fold_planned_pallas` (bodies `_fold_planned_kernel_r12_scalar`,
-`_fold_planned_kernel_r12`); source `csrc/mont.cu` on `csrc/fp384.cuh`.
-`sop_fr` replaces `sop_pallas`'s Fr route (body `_sop_kernel_reg`, chosen at
-pallas_mont.py:682-689), `butterfly` replaces `butterfly_pallas` (bodies
-`_butterfly_kernel_16`, `_butterfly_kernel_16_vec`); source `csrc/fr.cu` on
-`csrc/fr256.cuh`.  Both sources instantiate the word-level Montgomery code of
-`csrc/montgomery.cuh` with their field header's struct; `sop` and `sop_fr`
-are its one sum-of-products kernel template, built for p and for q.
-`pow_fixed` (Fp, `csrc/mont.cu`) and `pow_fixed_fr` (Fr, `csrc/fr.cu`) are
-its fixed-exponent power template: the JAX package's `limbs.pow_fixed`
+`sop_rows` is the port's one sum-of-products kernel, built from
+`csrc/montgomery.cuh`'s `sop_rows_kernel<F>` for Fp (`csrc/mont.cu`,
+`bls_sop_rows`) and for Fr (`csrc/fr.cu`, `bls_sop_rows_fr`).  It replaces
+`bls12_381_tpu/kernels/pallas_mont.py::sop_pallas` (Fp body
+`_sop_kernel_r12_scalar`; the Fr route `_sop_kernel_reg`, chosen at
+pallas_mont.py:682-689) and `fold_planned_pallas` (bodies
+`_fold_planned_kernel_r12_scalar`, `_fold_planned_kernel_r12`).  `sop`,
+`sop_fr` and `fold_planned` keep those kernels' signatures as thin adapters
+whose rows are views into the caller's stacked tensor; `limbs.py` calls
+`sop_rows` with its operands as they are.  `sqr` replaces `sqr_pallas`
+(default body `_sqr_kernel_r12_scalar`, `csrc/mont.cu`), `butterfly`
+replaces `butterfly_pallas` (bodies `_butterfly_kernel_16`,
+`_butterfly_kernel_16_vec`, `csrc/fr.cu`).  `pow_fixed` (Fp, `csrc/mont.cu`)
+and `pow_fixed_fr` (Fr, `csrc/fr.cu`) are `montgomery.cuh`'s
+fixed-exponent power template: the JAX package's `limbs.pow_fixed`
 (limbs.py:693, a scan of `sqr_pallas` and `sop_pallas` launches: 14 table
 products, then 4 squares and a product per 4-bit digit) in one launch, so
 `sqr_pallas`'s body (`sqr_wide`) reaches the paths through it.
 
-Design.  One thread per batch lane; the lane axis is innermost, so a warp's
-loads of one limb row are 32 neighbouring words.  The 16-bit limbs of each
-operand are packed into 32-bit words in registers (12 for Fp, 8 for Fr), the
-T products are summed into a 2W+1-word accumulator with 32x32->64-bit
-multiply-adds, then one Montgomery reduction with 32-bit digits (W rounds,
-m = t0 * (-p^-1 mod 2^32)) and one conditional subtraction give the
-canonical result, unpacked to 16-bit limbs.  The pre-reduction value is
-< T p^2, so the result is < T p^2/R + p, which is < 2p while T p < R:
-R/p ~ 9.84 gives the Fp kernel T <= 8 (the JAX package's chunk), R/q ~ 2.21
-gives the Fr kernel T <= 2 (`limbs.FieldSpec.max_terms`).  The canonical
-Montgomery value is unique for R, so the 32-bit digits cannot change a
-result (`pallas_mont.py:96-105`).  The fold is the same per-lane routine
-(`montgomery.cuh`'s `sop_lane`) with one thread per (lane, group), the
-group on the grid's y axis: term t of group g multiplies rows ia[g, t] and
-ib[g, t] of a deduplicated operand stack, whose row 0 is zeros for the
-padding terms.  The [G, T] index tables are copied into the launch's
-parameter block (uint16 entries, G T <= FOLD_ENTRIES), so no call copies
-them host-to-device.  The butterfly is one Fr product
-t = b w R^-1 followed by a + t and a - t mod q, all in registers; 2q < 2^256,
-so a + t never carries out of the 8 words.  The power kernel runs
-one lane's whole chain in one thread: the exponent's digits by value in
-the launch's parameter block (uint8, up to POW_DIGITS), the window table
-in shared memory (16 x W words per lane, lane innermost), the accumulator
-in registers; it skips the leading zero digits and the products by entry
-0 (R mod p), which leaves every canonical value as the JAX schedule has
-it.  A block holds 128 lanes (`kPowLanes`, fixed at compile time): at
-B = 1024 a launch at p - 2 took 0.560 ms with 128 lanes per block, 0.635
-with 64 and 0.708 with 32, and 0.556 at B = 1 (`chip_smoke.py`, NVIDIA
-H100 80GB HBM3 at 700 W; PERF.md).  Why the smaller blocks are slower has
-not been traced.
+Design.  The 16-bit limbs of each operand are packed into 32-bit words in
+registers (12 for Fp, 8 for Fr), a group's products are summed into a
+2W+1-word accumulator with 32x32->64-bit multiply-adds, then one Montgomery
+reduction with 32-bit digits (W rounds, m = t0 * (-p^-1 mod 2^32)) and one
+conditional subtraction give the canonical result, unpacked to 16-bit
+limbs.  The pre-reduction value is < T p^2, so the result is < T p^2/R + p,
+which is < 2p while T p < R: R/p ~ 9.84 gives Fp T <= 8 (the JAX package's
+chunk), R/q ~ 2.21 gives Fr T <= 2 (`limbs.FieldSpec.max_terms`).  The
+canonical Montgomery value is unique for R, so the 32-bit digits cannot
+change a result (`pallas_mont.py:96-105`).
+
+`sop_rows` computes G sums out[g] = (sum_{t < n_g} rows[ia[g, t]]
+rows[ib[g, t]]) R^-1 over a list of rows, each an operand [L, *b] that
+broadcasts to the call's batch.  A row is passed as a device pointer and
+three element strides (limb, outer lane, inner lane: lane l = o n + i with
+n the size of the last batch axis), so a `movedim` view, a 0::2 slice, an
+expanded operand (stride 0) or a constant is read where it lies.  Only a
+row whose outer batch axes do not collapse to one stride is copied first;
+each such row adds one to `LAUNCHES.copied_rows`.  The rows, the [G, T]
+uint16 index tables and the uint8 term counts go by value in a
+`__grid_constant__` struct, at the smallest of three capacities that holds
+the call (16 rows and 16 entries: 496 bytes; 64 and 128: 2.2 KB; 1024 and
+512: 27 KB, CUDA >= 12.1), so a product does not ship kilobytes of
+parameters and no call copies a table to the device.  A block is a tile of
+Lt lanes by gpb group slots by `split` threads per group
+(`sop_launch_shape`): the groups of a call share the block, so a row that
+several of them name comes from device memory once per tile and from L1
+after that; at small widths the tile shrinks so that the blocks spread over
+the SMs, and a group's terms spread over `split` threads whose partial
+products meet in shared memory, so a thread's chain of dependent
+multiply-adds is ceil(n_g / split) products long.
+
+The butterfly is one Fr product t = b w R^-1 followed by a + t and a - t
+mod q, all in registers; 2q < 2^256, so a + t never carries out of the 8
+words.  The power kernel runs one lane's whole chain in one thread: the
+exponent's digits by value in the launch's parameter block (uint8, up to
+POW_DIGITS), the window table in shared memory (16 x W words per lane, lane
+innermost), the accumulator in registers; it skips the leading zero digits
+and the products by entry 0 (R mod p), which leaves every canonical value
+as the JAX schedule has it.  A block holds 128 lanes (`kPowLanes`, fixed at
+compile time): at B = 1024 a launch at p - 2 took 0.560 ms with 128 lanes
+per block, 0.635 with 64 and 0.708 with 32, and 0.556 at B = 1
+(`chip_smoke.py`, NVIDIA H100 80GB HBM3 at 700 W; PERF.md).  Why the
+smaller blocks are slower has not been traced.
 
 Bound on the card.  A T = 1 Fp product reads 2 x 24 and writes 24 int32
 words per lane (288 bytes) and does 2 x 12 x 12 word products plus the
@@ -55,18 +71,17 @@ reduction's 12 x 12 + 12, each a lo and a hi 32-bit multiply: about 600
 IMADs per lane.  At 3.35 TB/s and 132 SMs x 64 IMAD/clock x 1.98 GHz the
 bytes take ~2.4x longer than the multiplies, so T = 1 is bound by memory:
 16-bit limbs stored in int32 double the bytes read.  Larger T moves toward
-the multiply bound.  The fold's bound counts each of its K distinct rows
-read once and G rows written; the simple kernel reads a row once per term
-that names it, so it gains over the stacked `sop` only the copies the
-stack no longer makes.  The butterfly reads 3 x 64 and writes 2 x 64 bytes per
-lane (320 bytes) for about 270 IMADs: bound by memory, ~50 us per NTT stage
-of 2^19 lanes.  A power moves 2 L words per lane but runs ~480 dependent
-products (p - 2): at B = 1024 its multiplies are ~14 us of the card's
-rate, spread over only 32 warps, so its time is the chain's latency.
-The kernels keep every intermediate in registers (nothing
-but the operands and the result touches device memory); packing the
-boundary to 32-bit words would halve their bytes and is left to a later
-change.
+the multiply bound.  A fold's bound counts each distinct row read once and
+G rows written.  At the paths' narrow widths (B = 1024) no launch comes
+near either bound: its time is the launch and one thread's chain.  The
+butterfly reads 3 x 64 and writes 2 x 64 bytes per lane (320 bytes) for
+about 270 IMADs: bound by memory, ~50 us per NTT stage of 2^19 lanes.  A
+power moves 2 L words per lane but runs ~480 dependent products (p - 2):
+at B = 1024 its multiplies are ~14 us of the card's rate, spread over only
+32 warps, so its time is the chain's latency.  The kernels keep every
+intermediate in registers or shared memory (nothing but the operands and
+the result touches device memory); packing the boundary to 32-bit words
+would halve their bytes and is left to a later change.
 
 On a CPU tensor the wrappers run the plain versions below (int64 PyTorch
 following the JAX jnp algorithms, `limbs.py:280-327`); on a CUDA tensor they
@@ -76,6 +91,9 @@ launch the kernel or raise.  Nothing sends a CUDA tensor to the plain path.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
+import struct
 
 import numpy as np
 import torch
@@ -86,33 +104,38 @@ from . import LAUNCHES, build
 L = limbs.FP.n_limbs
 L_FR = limbs.FR.n_limbs
 MAX_TERMS = limbs.FP.max_terms
-MAX_TERMS_FR = limbs.FR.max_terms
-FOLD_ENTRIES = 512        # G T entries of the fold's by-value index tables
-FOLD_OPERANDS = 1 << 16   # rows of its operand stack (uint16 indices)
+FOLD_ENTRIES = 512        # G T table entries of the largest capacity
+SOP_ROWS = 1024           # rows of the largest capacity
+SOP_THREADS = 256         # threads per block, at most (kSopRowsThreads)
+SOP_MAX_TILE = 64         # lanes per block, at most
+SOP_SPLIT_BELOW = 1 << 14  # lanes x groups below which a group's terms split
+INT32_MAX = (1 << 31) - 1
+
+# montgomery.cuh's SopRow: limb 0 of lane 0, then element strides
+_ROW = struct.Struct("<Qiiii")
 
 POW_WINDOW = 4            # bits per digit of pow_fixed (the JAX default)
 POW_DIGITS = 256          # digits the pow kernel takes by value (1024 bits)
 
 _POW_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_int, ctypes.c_void_p)
+# (rows [host SopRow], n_rows, ia, ib [host uint16 G T], counts [host uint8
+#  G], out, G, T, B, n_inner, lane tile, groups per block, split, stream)
+_ROWS_ARGS = (ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+              ctypes.c_void_p, ctypes.c_void_p) + (ctypes.c_int,) * 7 + (
+              ctypes.c_void_p,)
 _SIGNATURES = {
-    # (a, b, out, T, B, stream)
-    "bls_sop": (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_int, ctypes.c_int, ctypes.c_void_p),
+    "bls_sop_rows": _ROWS_ARGS,
+    # (n_rows, entries)
+    "bls_sop_rows_param_bytes": (ctypes.c_int, ctypes.c_int),
     # (a, out, G, B, stream)
     "bls_sqr": (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                 ctypes.c_int, ctypes.c_void_p),
-    # (ops, ia, ib [host int32], out, K, G, T, B, stream)
-    "bls_fold_planned": (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                         ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                         ctypes.c_int, ctypes.c_int, ctypes.c_void_p),
     # (a, out, digits [host uint8], n_digits, B, stream)
     "bls_pow_fixed": _POW_ARGS,
 }
 _SIGNATURES_FR = {
-    # (a, b, out, T, B, stream)
-    "bls_sop_fr": (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p),
+    "bls_sop_rows_fr": _ROWS_ARGS,
     # (a, b, w, out, B, stream)
     "bls_butterfly": (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                       ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p),
@@ -155,6 +178,12 @@ def device_kind(x: torch.Tensor) -> str:
 
 def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device `index`."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 # ---------------------------------------------------------------------------
@@ -211,20 +240,38 @@ def sqr_plain(a: torch.Tensor) -> torch.Tensor:
     return sop_plain(x, x).transpose(0, 1)
 
 
-def fold_planned_plain(ops: torch.Tensor, ia, ib) -> torch.Tensor:
-    """out[g] = (sum_t ops[ia[g, t]] ops[ib[g, t]]) R^-1 mod p for int32
-    [K, 24, B] and [G, T] index tables -> [G, 24, B]: the rows gathered into
-    [T, 24, G, B] and summed by `sop_plain`."""
+def as_batch(x: torch.Tensor, full) -> torch.Tensor:
+    """A row [L, *b] as a view of shape full = (L, *batch), its batch axes
+    aligned with the batch's last ones (broadcast as `torch.broadcast_shapes`
+    of the batch shapes aligns them)."""
+    lead = (1,) * (len(full) - x.dim())
+    return x.reshape((x.shape[0],) + lead + tuple(x.shape[1:])).expand(full)
+
+
+def sop_rows_plain(spec: limbs.FieldSpec, rows, ia, ib, counts,
+                   batch) -> torch.Tensor:
+    """out[g] = (sum_{t < counts[g]} rows[ia[g, t]] rows[ib[g, t]]) R^-1 mod
+    m -> int32 [G, L, *batch]: each group's rows gathered into
+    [T, L, G, *batch], its missing terms zero, and summed by `_sop_plain`."""
+    full = (spec.n_limbs,) + tuple(batch)
     G, T = np.shape(ia)
-    _, n, B = ops.shape
+    zero = torch.zeros(full, dtype=limbs.DTYPE, device=rows[0].device)
 
     def gather(idx):
-        rows = torch.as_tensor(np.asarray(idx, np.int64).reshape(-1),
-                               device=ops.device)
-        return ops.index_select(0, rows).reshape(G, T, n, B).permute(
-            1, 2, 0, 3)
+        return torch.stack([torch.stack(
+            [as_batch(rows[idx[g][t]], full) if t < counts[g] else zero
+             for g in range(G)], dim=1) for t in range(T)])
 
-    return sop_plain(gather(ia), gather(ib)).transpose(0, 1).contiguous()
+    return _sop_plain(spec, gather(ia), gather(ib)).movedim(1, 0) \
+        .contiguous()
+
+
+def fold_planned_plain(ops: torch.Tensor, ia, ib) -> torch.Tensor:
+    """out[g] = (sum_t ops[ia[g, t]] ops[ib[g, t]]) R^-1 mod p for int32
+    [K, 24, B] and [G, T] index tables -> [G, 24, B]."""
+    G, T = np.shape(ia)
+    return sop_rows_plain(limbs.FP, list(ops.unbind(0)), ia, ib, [T] * G,
+                          ops.shape[2:])
 
 
 def butterfly_plain(a: torch.Tensor, b: torch.Tensor,
@@ -276,40 +323,175 @@ def pow_fixed_plain(spec: limbs.FieldSpec, a: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _sop_launch(fn, a, b, n_limbs, max_terms, name):
-    """Validate and launch a [T, L, B] x2 -> [L, B] sum-of-products kernel;
-    returns None for a CPU tensor (the caller runs the plain version)."""
-    _check_limbs(a, f"{name} a", n_limbs)
-    _check_pair(a, b, name)
-    T, _, B = a.shape
-    if not 1 <= T <= max_terms:
-        raise ValueError(f"{name}: {T} terms; the kernel takes 1..{max_terms}")
-    if device_kind(a) == "cpu":
-        return None
-    a, b = a.contiguous(), b.contiguous()
-    out = torch.empty((n_limbs, B), dtype=limbs.DTYPE, device=a.device)
+def row_strides(x: torch.Tensor, batch):
+    """(s_limb, s_outer, s_inner) element strides of a row x [L, *b]
+    broadcast to (L, *batch) (b aligned with the batch's last axes), lane
+    l = o n + i over the flattened batch (n its last axis), read from x's
+    own sizes and strides; None when its outer batch axes do not collapse
+    to one stride.  Raises ValueError when x does not broadcast."""
+    shape, st = x.shape, x.stride()
+    k, nb = len(shape) - 1, len(batch)
+    if k > nb or any(n != 1 and n != m
+                     for n, m in zip(shape[1:], batch[nb - k:])):
+        raise ValueError(f"sop_rows: a row {tuple(shape)} does not "
+                         f"broadcast to the batch {tuple(batch)}")
+    strides = [0] * (nb - k) + [s if n != 1 else 0
+                                for n, s in zip(shape[1:], st[1:])]
+    if nb == 0:
+        return st[0], 0, 0
+    s_outer, expect = 0, None
+    for d in range(nb - 2, -1, -1):  # outer axes, innermost first
+        if batch[d] == 1:
+            continue
+        if expect is None:
+            s_outer = strides[d]
+        elif strides[d] != expect:
+            return None
+        expect = strides[d] * batch[d]
+    return st[0], s_outer, strides[-1] if batch[-1] > 1 else 0
+
+
+def _tables(ia, ib, counts, max_terms: int, n_rows: int):
+    """(G, T, ia, ib, counts) of host tables as Python ints, the [G, T]
+    tables flattened with the entries past a group's count set to 0;
+    raises ValueError on what the kernel does not take."""
+    ia, ib, counts = (x.tolist() if isinstance(x, np.ndarray) else x
+                      for x in (ia, ib, counts))
+    try:
+        ia = [[int(v) for v in r] for r in ia]
+        ib = [[int(v) for v in r] for r in ib]
+        counts = [int(c) for c in counts]
+    except TypeError:
+        raise ValueError("sop_rows: expected [G, T] tables and [G] counts")
+    G, T = len(ia), len(ia[0]) if ia else 0
+    if len(ib) != G or len(counts) != G or any(
+            len(r) != T for r in ia + ib):
+        raise ValueError("sop_rows: expected two [G, T] tables and [G] "
+                         "counts of one G")
+    if not (G >= 1 and 1 <= T <= max_terms and G * T <= FOLD_ENTRIES
+            and 1 <= n_rows <= SOP_ROWS):
+        raise ValueError(f"sop_rows: G={G}, T={T}, {n_rows} rows; the "
+                         f"kernel takes T <= {max_terms}, G T <= "
+                         f"{FOLD_ENTRIES}, 1..{SOP_ROWS} rows")
+    fa, fb = [0] * (G * T), [0] * (G * T)
+    for g, n in enumerate(counts):
+        if not 1 <= n <= T:
+            raise ValueError(f"sop_rows: a term count outside 1..{T}")
+        for t in range(n):
+            a, b = ia[g][t], ib[g][t]
+            if not (0 <= a < n_rows and 0 <= b < n_rows):
+                raise ValueError(f"sop_rows: an index lies outside "
+                                 f"[0, {n_rows})")
+            fa[g * T + t], fb[g * T + t] = a, b
+    return G, T, fa, fb, counts
+
+
+def sop_launch_shape(G: int, T: int, B: int, n_sm: int, split=None):
+    """(lane tile Lt, group slots per block, threads per group) of a
+    launch over B lanes.  A group's terms split over T threads while the
+    call has fewer than SOP_SPLIT_BELOW (lane, group) pairs.  (On the H100
+    at B = 1024 the split took the pairing's 31 folds from 0.0088 to
+    0.0063 ms per launch, a 6-group, 6-term fold from 0.0096 to 0.0070 ms
+    and the pairing's norm from 0.0046 to 0.0037 ms; 4 groups of 6 terms
+    over 4096 lanes ran 6 % slower split, hence the threshold; PERF.md.)
+    Lt is the largest power of two <= SOP_MAX_TILE that still gives
+    every SM a block (one lane where nothing wider does); the group slots
+    fill the block up to SOP_THREADS threads, and a call of more groups
+    takes them in rounds within the block."""
+    if split is None:
+        split = T if B * G < SOP_SPLIT_BELOW else 1
+    lt = SOP_MAX_TILE
+    while lt > 1 and (-(-B // lt) < n_sm or lt * split > SOP_THREADS):
+        lt //= 2
+    return lt, max(1, min(G, SOP_THREADS // (lt * split))), split
+
+
+def sop_rows_param_bytes(n_rows: int, entries: int) -> int:
+    """Parameter bytes of the capacity a call of n_rows rows and `entries`
+    table entries launches with (the kernel's own sizeof)."""
+    return _lib().bls_sop_rows_param_bytes(n_rows, entries)
+
+
+def sop_rows(spec: limbs.FieldSpec, rows, ia, ib, counts, batch,
+             shape=None) -> torch.Tensor:
+    """G fused sums of products over operands read where they lie:
+    out[g] = (sum_{t < counts[g]} rows[ia[g, t]] rows[ib[g, t]]) R^-1 mod m.
+
+    rows: int32 [L, *b] canonical limbs (any strides), each broadcasting to
+    `batch`; ia, ib: host [G, T] index tables, T <= spec.max_terms, G T <=
+    FOLD_ENTRIES (entries past a group's count are not read); counts: host
+    [G] term counts in 1..T; at most SOP_ROWS rows.  shape: (lane tile,
+    group slots, split) instead of `sop_launch_shape`'s.  Returns int32
+    [G, L, *batch].  Counts one launch of `sop_fr` (Fr), `sop` (Fp, one
+    group) or `fold_planned` (Fp, G >= 2).  The host work per call is
+    plain Python over sizes and strides (no tensor op but the output's
+    allocation), since the paths that call it are bound by the host."""
+    n = spec.n_limbs
+    G, T, fa, fb, counts = _tables(ia, ib, counts, spec.max_terms,
+                                   len(rows))
+    dev = rows[0].device
+    for x in rows:
+        if x.dtype != limbs.DTYPE or x.dim() < 1 or x.shape[0] != n \
+                or x.device != dev:
+            raise ValueError(f"sop_rows: a row {tuple(x.shape)} {x.dtype} "
+                             f"on {x.device}; expected int32 [{n}, ...] on "
+                             f"{dev}")
+    kind = device_kind(rows[0])
+    batch = tuple(int(d) for d in batch)
+    layouts = [row_strides(x, batch) for x in rows]
+    copied = [k for k, lay in enumerate(layouts) if lay is None]
+    LAUNCHES.copied_rows += len(copied)
+    if kind == "cpu":
+        return sop_rows_plain(spec, rows, ia, ib, counts, batch)
+    full = (n,) + batch
+    rows = list(rows)
+    for k in copied:  # no two affine lane strides: the one copy
+        rows[k] = as_batch(rows[k], full).contiguous()
+        layouts[k] = row_strides(rows[k], batch)
+    B = math.prod(batch)
+    out = torch.empty((G,) + full, dtype=limbs.DTYPE, device=dev)
     if B == 0:
         return out
-    with torch.cuda.device(a.device):
-        rc = fn()(a.data_ptr(), b.data_ptr(), out.data_ptr(), T, B,
-                  _stream(a))
-        setattr(LAUNCHES, name, getattr(LAUNCHES, name) + 1)
-    check_launch(rc, name)
+    if B > INT32_MAX or max(max(lay) for lay in layouts) > INT32_MAX:
+        raise ValueError("sop_rows: a lane count or stride beyond int32")
+    lt, gpb, split = shape or sop_launch_shape(G, T, B, sm_count(dev.index))
+    table = b"".join(_ROW.pack(x.data_ptr(), *lay, 0)
+                     for x, lay in zip(rows, layouts))
+    fr = n == L_FR
+    lib = _lib_fr().bls_sop_rows_fr if fr else _lib().bls_sop_rows
+    counter = "sop_fr" if fr else "sop" if G == 1 else "fold_planned"
+    with torch.cuda.device(dev):
+        rc = lib(table, len(rows), struct.pack(f"<{G * T}H", *fa),
+                 struct.pack(f"<{G * T}H", *fb), bytes(counts),
+                 out.data_ptr(), G, T, B, batch[-1] if batch else 1, lt, gpb,
+                 split, _stream(out))
+        setattr(LAUNCHES, counter, getattr(LAUNCHES, counter) + 1)
+    check_launch(rc, f"sop_rows ({counter})")
     return out
+
+
+def _sop_pair(spec: limbs.FieldSpec, a, b, name: str) -> torch.Tensor:
+    """[T, L, B] x2 -> [L, B] through `sop_rows`, rows a[t] and b[t]."""
+    _check_limbs(a, f"{name} a", spec.n_limbs)
+    _check_pair(a, b, name)
+    T, _, B = a.shape
+    if not 1 <= T <= spec.max_terms:
+        raise ValueError(f"{name}: {T} terms; the kernel takes "
+                         f"1..{spec.max_terms}")
+    ia = np.arange(T).reshape(1, T)
+    return sop_rows(spec, list(a.unbind(0)) + list(b.unbind(0)), ia, ia + T,
+                    [T], (B,))[0]
 
 
 def sop(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Fused (sum_t a[t] b[t]) R^-1 mod p: int32 [T, 24, B] x2 -> [24, B]."""
-    out = _sop_launch(lambda: _lib().bls_sop, a, b, L, MAX_TERMS, "sop")
-    return sop_plain(a, b) if out is None else out
+    return _sop_pair(limbs.FP, a, b, "sop")
 
 
 def sop_fr(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Fused (sum_t a[t] b[t]) R^-1 mod q: int32 [T, 16, B] x2 -> [16, B],
     T <= 2."""
-    out = _sop_launch(lambda: _lib_fr().bls_sop_fr, a, b, L_FR, MAX_TERMS_FR,
-                      "sop_fr")
-    return sop_fr_plain(a, b) if out is None else out
+    return _sop_pair(limbs.FR, a, b, "sop_fr")
 
 
 def sqr(a: torch.Tensor) -> torch.Tensor:
@@ -331,39 +513,29 @@ def sqr(a: torch.Tensor) -> torch.Tensor:
 
 def fold_planned(ops: torch.Tensor, ia, ib) -> torch.Tensor:
     """G fused sums of products over a deduplicated operand stack:
-    out[g] = (sum_t ops[ia[g, t]] ops[ib[g, t]]) R^-1 mod p.
+    out[g] = (sum_t ops[ia[g, t]] ops[ib[g, t]]) R^-1 mod p, every one of
+    the T terms (short groups index a zero row).
 
-    ops: int32 [K, 24, B] canonical limbs whose row 0 is zeros (padding
-    terms index it); ia, ib: host int32 [G, T] tables (numpy arrays), T <= 8,
-    G T <= FOLD_ENTRIES, entries in [0, K).  Returns int32 [G, 24, B]."""
+    ops: int32 [K, 24, B] canonical limbs; ia, ib: host [G, T] tables, T <=
+    8, G T <= FOLD_ENTRIES, entries in [0, K).  Returns int32 [G, 24, B]
+    through `sop_rows`, whose rows are the stack rows the tables name."""
     _check_limbs(ops, "fold_planned ops")
-    ia = np.ascontiguousarray(ia, dtype=np.int32)
-    ib = np.ascontiguousarray(ib, dtype=np.int32)
+    ia, ib = np.asarray(ia), np.asarray(ib)
     K, _, B = ops.shape
     if ia.ndim != 2 or ia.shape != ib.shape:
         raise ValueError(f"fold_planned: index tables {ia.shape} and "
                          f"{ib.shape}; expected two equal [G, T]")
     G, T = ia.shape
-    if not (1 <= T <= MAX_TERMS and G >= 1 and G * T <= FOLD_ENTRIES
-            and K <= FOLD_OPERANDS):
-        raise ValueError(f"fold_planned: G={G}, T={T}, K={K}; the kernel "
-                         f"takes T <= {MAX_TERMS}, G T <= {FOLD_ENTRIES}, "
-                         f"K <= {FOLD_OPERANDS}")
+    if not (1 <= T <= MAX_TERMS and G >= 1 and G * T <= FOLD_ENTRIES):
+        raise ValueError(f"fold_planned: G={G}, T={T}; the kernel takes "
+                         f"T <= {MAX_TERMS}, G T <= {FOLD_ENTRIES}")
     if min(ia.min(), ib.min()) < 0 or max(ia.max(), ib.max()) >= K:
         raise ValueError(f"fold_planned: an index lies outside [0, {K})")
-    if device_kind(ops) == "cpu":
-        return fold_planned_plain(ops, ia, ib)
-    ops = ops.contiguous()
-    out = torch.empty((G, L, B), dtype=limbs.DTYPE, device=ops.device)
-    if B == 0:
-        return out
-    with torch.cuda.device(ops.device):
-        rc = _lib().bls_fold_planned(
-            ops.data_ptr(), ia.ctypes.data, ib.ctypes.data, out.data_ptr(),
-            K, G, T, B, _stream(ops))
-        LAUNCHES.fold_planned += 1
-    check_launch(rc, "fold_planned")
-    return out
+    used, idx = np.unique(np.concatenate([ia.ravel(), ib.ravel()]),
+                          return_inverse=True)
+    idx = idx.reshape(2, G, T)
+    return sop_rows(limbs.FP, [ops[k] for k in used], idx[0], idx[1],
+                    np.full(G, T), (B,))
 
 
 def butterfly(a: torch.Tensor, b: torch.Tensor,

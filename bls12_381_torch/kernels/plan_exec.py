@@ -60,7 +60,7 @@ import torch
 
 from .. import limbs
 from . import LAUNCHES, build
-from .mont import check_launch, device_kind, sop_plain
+from .mont import check_launch, device_kind, sm_count, sop_plain
 
 L = limbs.FP.n_limbs
 WORDS = 12            # 32-bit words per Fp value in the kernel's slots
@@ -913,12 +913,6 @@ _SIGNATURES = {
                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                       ctypes.c_int, ctypes.c_void_p),
 }
-
-
-@functools.lru_cache(maxsize=None)
-def sm_count(index: int) -> int:
-    """Streaming multiprocessors of CUDA device `index`."""
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def plan_exec(ops: torch.Tensor, plan: CompiledPlan) -> torch.Tensor:

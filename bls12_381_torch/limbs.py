@@ -9,11 +9,13 @@ Counterpart of `bls12_381_tpu/limbs.py`, with the same boundary layout:
     values equal the reference's and the JAX package's limb for limb.
     Every stored value is canonical (< p).
 
-Products go to the hand-written kernels of `kernels/mont.py` (`sop`, `sqr`
-and, for folds of two or more groups, `fold_planned` for Fp; `sop_fr` for
-Fr), and fixed-exponent powers (`pow_fixed`, `inv`) to one launch of
-`pow_fixed` / `pow_fixed_fr`: on a CUDA tensor the kernel runs, on a CPU
-tensor its plain PyTorch version.
+Sums of products and folds go to the hand-written row kernel of
+`kernels/mont.py` (`sop_rows`), which reads each operand where the caller
+holds it: it counts as `sop` (Fp, one group), `fold_planned` (Fp, two or
+more groups) or `sop_fr` (Fr).  Fp squares go to `sqr`, and
+fixed-exponent powers (`pow_fixed`, `inv`) to one launch of `pow_fixed` /
+`pow_fixed_fr`: on a CUDA tensor the kernel runs, on a CPU tensor its plain
+PyTorch version.
 The additive glue (add/sub/neg, `add_many`/`sub_many`, `select`) is plain
 PyTorch on every device, as it is plain jnp in the JAX package: it works in
 int64 and resolves carry chains with the packed-adder trick of `_kogge_stone`
@@ -246,10 +248,72 @@ def _flat_batch(x: torch.Tensor, lead: int):
     return x.reshape(x.shape[:lead] + (-1,)).contiguous(), batch
 
 
+def _broadcast(shapes) -> tuple:
+    """`torch.broadcast_shapes` of batch shapes, in plain Python (the
+    torch function costs more host time than a product's launch)."""
+    out = []
+    for shape in shapes:
+        if len(shape) > len(out):
+            out = [1] * (len(shape) - len(out)) + out
+        for i, d in enumerate(shape, len(out) - len(shape)):
+            if d != 1 and out[i] != d:
+                if out[i] != 1:
+                    raise ValueError(f"batch shapes {list(shapes)} do not "
+                                     "broadcast")
+                out[i] = d
+    return tuple(out)
+
+
+def _fold_launch(spec: FieldSpec, groups, batch):
+    """Groups of <= spec.max_terms terms in one `mont.sop_rows` launch per
+    chunk of at most FOLD_ENTRIES table entries.  Each distinct operand
+    tensor is one row, keyed by the id() of the caller's tensor objects
+    (which `groups` keeps alive for the call), passed as it is."""
+    from .kernels import mont
+
+    t = max(len(g) for g in groups)
+    per_call = mont.FOLD_ENTRIES // t
+    if len(groups) > per_call:
+        return [r for i in range(0, len(groups), per_call)
+                for r in _fold_launch(spec, groups[i:i + per_call], batch)]
+    rows, ids = [], {}
+
+    def reg(x):
+        k = ids.get(id(x))
+        if k is None:
+            k = ids[id(x)] = len(rows)
+            rows.append(x)
+        return k
+
+    ia = [[reg(a) for a, _ in g] + [0] * (t - len(g)) for g in groups]
+    ib = [[reg(b) for _, b in g] + [0] * (t - len(g)) for g in groups]
+    out = mont.sop_rows(spec, rows, ia, ib, [len(g) for g in groups], batch)
+    return list(out.unbind(0))
+
+
+def _fold(spec: FieldSpec, groups):
+    """Fused sums of products of G groups (fp.rs:430-484): terms in chunks
+    of spec.max_terms per group, which keeps each pre-reduction value below
+    2p; a chunk of every group that has one is one `_fold_launch`, and a
+    group's partials are added."""
+    operands = {id(x): x for g in groups for pair in g for x in pair}
+    batch = _broadcast([x.shape[1:] for x in operands.values()])
+    k = spec.max_terms
+    acc = [None] * len(groups)
+    for c in range(0, max(len(g) for g in groups), k):
+        live = [gi for gi, g in enumerate(groups) if len(g) > c]
+        parts = _fold_launch(spec, [groups[gi][c:c + k] for gi in live],
+                             batch)
+        for gi, part in zip(live, parts):
+            acc[gi] = part if acc[gi] is None else add(spec, acc[gi], part)
+    return acc
+
+
 def sum_of_products(spec: FieldSpec, pairs) -> torch.Tensor:
     """Fused sum_i a_i * b_i with a single Montgomery reduction
-    (fp.rs:430-484), through the field's kernel (`mont.sop` for Fp,
-    `mont.sop_fr` for Fr).  One call takes T <= spec.max_terms terms, which
+    (fp.rs:430-484), through the field's row kernel (`mont.sop_rows`, one
+    group: a `sop` launch for Fp, `sop_fr` for Fr) with the operands read
+    where they lie.  One launch takes T <= spec.max_terms terms, which
     keeps the pre-reduction value below 2p; longer sums are chunked into
     fused groups of max_terms and the partials added.
 
@@ -257,19 +321,7 @@ def sum_of_products(spec: FieldSpec, pairs) -> torch.Tensor:
     sum of 3..8 terms comes out of its single subtraction possibly >= q.  No
     JAX caller sums more than 2 Fr terms (fr.py and ntt.py use 1), so
     chunking Fr at 2 keeps parity while every port value stays canonical."""
-    from .kernels import mont
-
-    pairs = list(pairs)
-    k = spec.max_terms
-    if len(pairs) > k:
-        parts = [sum_of_products(spec, pairs[i:i + k])
-                 for i in range(0, len(pairs), k)]
-        return functools.reduce(lambda x, y: add(spec, x, y), parts)
-    a, b = _stack_pairs(spec, pairs)          # [L, T, *batch]
-    a, batch = _flat_batch(a.transpose(0, 1), 2)
-    b, _ = _flat_batch(b.transpose(0, 1), 2)  # [T, L, B]
-    sop = {FP.name: mont.sop, FR.name: mont.sop_fr}[spec.name]
-    return sop(a, b).reshape((spec.n_limbs,) + batch)
+    return _fold(spec, [list(pairs)])[0]
 
 
 def mont_mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor):
@@ -290,80 +342,21 @@ def mont_sqr(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
     return mont.sqr(flat.unsqueeze(0))[0].reshape((spec.n_limbs,) + batch)
 
 
-def _sop_fold_planned(spec: FieldSpec, groups):
-    """A fold through `mont.fold_planned` (JAX `_sop_fold_planned`,
-    limbs.py:446-486): each distinct operand tensor is broadcast and stacked
-    ONCE into [K, L, B] after a zero row 0, and static [G, T] index tables
-    name each term's rows (short groups pad with index 0).  Operands are
-    keyed by the id() of the caller's tensor objects, which `groups` keeps
-    alive for the whole call.  Tables beyond the kernel's G T cap run as
-    several launches over chunks of groups."""
-    from .kernels import mont
-
-    t = max(len(g) for g in groups)
-    per_call = mont.FOLD_ENTRIES // t
-    if len(groups) > per_call:
-        return [r for i in range(0, len(groups), per_call)
-                for r in _sop_fold_planned(spec, groups[i:i + per_call])]
-    batch = torch.broadcast_shapes(
-        *[x.shape[1:] for g in groups for pair in g for x in pair])
-    full = (spec.n_limbs,) + batch
-    ops = [torch.zeros(full, dtype=DTYPE, device=groups[0][0][0].device)]
-    ids: dict[int, int] = {}
-
-    def reg(x):
-        k = ids.get(id(x))
-        if k is None:
-            k = ids[id(x)] = len(ops)
-            ops.append(x.expand(full))
-        return k
-
-    ia = np.zeros((len(groups), t), np.int32)
-    ib = np.zeros((len(groups), t), np.int32)
-    for gi, g in enumerate(groups):
-        for ti, (a, b) in enumerate(g):
-            ia[gi, ti], ib[gi, ti] = reg(a), reg(b)
-    stack = torch.stack(ops).reshape(len(ops), spec.n_limbs, -1)
-    out = mont.fold_planned(stack, ia, ib)
-    return list(out.reshape((len(groups),) + full).unbind(0))
-
-
-def _sop_fold_stacked(spec: FieldSpec, groups):
-    """A fold as one sum of products over operands stacked per (group,
-    term), short groups padded with zero products."""
-    t = max(len(g) for g in groups)
-    batch = torch.broadcast_shapes(
-        *[x.shape[1:] for g in groups for pair in g for x in pair])
-    full = (spec.n_limbs,) + batch
-    any_x = groups[0][0][0]
-    zero_el = torch.zeros(full, dtype=DTYPE, device=any_x.device)
-
-    def stacked(term, which):
-        return torch.stack(
-            [g[term][which].expand(full) if term < len(g) else zero_el
-             for g in groups], dim=1)  # [L, G, *batch]
-
-    pairs = [(stacked(i, 0), stacked(i, 1)) for i in range(t)]
-    return list(sum_of_products(spec, pairs).unbind(1))
-
-
 def sop_fold(spec: FieldSpec, groups):
     """Many independent sums of products folded into ONE kernel launch.
 
     groups: G lists of (a, b) pairs, T <= 8 terms (uneven lengths allowed:
-    short groups are padded with zero products).  Returns a list of G
-    results.  An Fp fold takes the operand-deduplicating `fold_planned`
-    route on every device; an Fr fold (`sop_fr` has no fold kernel) stacks
-    its operands per (group, term) for one `sop_fr`.  A single group is one
-    sum of products."""
+    each group's term count travels with the launch).  Returns a list of G
+    results.  The operands are deduplicated by id() and read where they lie
+    (`mont.sop_rows`, the JAX `_sop_fold_planned` route, limbs.py:446-486,
+    on every device, with no operand stack); a table beyond the kernel's
+    G T cap runs as launches over chunks of groups.  Fr folds take the
+    same kernel in chunks of 2 terms per group, with the partials added.
+    A single group is one sum of products."""
     groups = [list(g) for g in groups]
-    if len(groups) == 1:
-        return [sum_of_products(spec, groups[0])]
     assert max(len(g) for g in groups) <= 8, \
         "sop_fold groups are limited to 8 terms"
-    if spec.name == FP.name:
-        return _sop_fold_planned(spec, groups)
-    return _sop_fold_stacked(spec, groups)
+    return _fold(spec, groups)
 
 
 def mul_many(spec: FieldSpec, pairs):

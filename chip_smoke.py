@@ -6,31 +6,41 @@ Run from the repository root on a machine with a CUDA device:
     python3 chip_smoke.py
 
 Phases (each prints its lines and seconds; any failed check exits non-zero):
-  1. device: name, count, power limit (nvidia-smi), torch / CUDA / nvcc.
+  1. device: name, count, power limit (nvidia-smi), torch, the CUDA driver
+     and toolkit versions (the row kernel's largest parameter block needs
+     12.1 in both), nvcc.
   2. build: every kernel of `bls12_381_torch/kernels/csrc/` with nvcc for
      sm_90a (one process per source, in parallel), with ptxas registers,
-     shared memory and spills (the plan and power kernels' also as JSON).
+     shared memory and spills (the plan, power and row kernels' also as
+     JSON, the row kernel per field and parameter capacity).
   3. kernels vs plain: each kernel against its plain PyTorch version on the
      card at the paths' shapes, random canonical inputs plus the edge
      values 0, 1, p-1 (and q-2 and the butterfly's correction rows for
-     Fr; for fold_planned uneven groups, repeated operands and a 6-term
-     group of p-1 rows, and the folds of one pairing as it makes them;
-     every plan at one lane, a ragged last tile and batch 1024, the
+     Fr).  The row kernel (`sop_rows`, behind `sop`, `fold_planned` and
+     `sop_fr`): T = 1, 2, 6, 8 products, uneven folds, repeated operands, a
+     6-term group of p-1 rows, the operand layouts it reads in place (the
+     pairing's line scaling as movedim views with yp, xp expanded over 68,
+     a 0::2 scan level, a [24, n, 1] broadcast, a [24, 1] constant) and a
+     non-affine one it copies; the calls of one pairing (its folds and its
+     norm), one msm_g1 (its products) and one ntt (its twiddle doublings),
+     recorded with their operands' strides and replayed; and, on the
+     shapes that pick the launch shape, the chosen shape beside split = 1
+     and a 32-lane tile.  Each launch prints its lane tile, group slots,
+     threads per group, blocks, parameter bytes, registers and spills.
+     Every plan at one lane, a ragged last tile and batch 1024, the
      group-law plans also at the MSM's widths, each with its launch shape:
-     lane tile, blocks, threads, shared memory, phases, registers; `sop`
-     also on the products one msm_g1 makes, recorded and replayed;
+     lane tile, blocks, threads, shared memory, phases, registers;
      `pow_fixed` at p - 2 and (p+1)/4, B = 1 and 1024, and `pow_fixed_fr`
-     at q - 2, B = 1024, over the edge lanes 0, 1, 2, m-1, m-2, R mod m);
-     exact equality (integers:
-     tolerance none); CUDA events around back-to-back calls (the host's
-     issue rate for short kernels) and the plain version's time (CUDA
-     events; no yardstick).
+     at q - 2, B = 1024, over the edge lanes 0, 1, 2, m-1, m-2, R mod m;
+     exact equality (integers: tolerance none); CUDA events around
+     back-to-back calls (the host's issue rate for short kernels) and the
+     plain version's time (CUDA events; no yardstick).
   4. main: the batched pairing at batch 1024 from the repository's test
      vectors ([a]G1, [b]G2, a, b < 1000): lane (1, 1) equals the RELIC
      value, lanes with equal a*b are equal, identity lanes are one, four
      lanes equal the plain path (CPU); launch counts of one pairing (every
      kernel of the path > 0; plan, sop, fold_planned and pow_fixed counts,
-     and sqr = 0, equal to the static schedule); stage
+     and sqr = 0 and copied_rows = 0, equal to the static schedule); stage
      times and pairings/s on a host clock around synchronized work (median
      of STAGE_REPS runs), and the share of that wall time the host thread
      spent on the CPU issuing the work.
@@ -52,14 +62,17 @@ Phases (each prints its lines and seconds; any failed check exits non-zero):
   7. kernel times: each kernel's device time per launch at the shapes of
      phase 3 (torch.profiler); after phases 4-6, because a profiler session
      may slow the host's launches for the rest of the process.
-  8. fold routes: both routes of `limbs.sop_fold` for Fp (operands copied
-     per term for one `sop`, or stacked once for one `fold_planned`) on
-     the same operands at the paths' folds of two and three groups, the
-     line scaling and T = 7, 8: equal values, device and issue ms per call.
+  8. fold routes: the operands read in place (`limbs.sop_fold`,
+     `limbs.sum_of_products`) against the route before the row kernel
+     (operands stacked into one tensor, then the same kernel) on the same
+     operands: the paths' folds of two and three groups, the line scaling
+     in its own layout, T = 7, 8, the pairing's norm and an MSM scan level;
+     equal values, device ms of all device work and issue ms per call.
   9. profiles: one pairing, one NTT, one msm_g1 and one msm_g2 under
      torch.profiler -- device time by kernel (device-side events only), the
-     port kernels' ms per launch, and the device's busy share: the union of
-     kernel intervals over the unprofiled wall time.
+     port kernels' ms per launch, the `CatArrayBatchedCopy` and other copy
+     launches, the rows `sop_rows` copied, and the device's busy share: the
+     union of kernel intervals over the unprofiled wall time.
   10. the `kernels` JSON line, then the device JSON line last.
 
 The script imports nothing of the JAX package.
@@ -67,6 +80,7 @@ The script imports nothing of the JAX package.
 
 from __future__ import annotations
 
+import ctypes
 import gc
 import json
 import os
@@ -83,8 +97,9 @@ BATCH = 1024
 NTT_LOG_N = 20                     # bench.py's scalar NTT 2^20
 NTT_N = 1 << NTT_LOG_N
 SEED = 20261016
-DOUBLINGS = f"sop_fr twiddle doublings T=1 B=1..{NTT_N // 4}"
+DOUBLINGS = f"sop_fr twiddle doublings of one ntt at 2^{NTT_LOG_N}"
 PAIRING_FOLDS = f"fold_planned folds of one pairing, batch {BATCH}"
+PAIRING_NORM = f"sop norm of one pairing, batch {BATCH}"
 STAGE_REPS = 7                     # host-clock runs per stage; median kept
 MSM_LOG_N = {"g1": 16, "g2": 12}   # a 2^16 KZG commitment; 4096 signatures
 MSM_CHECK_LOG_N = 10               # the card = CPU comparison
@@ -241,10 +256,20 @@ def phase_device():
 
     nvcc = subprocess.run([build.nvcc_path(), "--version"],
                           capture_output=True, text=True, timeout=60)
+    toolkit = re.search(r"release (\d+)\.(\d+)", nvcc.stdout)
+    toolkit = (int(toolkit[1]), int(toolkit[2])) if toolkit else None
+    # the driver's CUDA version, from the driver library itself
+    version = ctypes.c_int(0)
+    ctypes.CDLL("libcuda.so.1").cuDriverGetVersion(ctypes.byref(version))
+    driver = (version.value // 1000, version.value % 1000 // 10)
     say("device", name=torch.cuda.get_device_name(0),
         count=torch.cuda.device_count(), torch=torch.__version__,
         cuda=torch.version.cuda,
         nvcc=nvcc.stdout.strip().splitlines()[-1] if nvcc.stdout else None,
+        driver_cuda=driver, toolkit_cuda=toolkit,
+        # the row kernel's largest capacity (27 KB of parameters) needs 12.1
+        # in both
+        params_over_4kb=bool(toolkit and min(driver, toolkit) >= (12, 1)),
         python=sys.version.split()[0])
     print(smi_line, flush=True)
     return smi_line
@@ -263,20 +288,25 @@ def phase_build():
     usage = {"plan_exec": ptxas_usage("plan_exec", "plan_kernel"),
              "pow_fixed": ptxas_usage("mont", "pow_kernel"),
              "pow_fixed_fr": ptxas_usage("fr", "pow_kernel")}
+    for suffix, stem in (("", "mont"), ("_fr", "fr")):
+        for r, e in ROW_CAPS:
+            usage[f"sop_rows{suffix} {r}x{e}"] = ptxas_usage(
+                stem, "sop_rows_kernel", f"SopRowsArgsILi{r}ELi{e}E")
     say("build", registers_and_spill_bytes=usage)
     return usage
 
 
-def ptxas_usage(stem: str, kernel: str):
-    """(registers, spill store + load bytes) of a kernel, from `ptxas -v`'s
-    lines in its library's build log."""
+def ptxas_usage(stem: str, *parts: str):
+    """(registers, spill store + load bytes) of the kernel whose mangled
+    name holds every one of `parts`, from `ptxas -v`'s lines in its
+    library's build log."""
     from bls12_381_torch.kernels import build
 
     regs = spills = None
     mine = False
     for line in build.ptxas_report(stem):
         if "Compiling entry" in line:
-            mine = kernel in line
+            mine = all(part in line for part in parts)
         elif mine and (m := re.search(r"Used (\d+) registers", line)):
             regs = int(m[1])
         elif mine and (m := re.search(
@@ -351,14 +381,16 @@ def compare(got, ref):
 
 
 # The port's kernels as the profiler names them on the card: the substrings
-# each name holds (one sum-of-products template serves both fields).
-KERNEL_NAMES = {"sop": ("sop_kernel", "fp384"), "sqr": ("sqr_kernel",),
-                "fold_planned": ("fold_kernel",),
+# each name holds.  One row-kernel template serves both fields: its Fp
+# launches are the `sop` and `fold_planned` counts, its Fr ones `sop_fr`.
+KERNEL_NAMES = {"sop_rows": ("sop_rows_kernel", "fp384"),
+                "sqr": ("sqr_kernel",),
                 "plan_exec": ("plan_kernel",),
-                "sop_fr": ("sop_kernel", "fr256"),
+                "sop_rows_fr": ("sop_rows_kernel", "fr256"),
                 "butterfly": ("butterfly_kernel",),
                 "pow_fixed": ("pow_kernel", "fp384"),
                 "pow_fixed_fr": ("pow_kernel", "fr256")}
+ROW_CAPS = ((16, 16), (64, 128), (1024, 512))  # montgomery.cuh SOP_ROWS_CAPS
 
 
 def kernel_of(name: str):
@@ -385,33 +417,84 @@ def fold_bytes(B: int, groups) -> int:
     return 4 * B * 24 * (len(rows) + len(groups))
 
 
-def fold_groups(ia, ib):
-    """[G, T] index tables -> G lists of (ia, ib) terms, padding dropped."""
-    return [[(int(a), int(b)) for a, b in zip(ra, rb) if a > 0]
-            for ra, rb in zip(ia, ib)]
+def distinct_elements(x) -> int:
+    """Elements of a tensor's own data: an axis of stride 0 (a broadcast)
+    counts once."""
+    n = 1
+    for size, stride in zip(x.shape, x.stride()):
+        n *= size if stride else 1
+    return n
 
 
-def record_calls(kernel: str, fn):
-    """Run fn once and return the calls it makes of the wrapper
-    `mont.<kernel>`: each call's arguments, tensors cloned (a fold's
-    operand stack), arrays copied (its index tables)."""
+def rows_work(call):
+    """(bytes, 32-bit multiplies) a `sop_rows` call must do: each row its
+    terms name read once, as the row's own elements, each of the G outputs
+    written once; a T-term group's products and one reduction per lane."""
+    spec, rows, ia, ib, counts, batch = call
+    B = 1
+    for d in batch:
+        B *= d
+    named = {int(t[g, i]) for t in (ia, ib) for g, n in enumerate(counts)
+             for i in range(int(n))}
+    words = spec.n_limbs // 2
+    return (4 * (sum(distinct_elements(rows[k]) for k in named)
+                 + len(counts) * spec.n_limbs * B),
+            B * sum(sop_imads(int(n), words) for n in counts))
+
+
+def rows_launch(call, n_sm: int, usage, shape=None) -> dict:
+    """The launch of one `sop_rows` call: lane tile, group slots per
+    block, threads per group, blocks, threads per block, parameter bytes
+    (the kernel's own sizeof) and the capacity's registers and spills."""
+    from bls12_381_torch.kernels import mont
+
+    spec, rows, ia, ib, counts, batch = call
+    G, T = ia.shape
+    B = 1
+    for d in batch:
+        B *= d
+    lt, gpb, split = shape or mont.sop_launch_shape(G, T, B, n_sm)
+    r, e = next(c for c in ROW_CAPS if len(rows) <= c[0] and G * T <= c[1])
+    regs, spills = usage[f"sop_rows{'_fr' if spec.n_limbs == 16 else ''} "
+                         f"{r}x{e}"]
+    return {"lane_tile": lt, "group_slots": gpb, "threads_per_group": split,
+            "blocks": -(-B // lt), "threads": lt * gpb * split,
+            "param_bytes": mont.sop_rows_param_bytes(len(rows), G * T),
+            "registers": regs, "spill_bytes": spills}
+
+
+def record_rows(fn):
+    """Run fn once and return the calls it makes of `mont.sop_rows`:
+    (spec, rows, ia, ib, counts, batch), each row a copy of its storage
+    seen through the row's own size, strides and offset, so that a replay
+    reads the layouts the path gave the kernel."""
     import numpy as np
     import torch
 
     from bls12_381_torch.kernels import mont
 
-    calls, real = [], getattr(mont, kernel)
+    calls, real = [], mont.sop_rows
 
-    def spy(*args):
-        calls.append(tuple(x.clone() if isinstance(x, torch.Tensor)
-                           else np.array(x) for x in args))
-        return real(*args)
+    def spy(spec, rows, ia, ib, counts, batch, shape=None):
+        copies = {}  # storages of this call's rows, each copied once
 
-    setattr(mont, kernel, spy)
+        def keep(x):
+            st = x.untyped_storage()
+            c = copies.get(st.data_ptr())
+            if c is None:
+                c = copies[st.data_ptr()] = st.clone()
+            return torch.empty(0, dtype=x.dtype, device=x.device).set_(
+                c, x.storage_offset(), x.size(), x.stride())
+
+        calls.append((spec, [keep(x) for x in rows], np.array(ia),
+                      np.array(ib), np.array(counts), tuple(batch)))
+        return real(spec, rows, ia, ib, counts, batch, shape)
+
+    mont.sop_rows = spy
     try:
         fn()
     finally:
-        setattr(mont, kernel, real)
+        mont.sop_rows = real
     return calls
 
 
@@ -475,27 +558,59 @@ class KernelChecks:
 def phase_kernels(device, usage):
     """Each kernel against its plain version at the main paths' shapes
     (`usage`: ptxas registers and spill bytes by kernel, printed with the
-    plan and power kernels' launches).
+    plan, power and row kernels' launches).
 
     Returns the results and, per shape, the call whose device time
     `phase_kernel_times` reads later: a profiler session may slow the
     host's launches for the rest of the process, so it follows the main
     paths' host-clock timings."""
+    import numpy as np
     import torch
 
     from bls12_381_torch import entry, limbs, params
-    from bls12_381_torch.kernels import mont, plan_exec as pe
+    from bls12_381_torch.kernels import LAUNCHES, mont, plan_exec as pe
+    from bls12_381_torch.ops import ntt
 
     P, Q = params.P, params.Q
     MSM_PLAN_SHAPES = msm_plan_shapes()
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
     edges = [edge_col(v, device) for v in (0, 1, P - 1)]
+    n_sm = mont.sm_count(device.index)
     chk = KernelChecks()
+
+    def hold_rows(key, calls, n_events=20, n_plain=2, shape_of=None,
+                  **extra):
+        """Recorded or built `sop_rows` calls, replayed in one call against
+        `sop_rows_plain`; shape_of(call) forces a launch shape."""
+        def shape(c):
+            return None if shape_of is None else shape_of(c)
+
+        work = [rows_work(c) for c in calls]
+        launch = [rows_launch(c, n_sm, usage, shape(c)) for c in calls]
+        kernel = "sop_rows_fr" if calls[0][0].n_limbs == 16 else "sop_rows"
+        chk.hold(key,
+                 lambda: torch.cat([mont.sop_rows(*c, shape=shape(c))
+                                    .reshape(-1) for c in calls]),
+                 lambda: torch.cat([mont.sop_rows_plain(*c).reshape(-1)
+                                    for c in calls]),
+                 kernel, n_events, n_plain, sum(w[0] for w in work),
+                 sum(w[1] for w in work), launches=len(calls),
+                 **(launch[0] if len(calls) == 1 else {"shapes": sorted(
+                     {(len(c[4]), c[2].shape[1], int(np.prod(c[5])),
+                       *ln.values()) for c, ln in zip(calls, launch)},
+                     key=str)}),
+                 **extra)
+
+    def call_of(spec, rows, groups, batch):
+        """A `sop_rows` call over groups of (ia, ib) row-index pairs."""
+        ia, ib = fold_tables(groups)
+        return (spec, rows, ia, ib, np.array([len(g) for g in groups]),
+                tuple(batch))
 
     # --- sop: T in {1, 2, 6, 8} at the pairing's batch (its one sop, the
     # norm of fp2_inv, is T = 2 there) and the MSM's widest products (its
-    # scans and to_affine, T = 1 at 2^16)
+    # scans and to_affine, T = 1 at 2^16); rows are views of [T, 24, B]
     for B in (BATCH, 1 << MSM_LOG_N["g1"]):
         for T in (1, 2, 6, 8):
             a = rand_fp((T, B), gen, device).transpose(0, 1).contiguous()
@@ -507,9 +622,12 @@ def phase_kernels(device, usage):
             # lane 3: a = 1, b = p - 1; lane 4: a = p - 1, b = 0
             a[:, :, 3], b[:, :, 3] = edges[1], edges[2]
             a[:, :, 4], b[:, :, 4] = edges[2], edges[0]
+            c = call_of(limbs.FP, list(a) + list(b),
+                        [[(t, T + t) for t in range(T)]], (B,))
             chk.hold(f"sop T={T} B={B}", lambda a=a, b=b: mont.sop(a, b),
-                     lambda a=a, b=b: mont.sop_plain(a, b), "sop",
-                     50, 3, 4 * B * 24 * (2 * T + 1), B * sop_imads(T))
+                     lambda a=a, b=b: mont.sop_plain(a, b), "sop_rows",
+                     50, 3, 4 * B * 24 * (2 * T + 1), B * sop_imads(T),
+                     **rows_launch(c, n_sm, usage))
 
     # --- sqr: G in {1, 3}, B = 1024
     for G in (1, 3):
@@ -529,7 +647,7 @@ def phase_kernels(device, usage):
         ops = rand_fp((plan.n_in, B), gen, device).transpose(0, 1) \
             .contiguous()
         plan_edge_lanes(ops, P)
-        lt, threads, smem = plan.launch_shape(B, pe.sm_count(device.index))
+        lt, threads, smem = plan.launch_shape(B, n_sm)
         chk.hold(f"plan_exec {plan.name} B={B}",
                  lambda ops=ops, plan=plan: pe.plan_exec(ops, plan),
                  lambda ops=ops, plan=plan: pe.plan_exec_plain(ops, plan),
@@ -549,11 +667,11 @@ def phase_kernels(device, usage):
                                                                  set())):
             hold_plan(make_plan, B)
 
-    # --- fold_planned: the pairing's line scaling (G = 4, T = 1 over 68 x
-    # 1024 lanes, rows a0 a1 c0 c1 yp xp), a fold of Fp2 products (G = 8,
-    # T = 2) and uneven groups up to T = 6 whose first group multiplies the
-    # all-(p-1) row by itself six times; lanes 0..2 of every other row hold
-    # 0, 1, p-1
+    # --- fold_planned: the line scaling's shape (G = 4, T = 1 over 68 x
+    # 1024 lanes), a fold of Fp2 products (G = 8, T = 2) and uneven groups
+    # up to T = 6 whose first group multiplies the all-(p-1) row by itself
+    # six times; lanes 0..2 of every other row hold 0, 1, p-1; rows are
+    # views of the [K, 24, B] stack, row 0 zeros for the padding terms
     for G, T, B, groups in FOLD_CASES:
         K = 1 + max(i for g in groups for pair in g for i in pair)
         ops = rand_fp((K, B), gen, device).transpose(0, 1).contiguous()
@@ -567,31 +685,97 @@ def phase_kernels(device, usage):
                  lambda ops=ops, ia=ia, ib=ib: mont.fold_planned(ops, ia, ib),
                  lambda ops=ops, ia=ia, ib=ib: mont.fold_planned_plain(
                      ops, ia, ib),
-                 "fold_planned", 50, 3, fold_bytes(B, groups),
-                 B * sum(sop_imads(len(g)) for g in groups))
-    # the folds of one pairing at batch 1024 as the pairing makes them (the
-    # line scaling, the inversions' and Frobenius maps' Fp2 / Fp6 products),
-    # replayed in one call: per launch at the pairing's own mix (the
-    # kernels line's `fold_planned` row)
+                 "sop_rows", 50, 3, fold_bytes(B, groups),
+                 B * sum(sop_imads(len(g)) for g in groups),
+                 **rows_launch(call_of(limbs.FP, list(ops), groups, (B,)),
+                               n_sm, usage))
+
+    # --- the operand layouts the row kernel reads in place, at the paths'
+    # sizes, and the one it copies: the pairing's line scaling (movedim
+    # views of the [68, 3, 2, 24, B] coefficients, yp and xp expanded over
+    # 68), a product scan level over 0::2 / 1::2 lanes, batch_inv's
+    # inverted totals [24, n, 1] against [24, n, m], a [24, 1] constant,
+    # and outer batch axes that do not collapse (copied_rows must be 1)
+    coeffs = rand_fp((68 * 3 * 2 * BATCH,), gen, device).reshape(
+        24, 68, 3, 2, BATCH).permute(1, 2, 3, 0, 4).contiguous()
+    yp, xp = rand_fp((BATCH,), gen, device), rand_fp((BATCH,), gen, device)
+    comp = [coeffs[:, i, j].movedim(1, 0)
+            for i, j in ((0, 0), (0, 1), (2, 0), (2, 1))]
+    n1, n2 = (1 << MSM_LOG_N[g] for g in ("g1", "g2"))
+    scan = rand_fp((n1,), gen, device)
+    others = rand_fp((16, n2), gen, device)
+    totals = rand_fp((16, 1), gen, device)
+    flat = rand_fp((n1,), gen, device)
+    twisted = rand_fp((2, 3, n2), gen, device).transpose(1, 2)
+    layouts = {
+        "line scaling, movedim views and yp, xp expanded over 68":
+            call_of(limbs.FP, comp + [yp.unsqueeze(1).expand(24, 68, BATCH),
+                                      xp.unsqueeze(1).expand(24, 68, BATCH)],
+                    [[(0, 4)], [(1, 4)], [(2, 5)], [(3, 5)]], (68, BATCH)),
+        "scan level, 0::2 x 1::2": call_of(
+            limbs.FP, [scan[:, 0::2], scan[:, 1::2]], [[(0, 1)]],
+            (scan.shape[1] // 2,)),
+        "[24, n, 1] x [24, n, m]": call_of(
+            limbs.FP, [others, totals], [[(0, 1)]], (16, n2)),
+        "[24, 1] constant x [24, B]": call_of(
+            limbs.FP, [flat, edges[2].unsqueeze(-1)], [[(0, 1)]],
+            (flat.shape[1],)),
+        "non-affine [24, 3, 2, n], copied": call_of(
+            limbs.FP, [twisted, rand_fp((3, 2, n2), gen, device)],
+            [[(0, 1)], [(1, 1), (0, 0)]], (3, 2, n2)),
+    }
+    for label, c in layouts.items():
+        LAUNCHES.reset()
+        mont.sop_rows(*c)
+        if LAUNCHES.copied_rows != (1 if "copied" in label else 0):
+            fail(f"sop_rows {label}: {LAUNCHES.copied_rows} rows copied")
+        hold_rows(f"sop_rows {label}", [c], n_events=50, n_plain=2)
+    del coeffs, comp, scan, others, totals, flat, twisted, layouts
+
+    # the calls of one pairing at batch 1024 as the pairing makes them:
+    # its 31 folds (the line scaling, the inversions' and Frobenius maps'
+    # Fp2 / Fp6 products; the kernels line's `fold_planned` row) and its
+    # norm (fp2_inv, T = 2: the `sop` row), each replayed in one call, per
+    # launch at the pairing's own mix
     from bls12_381_torch import pairing as pr
 
     _, _, p_aff, q_aff = pairing_inputs(device)
-    calls = record_calls("fold_planned", lambda: pr.pairing(p_aff, q_aff))
+    calls = record_rows(lambda: pr.pairing(p_aff, q_aff))
     del p_aff, q_aff
-    chk.hold(PAIRING_FOLDS,
-             lambda: torch.cat([mont.fold_planned(o, a, b).reshape(-1)
-                                for o, a, b in calls]),
-             lambda: torch.cat([mont.fold_planned_plain(o, a, b).reshape(-1)
-                                for o, a, b in calls]),
-             "fold_planned", 20, 2,
-             sum(fold_bytes(o.shape[-1], fold_groups(a, b))
-                 for o, a, b in calls),
-             sum(o.shape[-1] * sum(sop_imads(len(g))
-                                   for g in fold_groups(a, b))
-                 for o, a, b in calls),
-             launches=len(calls),
-             shapes=sorted({(len(a), a.shape[1], o.shape[-1])
-                            for o, a, b in calls}))
+    folds = [c for c in calls if len(c[4]) > 1]
+    norms = [c for c in calls if len(c[4]) == 1]
+    hold_rows(PAIRING_FOLDS, folds)
+    hold_rows(PAIRING_NORM, norms, n_events=50, n_plain=3)
+
+    # the chosen launch shape beside split = 1 and a 32-lane tile of one
+    # thread per group, on the pairing's folds and norm and on the shapes
+    # that set the policy (the device times come from phase kernel_times)
+    def forced(split=None, tile=None):
+        def shape(c):
+            G, T = c[2].shape
+            B = int(np.prod(c[5]))
+            if tile:
+                return tile, min(G, mont.SOP_THREADS // tile), 1
+            return mont.sop_launch_shape(G, T, B, n_sm, split=split)
+        return shape
+
+    for G, T, B in ((6, 6, BATCH), (12, 3, BATCH), (2, 1, BATCH),
+                    (4, 6, n2), (8, 2, n1)):
+        label = f"G={G} T={T} B={B}"
+        rows = list(rand_fp((2 * T, B), gen, device).transpose(0, 1))
+        c = call_of(limbs.FP, rows, [[(t % (2 * T), (t + g) % (2 * T))
+                                      for t in range(T)]
+                                     for g in range(G)], (B,))
+        for name, shape_of in (("chosen", None), ("split 1", forced(1)),
+                               ("tile 32", forced(tile=32))):
+            hold_rows(f"sop_rows {label} {name}", [c], n_events=50,
+                      n_plain=1, shape_of=shape_of)
+    for key, calls_ in ((PAIRING_FOLDS, folds), (PAIRING_NORM, norms)):
+        for name, shape_of in (("split 1", forced(1)),
+                               ("tile 32", forced(tile=32))):
+            hold_rows(f"{key} {name}", calls_, shape_of=shape_of,
+                      n_plain=0 if key == PAIRING_FOLDS else 1)
+    del calls, folds, norms
 
     # the products of one msm_g1 as it makes them (to_affine's product
     # scans and per-lane products, the GLV split's beta x), replayed in one
@@ -599,17 +783,11 @@ def phase_kernels(device, usage):
     # reads it beside the pairing's norm)
     fn, (pts, sc) = entry.msm_entry(MSM_LOG_N["g1"], "g1", seed=SEED,
                                     device=device)
-    sops = record_calls("sop", lambda: fn(pts, sc))
+    sops = [c for c in record_rows(lambda: fn(pts, sc))
+            if c[0] is limbs.FP and len(c[4]) == 1]
     del fn, pts, sc
-    chk.hold(MSM_SOPS,
-             lambda: torch.cat([mont.sop(a, b).reshape(-1) for a, b in sops]),
-             lambda: torch.cat([mont.sop_plain(a, b).reshape(-1)
-                                for a, b in sops]),
-             "sop", 20, 2,
-             sum(4 * a.shape[2] * 24 * (2 * a.shape[0] + 1) for a, _ in sops),
-             sum(a.shape[2] * sop_imads(a.shape[0]) for a, _ in sops),
-             launches=len(sops),
-             shapes=sorted({(a.shape[0], a.shape[2]) for a, _ in sops}))
+    hold_rows(MSM_SOPS, sops)
+    del sops
 
     # --- pow_fixed: Fp at B = 1 and 1024, at p - 2 (the inversion) and
     # (p+1)/4 (a square root's exponent); pow_fixed_fr at B = 1024, q - 2
@@ -644,22 +822,20 @@ def phase_kernels(device, usage):
             a[:, :, lane], b[:, :, lane] = col, col
         a[:, :, 4], b[:, :, 4] = fr_edges[1], fr_edges[2]
         a[:, :, 5], b[:, :, 5] = fr_edges[2], fr_edges[0]
+        c = call_of(limbs.FR, list(a) + list(b),
+                    [[(t, T + t) for t in range(T)]], (B,))
         chk.hold(f"sop_fr T={T} B={B}", lambda a=a, b=b: mont.sop_fr(a, b),
-                 lambda a=a, b=b: mont.sop_fr_plain(a, b), "sop_fr",
-                 50, 3, 4 * B * 16 * (2 * T + 1), B * sop_imads(T, 8))
-    # the twiddle doublings of one ntt in one call: T = 1 at the widths
-    # 1, 2, ..., N/4, the step constant broadcast over the width as
-    # `fr.mul` materialises it (the kernels line's `sop_fr` row)
-    widths = [1 << i for i in range(NTT_LOG_N - 1)]
-    pairs = [(rand_fr((1, w), gen, device).transpose(0, 1).contiguous(),
-              rand_fr((1, 1), gen, device).transpose(0, 1)
-              .expand(1, 16, w).contiguous()) for w in widths]
-    chk.hold(DOUBLINGS,
-             lambda: torch.cat([mont.sop_fr(a, b) for a, b in pairs], -1),
-             lambda: torch.cat([mont.sop_fr_plain(a, b) for a, b in pairs],
-                               -1),
-             "sop_fr", 20, 2, sum(4 * w * 16 * 3 for w in widths),
-             sum(w * sop_imads(1, 8) for w in widths), launches=len(widths))
+                 lambda a=a, b=b: mont.sop_fr_plain(a, b), "sop_rows_fr",
+                 50, 3, 4 * B * 16 * (2 * T + 1), B * sop_imads(T, 8),
+                 **rows_launch(c, n_sm, usage))
+    # the twiddle doublings of one ntt as it makes them: T = 1 at the widths
+    # 1, 2, ..., N/4, the step constant a [16, 1] row read in place (the
+    # kernels line's `sop_fr` row)
+    x = entry.ntt_inputs(NTT_LOG_N, seed=SEED, device=device)
+    doublings = record_rows(lambda: ntt.ntt(x))
+    del x
+    hold_rows(DOUBLINGS, doublings)
+    del doublings
     for B in (1 << 16, NTT_N // 2):
         a, b, w = rand_fr((3, B), gen, device).unbind(1)
         # lanes 0..5: the rows whose lo takes the -q correction and whose
@@ -765,7 +941,7 @@ def expected_launches():
     # fp2_inv in fp12_inv: the norm (one sop) and its fp.inv, one
     # pow_fixed (no sqr chain)
     return {"plan_exec": plans, "sqr": 0, "sop": 1, "fold_planned": folds,
-            "pow_fixed": 1, "pow_fixed_fr": 0}
+            "pow_fixed": 1, "pow_fixed_fr": 0, "copied_rows": 0}
 
 
 def pairing_inputs(device):
@@ -812,6 +988,7 @@ def phase_main(device):
     for name, n in expected.items():
         if n > 0 and counts[name] <= 0:
             fail(f"kernel {name} was not launched on the main path")
+    # copied_rows = 0: every operand of the pairing is read in place
     if any(counts[name] != n for name, n in expected.items()):
         fail(f"launch counts {counts} differ from the schedule {expected}")
 
@@ -911,62 +1088,125 @@ def phase_kernel_times(results, timed) -> None:
             bound_ms=results[key]["bound_ms"])
 
 
-# Folds timed on both routes of `limbs.sop_fold`: (what runs such a fold,
-# B, groups over operand rows 1..K, each row its own tensor)
-ROUTE_CASES = (
-    ("fp2_inv / to_affine products", BATCH, [[(1, 3)], [(2, 3)]]),
-    ("msm_g1 to_affine x, y", 1 << MSM_LOG_N["g1"], [[(1, 3)], [(2, 3)]]),
-    ("msm_g2 psi Fp2 product", 1 << MSM_LOG_N["g2"],
-     [[(1, 3), (5, 4)], [(1, 4), (2, 3)]]),
-    ("g1 is_on_curve", BATCH, [[(1, 1)], [(2, 2)], [(3, 3)]]),
-    ("pairing line scaling", 68 * BATCH,
-     [[(1, 5)], [(2, 5)], [(3, 6)], [(4, 6)]]),
-    ("G=4 T=7", BATCH, [[(1 + (g + t) % 8, 9 + (g * t) % 8)
-                         for t in range(7)] for g in range(4)]),
-    ("G=4 T=8", BATCH, [[(1 + (g + t) % 8, 9 + (g * t) % 8)
-                         for t in range(8)] for g in range(4)]),
-)
+def route_cases(device):
+    """The folds `phase_fold_routes` times: (what runs such a fold, G lists
+    of (a, b) Fp operand pairs) -- the paths' folds of two and three
+    groups over separate [24, B] rows, T = 7, 8, the pairing's norm, and
+    two in their paths' own layouts: the line scaling (movedim views of
+    the [68, 3, 2, 24, 1024] coefficients, yp and xp expanded over 68) and
+    a product scan level of msm_g1's to_affine (0::2 x 1::2 lanes)."""
+    import torch
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 3)
+    cases = []
+    for label, B, idx in (
+            ("fp2_inv / to_affine products", BATCH, [[(1, 3)], [(2, 3)]]),
+            ("msm_g1 to_affine x, y", 1 << MSM_LOG_N["g1"],
+             [[(1, 3)], [(2, 3)]]),
+            ("msm_g2 psi Fp2 product", 1 << MSM_LOG_N["g2"],
+             [[(1, 3), (5, 4)], [(1, 4), (2, 3)]]),
+            ("g1 is_on_curve", BATCH, [[(1, 1)], [(2, 2)], [(3, 3)]]),
+            ("G=4 T=7", BATCH, [[(1 + (g + t) % 8, 9 + (g * t) % 8)
+                                 for t in range(7)] for g in range(4)]),
+            ("G=4 T=8", BATCH, [[(1 + (g + t) % 8, 9 + (g * t) % 8)
+                                 for t in range(8)] for g in range(4)]),
+            ("pairing norm (fp2_inv, one group)", BATCH,
+             [[(1, 1), (2, 2)]])):
+        K = max(i for g in idx for pair in g for i in pair)
+        rows = [None] + list(rand_fp((K, B), gen, device).unbind(1))
+        cases.append((label, [[(rows[a], rows[b]) for a, b in g]
+                              for g in idx]))
+    coeffs = rand_fp((68 * 3 * 2 * BATCH,), gen, device).reshape(
+        24, 68, 3, 2, BATCH).permute(1, 2, 3, 0, 4).contiguous()
+    comp = [coeffs[:, i, j].movedim(1, 0)
+            for i, j in ((0, 0), (0, 1), (2, 0), (2, 1))]
+    ypb, xpb = (rand_fp((BATCH,), gen, device).unsqueeze(1).expand(
+        24, 68, BATCH) for _ in range(2))
+    cases.append(("pairing line scaling (movedim views, yp / xp expanded)",
+                  [[(comp[0], ypb)], [(comp[1], ypb)], [(comp[2], xpb)],
+                   [(comp[3], xpb)]]))
+    t = rand_fp((1 << MSM_LOG_N["g1"],), gen, device)
+    cases.append(("msm_g1 scan level (0::2 x 1::2, one group)",
+                  [[(t[:, 0::2], t[:, 1::2])]]))
+    return cases
+
+
+def stacked_route(groups):
+    """An Fp fold as the port ran it before the row kernel: a fold of two
+    or more groups stacks each distinct operand once after a zero row into
+    [K, 24, B] for `mont.fold_planned` (short groups pad with row 0); a
+    single sum stacks its operands per term and transposes them into
+    [T, 24, B] for `mont.sop`.  The same kernel runs on the result."""
+    import numpy as np
+    import torch
+
+    from bls12_381_torch.kernels import mont
+
+    batch = torch.broadcast_shapes(
+        *[x.shape[1:] for g in groups for pair in g for x in pair])
+    full = (24,) + tuple(batch)
+    if len(groups) == 1:
+        def stack(i):
+            x = torch.stack([pair[i].expand(full) for pair in groups[0]], 1)
+            return x.transpose(0, 1).reshape(len(groups[0]), 24, -1) \
+                .contiguous()
+        return [mont.sop(stack(0), stack(1)).reshape(full)]
+    ops = [torch.zeros(full, dtype=torch.int32,
+                       device=groups[0][0][0].device)]
+    ids = {}
+
+    def reg(x):
+        if id(x) not in ids:
+            ids[id(x)] = len(ops)
+            ops.append(x.expand(full))
+        return ids[id(x)]
+
+    t = max(len(g) for g in groups)
+    ia = np.zeros((len(groups), t), np.int32)
+    ib = np.zeros((len(groups), t), np.int32)
+    for gi, g in enumerate(groups):
+        for ti, (a, b) in enumerate(g):
+            ia[gi, ti], ib[gi, ti] = reg(a), reg(b)
+    stack = torch.stack(ops).reshape(len(ops), 24, -1)
+    return list(mont.fold_planned(stack, ia, ib).reshape(
+        (len(groups),) + full).unbind(0))
 
 
 def phase_fold_routes(device) -> None:
-    """Both routes of an Fp fold on the same operands: `limbs.
-    _sop_fold_stacked` (operands copied per (group, term), one `sop`) and
-    `limbs._sop_fold_planned` (each distinct operand stacked once, one
-    `fold_planned`), at the folds of two and three groups the paths make,
-    the line scaling and T = 7, 8: equal values, and per call the device ms of all its
+    """An Fp fold's two routes on the same operands: in place (the
+    caller's tensors as the row kernel's rows: `limbs.sop_fold`, which
+    takes `sum_of_products` for one group) and stacked (`stacked_route`:
+    the operands copied into one tensor first, then the same kernel), at
+    `route_cases`: equal values, and per call the device ms of all its
     device work (kernels and copies; profiler, device-side events) and the
     issue ms (CUDA events around back-to-back calls)."""
     import torch
 
     from bls12_381_torch import limbs
 
-    gen = torch.Generator(device=device)
-    gen.manual_seed(SEED + 3)
-    routes = {"stacked": limbs._sop_fold_stacked,
-              "planned": limbs._sop_fold_planned}
-    for label, B, idx in ROUTE_CASES:
-        K = max(i for g in idx for pair in g for i in pair)
-        rows = [None] + list(rand_fp((K, B), gen, device).unbind(1))
-        groups = [[(rows[a], rows[b]) for a, b in g] for g in idx]
-        outs = {k: torch.stack(fn(limbs.FP, groups))
-                for k, fn in routes.items()}
-        if not torch.equal(outs["stacked"], outs["planned"]):
+    routes = {"in_place": lambda groups: limbs.sop_fold(limbs.FP, groups),
+              "stacked": stacked_route}
+    for label, groups in route_cases(device):
+        outs = {k: torch.stack(fn(groups)) for k, fn in routes.items()}
+        if not torch.equal(outs["in_place"], outs["stacked"]):
             fail(f"fold routes disagree at {label}")
-        res = {"case": label, "G": len(idx), "T": max(map(len, idx)),
-               "B": B}
+        res = {"case": label, "G": len(groups),
+               "T": max(map(len, groups)), "B": outs["stacked"][0, 0].numel()}
         n = 20
         for k, fn in routes.items():
-            res[f"{k}_issue_ms"] = time_events(
-                lambda fn=fn: fn(limbs.FP, groups), n=n)
+            res[f"{k}_issue_ms"] = time_events(lambda fn=fn: fn(groups), n=n)
 
             def run(fn=fn):
                 for _ in range(n):
-                    fn(limbs.FP, groups)
+                    fn(groups)
 
-            res[f"{k}_device_ms"] = sum(
-                e - s for _, s, e in device_events(run)) / n / 1e3
-        res["planned_over_stacked_device"] = (res["planned_device_ms"]
-                                              / res["stacked_device_ms"])
+            evs = device_events(run)
+            res[f"{k}_device_ms"] = sum(e - s for _, s, e in evs) / n / 1e3
+            res[f"{k}_device_launches"] = len(evs) / n
+        for m in ("device_ms", "issue_ms"):
+            res[f"in_place_over_stacked_{m.split('_')[0]}"] = (
+                res[f"in_place_{m}"] / res[f"stacked_{m}"])
         say("fold_routes", **res)
 
 
@@ -995,7 +1235,8 @@ def expected_ntt_launches(n: int, inverse: bool) -> dict:
     log_n = n.bit_length() - 1
     return {"sop": 0, "sqr": 0, "plan_exec": 0, "butterfly": log_n,
             "sop_fr": log_n - 1 + int(inverse), "fold_planned": 0,
-            "pow_fixed": 0, "pow_fixed_fr": 0, "plan_exec_by_plan": {}}
+            "pow_fixed": 0, "pow_fixed_fr": 0, "copied_rows": 0,
+            "plan_exec_by_plan": {}}
 
 
 def phase_ntt(device):
@@ -1117,7 +1358,7 @@ def expected_msm_launches(group: str, n: int, c: int, split: bool = True):
         sops, folds = 1 + inv, 2 + (6 if split else 0)
     return {"sop": sops, "sqr": 0, "plan_exec": adds + windows * c,
             "sop_fr": 1, "butterfly": 0, "fold_planned": folds,
-            "pow_fixed": 1, "pow_fixed_fr": 0,
+            "pow_fixed": 1, "pow_fixed_fr": 0, "copied_rows": 0,
             "plan_exec_by_plan": {f"{group}_add_plan": adds,
                                   f"{group}_double_plan": windows * c}}
 
@@ -1229,10 +1470,15 @@ def phase_msm(device):
 def phase_profile(label: str, fn, wall_s: float) -> dict:
     """Where one run of a path goes on the card: device time by kernel,
     from the profiler's device-side events only, each port kernel's mean
-    device ms per launch, and the device's busy share: the union of those
-    events' intervals over the unprofiled wall time (and over the profiled
-    run's device span)."""
+    device ms per launch, the `CatArrayBatchedCopy` launches (torch.cat /
+    stack) and the other copy launches, the rows `sop_rows` copied, and the
+    device's busy share: the union of those events' intervals over the
+    unprofiled wall time (and over the profiled run's device span)."""
+    from bls12_381_torch.kernels import LAUNCHES
+
+    LAUNCHES.reset()
     evs = device_events(fn)
+    copied_rows = LAUNCHES.copied_rows
     if not evs:
         fail(f"the profiler recorded no device activity for {label}")
     by_name = {}
@@ -1253,7 +1499,16 @@ def phase_profile(label: str, fn, wall_s: float) -> dict:
         if mine:
             us, n = map(sum, zip(*mine))
             per_launch[k] = {"launches": n, "ms_per_launch": us / n / 1e3}
+    def copies(pick):
+        mine = [(us, n) for us, n, name in rows if pick(name)]
+        return {"launches": sum(n for _, n in mine),
+                "ms": sum(us for us, _ in mine) / 1e3}
+
     say("profile", path=label, device_ms=sum(r[0] for r in rows) / 1e3,
+        cat_copies=copies(lambda name: "CatArrayBatchedCopy" in name),
+        other_copies=copies(lambda name: "copy" in name.lower()
+                            and "CatArrayBatchedCopy" not in name),
+        copied_rows=copied_rows,
         device_busy_ms=busy_ms, wall_ms=wall_s * 1e3,
         device_busy_share=busy_ms / (wall_s * 1e3),
         profiled_span_ms=span_ms, busy_share_of_span=busy_ms / span_ms,
@@ -1307,7 +1562,7 @@ def main() -> None:
         phase(f"profile_msm_{group}", phase_profile, f"msm_{group}",
               lambda fn=fn, pts=pts, sc=sc: fn(pts, sc), med_msm)
 
-    from bls12_381_torch.kernels import mont, plan_exec as pe
+    from bls12_381_torch.kernels import plan_exec as pe
 
     def entry(name, source, replaces, launches, key, **extra):
         r = results[key]
@@ -1329,14 +1584,25 @@ def main() -> None:
         return {f"{prefix}_shape": key, **{f"{prefix}_{k}": r[k] for k in (
             "ms", "bound_ms", "plain_ms", "mismatches", "max_abs_err")}}
 
+    def launch(key):
+        """A row-kernel row's launch shape(s), as phase kernels printed."""
+        return {k: v for k, v in results[key].items() if k in (
+            "lane_tile", "group_slots", "threads_per_group", "blocks",
+            "threads", "param_bytes", "registers", "spill_bytes", "shapes")}
+
+    rows_note = ("the row kernel sop_rows_kernel<F> of csrc/montgomery.cuh, "
+                 "instantiated here; its launches are sop, fold_planned "
+                 "(Fp) and sop_fr (Fr)")
     kernels = [
-        # per launch at the pairing's one sop (fp2_inv's norm) and at the
-        # products of one msm_g1; launches per pairing and per msm
+        # per launch at the pairing's one sop (fp2_inv's norm, replayed with
+        # its operands' own strides) and at the products of one msm_g1;
+        # launches per pairing and per msm
         entry("sop", src + "mont.cu", f"{pallas}:620", counts["sop"],
-              f"sop T=2 B={BATCH}",
+              PAIRING_NORM, note=rows_note,
               launches_msm_g1=msm_counts["g1"]["sop"],
-              launches_msm_g2=msm_counts["g2"]["sop"],
-              **beside("msm_g1", MSM_SOPS)),
+              launches_msm_g2=msm_counts["g2"]["sop"], **launch(PAIRING_NORM),
+              **beside("msm_g1", MSM_SOPS),
+              **beside("stacked", f"sop T=2 B={BATCH}")),
         entry("sqr", src + "mont.cu", f"{pallas}:711", counts["sqr"],
               f"sqr G=1 B={BATCH}",
               note="on no path: its body (sqr_wide) runs inside pow_fixed"),
@@ -1355,9 +1621,12 @@ def main() -> None:
         # launches per pairing, ms and bounds per launch at the pairing's
         # own folds; launches per msm beside them
         entry("fold_planned", src + "mont.cu", f"{pallas}:250",
-              counts["fold_planned"], PAIRING_FOLDS,
+              counts["fold_planned"], PAIRING_FOLDS, note=rows_note,
               launches_msm_g1=msm_counts["g1"]["fold_planned"],
-              launches_msm_g2=msm_counts["g2"]["fold_planned"]),
+              launches_msm_g2=msm_counts["g2"]["fold_planned"],
+              **launch(PAIRING_FOLDS),
+              **beside("line_scaling", "sop_rows line scaling, movedim "
+                       "views and yp, xp expanded over 68")),
     ]
     for make_plan in pe.MAIN_PATH_PLANS:
         plan = pe.compile_plan(make_plan())
@@ -1376,7 +1645,8 @@ def main() -> None:
     # per launch at the shapes the ntt launches (its twiddle doublings, a
     # stage)
     kernels.append(entry("sop_fr", src + "fr.cu", f"{pallas}:620",
-                         counts_ntt["sop_fr"], DOUBLINGS))
+                         counts_ntt["sop_fr"], DOUBLINGS, note=rows_note,
+                         **launch(DOUBLINGS)))
     kernels.append(entry("butterfly", src + "fr.cu", f"{pallas}:414",
                          counts_ntt["butterfly"], f"butterfly B={NTT_N // 2}"))
     say("phase", name="total", seconds=time.perf_counter() - t_all)

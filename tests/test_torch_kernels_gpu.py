@@ -145,6 +145,93 @@ def test_fold_kernel_matches_plain(cuda, G, T):
     assert torch.equal(got.cpu(), mont.fold_planned_plain(ops.cpu(), ia, ib))
 
 
+# the row kernel's launch shapes: (lane tile, group slots, threads per
+# group), each at B = 1, 33 (ragged tiles) and 1024: terms split over 6, 3
+# and 1 threads, groups in two rounds of a block, and a 32-lane tile
+ROW_SHAPES = {"split 6": (4, 6, 6), "split 3, rounds": (8, 4, 3),
+              "split 1": (4, 6, 1), "tile 32": (32, 8, 1),
+              "chosen": None}
+
+
+@pytest.mark.parametrize("B", [1, 33, 1024])
+@pytest.mark.parametrize("shape", list(ROW_SHAPES))
+def test_sop_rows_launch_shapes_match_plain(cuda, shape, B):
+    """Ten uneven groups of up to six terms; group 0 multiplies the p-1 row
+    by itself six times (the fold's all-(p-1) carry case), group 1 sums
+    eight products (T = 8) of rows whose lane 2 is p-1."""
+    K = 14
+    rows = list(rand_limbs(K, max(B, 3), cuda, seed=B)[..., :B])
+    rows[K - 1] = torch.tensor(params.to_limbs(P - 1, 24), device=cuda,
+                               dtype=torch.int32).unsqueeze(-1).expand(24, B)
+    rng = np.random.default_rng(B)
+    G, T = 10, 8
+    ia = rng.integers(0, K - 1, (G, T))
+    ib = rng.integers(0, K - 1, (G, T))
+    counts = np.concatenate([[6, 8], rng.integers(1, 7, G - 2)])
+    ia[0], ib[0] = K - 1, K - 1
+    shp = ROW_SHAPES[shape]
+    if shp is not None:
+        shp = (shp[0], min(shp[1], G), min(shp[2], T))
+    got = mont.sop_rows(limbs.FP, rows, ia, ib, counts, (B,), shape=shp)
+    torch.cuda.synchronize()
+    want = mont.sop_rows_plain(limbs.FP, [r.cpu() for r in rows], ia, ib,
+                               counts, (B,))
+    assert torch.equal(got.cpu(), want)
+
+
+def row_layout_call(layout, device):
+    """(spec, rows, ia, ib, counts, batch, rows copied) of an operand
+    layout the paths hand to the row kernel."""
+    fp_rows = rand_limbs(8, 64, "cpu", seed=len(layout)).to(device)
+    if layout == "line scaling":
+        coeffs = rand_limbs(4 * 3 * 2, 64, "cpu", seed=2).reshape(
+            4, 3, 2, 24, 64).to(device)
+        comp = [coeffs[:, i, j].movedim(1, 0)
+                for i, j in ((0, 0), (0, 1), (2, 0), (2, 1))]
+        yp, xp = fp_rows[0], fp_rows[1]
+        rows = comp + [yp.unsqueeze(1).expand(24, 4, 64),
+                       xp.unsqueeze(1).expand(24, 4, 64)]
+        return (limbs.FP, rows, [[0], [1], [2], [3]], [[4], [4], [5], [5]],
+                [1] * 4, (4, 64), 0)
+    if layout == "0::2":
+        t = rand_limbs(1, 130, "cpu", seed=4)[0].to(device)
+        return (limbs.FP, [t[:, 0::2], t[:, 1::2]], [[0], [1]], [[1], [1]],
+                [1, 1], (65,), 0)
+    if layout == "[24, n, 1]":
+        tot = fp_rows[:3, :, :1].permute(1, 0, 2)  # [24, 3, 1]
+        oth = rand_limbs(3, 64, "cpu", seed=5).permute(1, 0, 2).to(device)
+        return (limbs.FP, [oth, tot], [[0, 1]], [[1, 0]], [2], (3, 64), 0)
+    if layout == "[24, 1] constant":
+        return (limbs.FP, [fp_rows[2], fp_rows[3, :, :1]], [[0], [1]],
+                [[1], [1]], [1, 1], (64,), 0)
+    if layout == "non-affine":
+        x = rand_limbs(2, 3 * 64, "cpu", seed=6).reshape(2, 24, 3, 64)
+        twisted = x.permute(1, 2, 0, 3).to(device)  # [24, 3, 2, 64]
+        return (limbs.FP, [twisted, fp_rows[4]], [[0, 1]], [[1, 0]], [2],
+                (3, 2, 64), 1)
+    assert layout == "fr [16, 1] constant"
+    a = rand_fr(2, 64, device, seed=7)
+    return (limbs.FR, [a[0], a[1, :, :1], a[1]], [[0, 1], [1, 1]],
+            [[1, 2], [0, 1]], [2, 1], (64,), 0)
+
+
+@pytest.mark.parametrize("layout", [
+    "line scaling", "0::2", "[24, n, 1]", "[24, 1] constant", "non-affine",
+    "fr [16, 1] constant"])
+def test_sop_rows_reads_layouts_in_place(cuda, layout):
+    """Views, broadcasts and constants read where they lie (no copied row),
+    a non-affine operand copied once; the kernel equals its plain version
+    on each."""
+    *call, copies = row_layout_call(layout, cuda)
+    LAUNCHES.reset()
+    got = mont.sop_rows(*call)
+    torch.cuda.synchronize()
+    assert LAUNCHES.copied_rows == copies
+    spec, rows, *rest = call
+    want = mont.sop_rows_plain(spec, [r.cpu() for r in rows], *rest)
+    assert torch.equal(got.cpu(), want)
+
+
 def rand_fr(n: int, lanes: int, device, seed: int) -> torch.Tensor:
     """[n, 16, lanes] random canonical Fr limbs; lanes 0..3 of every row
     hold 0, 1, q-1 and q-2."""

@@ -205,3 +205,53 @@ def test_wrappers_validate_inputs():
         mont.sop(x[:2, :20], x[:2, :20])  # not 24 limbs
     with pytest.raises(ValueError):
         mont.sqr(x.long())
+
+
+def _sop_rows_call(case):
+    """mont.sop_rows arguments (spec, rows, ia, ib, counts, batch) that the
+    wrapper refuses, by case."""
+    x = torch.zeros((24, 4), dtype=torch.int32)
+    t1 = np.zeros((1, 1), np.int64)
+    meta = torch.zeros((24, 4), dtype=torch.int32, device="meta")
+    return {
+        "tables not 2-D": (limbs.FP, [x], np.zeros(2), np.zeros(2), [1],
+                           (4,)),
+        "tables differ": (limbs.FP, [x], t1, np.zeros((1, 2)), [1], (4,)),
+        "counts not [G]": (limbs.FP, [x], t1, t1, [1, 1], (4,)),
+        "Fp T = 9": (limbs.FP, [x], np.zeros((1, 9)), np.zeros((1, 9)), [9],
+                     (4,)),
+        "Fr T = 3": (limbs.FR, [x[:16]], np.zeros((1, 3)), np.zeros((1, 3)),
+                     [3], (4,)),
+        "G T > the table": (limbs.FP, [x], np.zeros((65, 8)),
+                            np.zeros((65, 8)), [8] * 65, (4,)),
+        "count 0": (limbs.FP, [x], t1, t1, [0], (4,)),
+        "index >= rows": (limbs.FP, [x], t1 + 1, t1, [1], (4,)),
+        "negative index": (limbs.FP, [x], t1, t1 - 1, [1], (4,)),
+        "no rows": (limbs.FP, [], t1, t1, [1], (4,)),
+        "Fr limbs for Fp": (limbs.FP, [x[:16]], t1, t1, [1], (4,)),
+        "int64 row": (limbs.FP, [x.long()], t1, t1, [1], (4,)),
+        "rows on two devices": (limbs.FP, [x, meta], t1, t1 + 1, [1], (4,)),
+        "unsupported device": (limbs.FP, [meta], t1, t1, [1], (4,)),
+    }[case]
+
+
+@pytest.mark.parametrize("case", [
+    "tables not 2-D", "tables differ", "counts not [G]", "Fp T = 9",
+    "Fr T = 3", "G T > the table", "count 0", "index >= rows",
+    "negative index", "no rows", "Fr limbs for Fp", "int64 row",
+    "rows on two devices", "unsupported device"])
+def test_sop_rows_validates_inputs(case):
+    """Every argument the row kernel does not take raises ValueError before
+    anything runs (a meta tensor: neither the CPU nor a card)."""
+    with pytest.raises(ValueError):
+        mont.sop_rows(*_sop_rows_call(case))
+
+
+def test_sop_rows_entries_past_a_count_are_not_read():
+    """A group's table entries past its term count may hold anything."""
+    ja, ta = both(A_VALS)
+    jb, tb = both(B_VALS)
+    ia, ib = np.array([[0, 7], [1, 0]]), np.array([[0, 9], [0, 1]])
+    got = mont.sop_rows(limbs.FP, [ta, tb], ia, ib, [1, 2], ta.shape[1:])
+    assert same(got[0], jlb.mont_mul(jlb.FP, ja, ja))
+    assert same(got[1], jlb.sum_of_products(jlb.FP, [(jb, ja), (ja, jb)]))

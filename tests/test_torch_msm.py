@@ -6,8 +6,8 @@ runs on (`limbs.barrett_divmod`, the signed digits).
 Tolerance: none (integer arithmetic) -- group elements compare exactly:
 affine against the JAX package's host oracle (the port's projective result
 decoded by the JAX package's `to_ints` and a host inversion), projective
-limb for limb against the JAX package's `msm_g1` (the same stable sort gives
-the same order of additions).  Inputs are seeded multiples of the
+limb for limb against the JAX package's `msm_g1` and `msm_g2` (the same
+stable sort gives the same order of additions).  Inputs are seeded multiples of the
 generators and seeded scalars, with zero scalars, identity points and the
 scalar q-1.
 """
@@ -22,7 +22,7 @@ import conftest  # noqa: F401
 import jax.numpy as jnp
 from bls12_381_tpu import hostmath as jhm
 from bls12_381_tpu import limbs as jlb
-from bls12_381_tpu.curves import g1 as jg1
+from bls12_381_tpu.curves import g1 as jg1, g2 as jg2
 from bls12_381_tpu.fields import fp as jfp, fr as jfr, tower as jtw
 from bls12_381_tpu.ops import msm as jmsm
 from bls12_381_tpu.params import BLS_X, G1_GEN, G2_GEN, P, Q
@@ -47,11 +47,14 @@ def g1_points(host_pts):
 
 
 def g2_points(host_pts):
-    inf = torch.tensor([p is None for p in host_pts])
+    """Host affine G2 points (None = identity) -> (JAX, port) projective."""
+    inf = np.array([p is None for p in host_pts])
     xs = [p[0] if p else (0, 0) for p in host_pts]
     ys = [p[1] if p else (1, 0) for p in host_pts]
-    return g2.from_affine((tw.fp2_from_ints(xs, device="cpu"),
-                           tw.fp2_from_ints(ys, device="cpu"), inf))
+    j = jg2.from_affine((jtw.fp2_from_ints(xs), jtw.fp2_from_ints(ys),
+                         jnp.asarray(inf)))
+    return j, convert.g2_proj_to_torch(
+        tuple(tuple(np.asarray(c) for c in f2) for f2 in j), "cpu")
 
 
 def serial(mul, add, host_pts, ks):
@@ -122,8 +125,24 @@ def test_msm_g2_matches_serial():
     ks = [rng.randrange(Q) for _ in range(n - 1)] + [Q - 1]
     pts = [jhm.g2_mul(G2_GEN, rng.randrange(1, 1 << 20)) for _ in range(n)]
     pts[3] = None
-    got = msm.msm_g2(g2_points(pts), fr.from_ints(ks, device="cpu"), c=4)
+    got = msm.msm_g2(g2_points(pts)[1], fr.from_ints(ks, device="cpu"), c=4)
     assert dec_g2(got) == serial(jhm.g2_mul, jhm.g2_add, pts, ks)
+
+
+def test_msm_g2_matches_jax_projective():
+    """msm_g2 (GLS) at n = 8, c = 4 against the JAX package's msm_g2 limb
+    for limb in projective coordinates, an identity point and the scalars
+    0 and q-1 among the inputs."""
+    n = 8
+    ks = [0] + [rng.randrange(Q) for _ in range(n - 2)] + [Q - 1]
+    pts = [jhm.g2_mul(G2_GEN, rng.randrange(1, 1 << 20)) for _ in range(n)]
+    pts[5] = None
+    jq, tq = g2_points(pts)
+    got = msm.msm_g2(tq, fr.from_ints(ks, device="cpu"), c=4)
+    want = jmsm.msm_g2(jq, jfr.from_ints(ks), c=4)
+    for a, b in zip(convert.g2_proj_from_torch(got), want):
+        for a2, b2 in zip(a, b):
+            assert np.array_equal(a2, np.asarray(b2))
 
 
 @pytest.mark.parametrize("group", ["g1", "g2"])
