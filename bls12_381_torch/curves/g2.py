@@ -1,6 +1,7 @@
 """Batched G2: E'(Fp2): y^2 = x^3 + 4(u + 1) (reference src/g2.rs),
-counterpart of `bls12_381_tpu/curves/g2.py` without the scalar
-multiplications, cofactor clearing, subgroup check and byte codecs.
+counterpart of `bls12_381_tpu/curves/g2.py` without the byte codecs: the
+group law, psi, the GLS scalar multiplication, Budroni-Pintore cofactor
+clearing and the psi-based subgroup check.
 
 Points are tuples of Fp2 elements (pairs of Fp limb tensors): projective
 (x, y, z), affine (x, y, inf_mask).  A plan takes each Fp2 coordinate as
@@ -12,8 +13,9 @@ from __future__ import annotations
 import torch
 
 from .. import hostmath as hm
-from .. import params
-from ..fields import tower as tw
+from .. import limbs, params
+from ..fields import fp, tower as tw
+from . import g1 as _g1
 from ..kernels import plan_exec as pe
 from .weierstrass import FieldFns, Weierstrass
 
@@ -67,15 +69,76 @@ def generator_affine(batch=(), device="cuda"):
     )
 
 
-def psi(p):
-    """Untwist-Frobenius-twist (x : y : z) -> (c_x x^p : c_y y^p : z^p)
-    (g2.rs:847-888); it acts as [z] on the subgroup."""
-    x, y, z = p
+def psi_xy(x, y):
+    """psi's action on two coordinates, (x, y) -> (c_x x^p, c_y y^p)
+    (g2.rs:847-888): the two conjugations are one borrow network, the two
+    Fp2 products one fold.  On affine points it is psi itself."""
     batch, dev = x[0].shape[1:], x[0].device
+    nx, ny = fp.neg_many([x[1], y[1]])
     cx = tw.fp2_const(hm.PSI_CX, batch, dev)
     cy = tw.fp2_const(hm.PSI_CY, batch, dev)
-    return (tw.fp2_mul(tw.fp2_conjugate(x), cx),
-            tw.fp2_mul(tw.fp2_conjugate(y), cy), tw.fp2_conjugate(z))
+    px, py = tw.fp2_mul_many([((x[0], nx), cx), ((y[0], ny), cy)])
+    return px, py
+
+
+def psi(p):
+    """Untwist-Frobenius-twist (x : y : z) -> (c_x x^p : c_y y^p : z^p);
+    it acts as [z] on the subgroup."""
+    return psi_xy(p[0], p[1]) + (tw.fp2_conjugate(p[2]),)
+
+
+def psi2(p):
+    return psi(psi(p))
+
+
+def scalar_mul(p, scalars_mont):
+    """[s]P by the 4-way GLS split: psi acts as [z] on the subgroup
+    (g2.rs:475-482), so s = c0 + c1|z| + c2|z|^2 + c3|z|^3 (base-|z|
+    digits from three Barrett divisions, each c_i < 2^64) gives
+    [s]P = [c0]P + [c1](-psi P) + [c2]psi^2 P + [c3](-psi^3 P) (z < 0): four
+    64-bit balanced-digit scalars with shared doublings.  Subgroup points
+    only; use scalar_mul_generic for any curve point."""
+    x = params.BLS_X
+    canon = limbs.from_mont(limbs.FR, scalars_mont)
+    q3, r3 = limbs.barrett_divmod(canon, x ** 3, 5)
+    q2, r2 = limbs.barrett_divmod(r3, x ** 2, 5)
+    q1, c0 = limbs.barrett_divmod(r2, x, 5)
+    pp = psi(p)
+    p3 = psi(pp)                         # [|z|^2]P
+    points = [p, CURVE.neg(pp), p3, CURVE.neg(psi(p3))]
+    return CURVE.multi_scalar_mul_signed(
+        points, [limbs.signed_digits_msb(k, 64) for k in (c0, q1, q2, q3)])
+
+
+def scalar_mul_generic(p, scalars_mont):
+    """[s]P by plain 4-bit windows (any curve point)."""
+    return CURVE.scalar_mul_windowed(p, _g1.fr_digits4_msb(scalars_mont))
+
+
+def mul_by_x(p):
+    """[|z|]P (g2.rs semantics; callers handle the sign)."""
+    return CURVE.mul_by_const(p, params.BLS_X)
+
+
+def is_torsion_free(p):
+    """psi(P) == [z]P = -[|z|]P (ePrint 2021/1130 §4; g2.rs:475-482)."""
+    return CURVE.eq(psi(p), CURVE.neg(mul_by_x(p)))
+
+
+def clear_cofactor(p):
+    """Budroni-Pintore (ia.cr/2017/419; g2.rs:934-947):
+    h(P) = [z^2 - z - 1]P + [z - 1]psi(P) + psi^2(2P), with u = |z|:
+    [u^2]P + [u]P - P - [u]psi(P) - psi(P) + psi^2(2P), added in that
+    order."""
+    t1 = mul_by_x(p)              # [u]P
+    t2 = mul_by_x(t1)             # [u^2]P
+    psip = psi(p)
+    t3 = mul_by_x(psip)           # [u]psi(P)
+    acc = add(t2, t1)
+    acc = add(acc, neg(p))
+    acc = add(acc, neg(t3))
+    acc = add(acc, neg(psip))
+    return add(acc, psi2(double(p)))
 
 
 def to_affine(p):

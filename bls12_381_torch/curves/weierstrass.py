@@ -9,6 +9,12 @@ reference's choice (g1.rs:638/670/715), and each runs as ONE expression plan
 (`kernels/plan_exec.py`): the plan kernel on a CUDA tensor, its plain
 version on a CPU tensor.  The plans compute the same canonical values as the
 JAX package's staged formulas, so points equal its points limb for limb.
+
+The scalar multiplications keep the JAX package's schedules (the start from
+the identity, the order of the table's adds, the zero padding of digit
+lists), so their projective results equal its results too.  Their table
+lookups only select, so one gather per table stands in for the JAX
+package's masked-select trees.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ from __future__ import annotations
 import dataclasses
 
 from ..kernels import plan_exec as pe
+from ..utils import scans
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,6 +119,79 @@ class Weierstrass:
         x2, y2, inf2 = aff
         out = self._run(f.add_mixed_plan, tuple(p) + (x2, y2))
         return tuple(f.select(inf2, a, b) for a, b in zip(p, out))
+
+    # -- scalar multiplication ----------------------------------------------
+
+    def scalar_mul_bits(self, p, bits):
+        """Double-and-add over a [n_bits, *batch] bool tensor, MSB first,
+        from the identity (g1.rs:754-774): every bit doubles, adds P and
+        selects."""
+        f = self.f
+        acc = self.identity(f.batch_of(p[0]), f.device_of(p[0]))
+        for bit in bits:
+            acc = self.double(acc)
+            added = self.add(acc, p)
+            acc = tuple(f.select(bit, a, b) for a, b in zip(added, acc))
+        return acc
+
+    def scalar_mul_windowed(self, p, digits, window: int = 4):
+        """Fixed windows over [n_digits, *batch] digits in [0, 2^window),
+        MSB first: a 2^window-entry table, then per digit `window` doublings
+        and one add of the digit's entry (digit 0 adds the identity)."""
+        return self.multi_scalar_mul_windowed([p], [digits], window)
+
+    def multi_scalar_mul_windowed(self, points, digits_list, window: int = 4):
+        """sum_i [k_i] P_i with shared doublings (Straus windows): one pass
+        over the digit steps, each `window` doublings and one table add per
+        point.  Shorter digit lists are left-padded with zero digits."""
+        return self._straus(points, [(d, None) for d in digits_list],
+                            1 << window, window)
+
+    def multi_scalar_mul_signed(self, points, signed_digits_list,
+                                window: int = 4):
+        """sum_i [k_i] P_i with shared doublings over balanced digits
+        (`limbs.signed_digits_msb`: (mags, negs) per point, MSB first,
+        magnitudes in [0, 2^(window-1)]): tables of identity, P, ...,
+        2^(window-1) P, and a masked y-negate of the entry for a negative
+        digit.  The JAX package's default "tree" lookup selects the same
+        entries."""
+        return self._straus(points, signed_digits_list,
+                            (1 << (window - 1)) + 1, window)
+
+    def _straus(self, points, digits_list, n_entries: int, window: int):
+        """`scans.straus` in this group: `window` doublings per step, the
+        masked y-negate of a negative digit's entry."""
+        f = self.f
+        batch, dev = f.batch_of(points[0][0]), f.device_of(points[0][0])
+
+        def double_window(acc):
+            for _ in range(window):
+                acc = self.double(acc)
+            return acc
+
+        def neg_select(neg, e):
+            # (0 : -1 : 0) is still the identity class
+            return (e[0], f.select(neg, f.neg(e[1]), e[1]), e[2])
+
+        return scans.straus(points, digits_list, n_entries,
+                            lambda: self.identity(batch, dev), self.add,
+                            double_window, neg_select)
+
+    def mul_by_const(self, p, k: int, n_bits: int | None = None):
+        """[k]P for a static public integer (the mul_by_x analog,
+        g1.rs:777-795): from the identity, a doubling per bit of |k|
+        (n_bits of them, the top one first) and an add of P at each set
+        bit.  The JAX scan adds at every bit and keeps the accumulator at a
+        zero bit; the values are the same.  A negative k negates."""
+        f = self.f
+        kk = abs(k)
+        nb = n_bits or kk.bit_length()
+        acc = self.identity(f.batch_of(p[0]), f.device_of(p[0]))
+        for i in range(nb - 1, -1, -1):
+            acc = self.double(acc)
+            if (kk >> i) & 1:
+                acc = self.add(acc, p)
+        return self.neg(acc) if k < 0 else acc
 
     # -- normalization -------------------------------------------------------
 

@@ -1,12 +1,15 @@
 """Entry points of the port's paths: the batched optimal-ate pairing, the
-radix-2 NTT over Fr and the G1/G2 multi-scalar multiplication.
+radix-2 NTT over Fr, the G1/G2 multi-scalar multiplication and the batched
+scalar multiplication of G1, G2 and Gt.
 
 `entry()` mirrors `__graft_entry__.entry()` of the JAX package: it returns
 the pairing function and example inputs e([i+1]G1, [2i+1]G2), i < batch, on
 the device (the card unless the caller asks for the CPU).  `ntt_entry()`
 returns the NTT and random coefficients at N = 2^log_n, as `bench.py`'s
 `bench_ntt` times it.  `msm_entry()` returns `msm_g1` or `msm_g2` and
-N = 2^log_n points [i+1]G with random scalars.
+N = 2^log_n points [i+1]G with random scalars.  `smul_entry()` returns
+`g1.scalar_mul`, `g2.scalar_mul` or `gt.scalar_mul` and N = 2^log_n bases
+with one random scalar each, as `bench.py`'s `bench_curves` times them.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from .curves import g2 as G2
 from .fields import fp, tower as tw
 from .limbs import DTYPE, FR, resolve_device
 from .ops import msm, ntt
-from .pairing import pairing
+from .pairing import gt, pairing
 from .utils import scans
 
 # lanes i of msm_inputs with i % MSM_LANE_CYCLE == MSM_IDENTITY_LANE hold the
@@ -103,9 +106,15 @@ def msm_inputs(log_n: int, group: str = "g1", seed: int = 5, device="cuda"):
     pts = scans.tree_map(
         lambda i, p: torch.where(lane == MSM_IDENTITY_LANE, i, p),
         mod.identity((n,), dev), pts)
-    scalars = ntt_inputs(log_n, seed=seed, device=dev).masked_fill(
+    return pts, _scalars(log_n, seed, dev)
+
+
+def _scalars(log_n: int, seed: int, device):
+    """`ntt_inputs`' random Montgomery Fr [16, 2^log_n] from `seed`, 0 at the
+    lanes i with i % MSM_LANE_CYCLE == MSM_ZERO_LANE."""
+    lane = torch.arange(1 << log_n, device=device) % MSM_LANE_CYCLE
+    return ntt_inputs(log_n, seed=seed, device=device).masked_fill(
         lane == MSM_ZERO_LANE, 0)
-    return pts, scalars
 
 
 def msm_entry(log_n: int = 16, group: str = "g1", seed: int = 5,
@@ -114,3 +123,23 @@ def msm_entry(log_n: int = 16, group: str = "g1", seed: int = 5,
     `msm.MSM_WINDOW`, GLV/GLS split) and `msm_inputs`."""
     fn = {"g1": msm.msm_g1, "g2": msm.msm_g2}[group]
     return fn, msm_inputs(log_n, group, seed, device)
+
+
+def smul_inputs(log_n: int, group: str = "g1", seed: int = 5,
+                device="cuda"):
+    """(bases, scalars) for N = 2^log_n scalar multiplications on a device:
+    for "g1" and "g2" `msm_inputs` (P_i = [i+1]G, identity and zero-scalar
+    lanes), for "gt" the generator e(G1, G2) broadcast over the lanes with
+    the same scalars."""
+    if group != "gt":
+        return msm_inputs(log_n, group, seed, device)
+    dev = resolve_device(device)
+    return gt.generator((1 << log_n,), dev), _scalars(log_n, seed, dev)
+
+
+def smul_entry(log_n: int = 10, group: str = "g1", seed: int = 5,
+               device="cuda"):
+    """(fn, example_args): `g1.scalar_mul` (GLV), `g2.scalar_mul` (GLS) or
+    `gt.scalar_mul` (GLS), each [k_i] B_i per lane, and `smul_inputs`."""
+    fn = {"g1": G1.scalar_mul, "g2": G2.scalar_mul, "gt": gt.scalar_mul}[group]
+    return fn, smul_inputs(log_n, group, seed, device)

@@ -230,6 +230,24 @@ def fp6_inv(a):
     return tuple(fp2_mul_many([(c0, tinv), (c1, tinv), (c2, tinv)]))
 
 
+def fp6_select(mask, a, b):
+    return tuple(fp2_select(mask, x, y) for x, y in zip(a, b))
+
+
+def fp6_eq(a, b):
+    return fp2_eq(a[0], b[0]) & fp2_eq(a[1], b[1]) & fp2_eq(a[2], b[2])
+
+
+def fp6_zero(batch=(), device="cuda"):
+    zero = fp2_zero(batch, device)
+    return (zero, zero, zero)
+
+
+def fp6_one(batch=(), device="cuda"):
+    zero = fp2_zero(batch, device)
+    return (fp2_one(batch, device), zero, zero)
+
+
 def fp6_frobenius(a):
     """(c0^p, gamma1 c1^p, gamma2 c2^p), gamma_i = xi^(i(p-1)/3)
     (fp6.rs:152-188)."""
@@ -320,9 +338,35 @@ def fp12_frobenius(a):
     return (c0, c1)
 
 
+def fp12_select(mask, a, b):
+    return (fp6_select(mask, a[0], b[0]), fp6_select(mask, a[1], b[1]))
+
+
+def fp12_eq(a, b):
+    return fp6_eq(a[0], b[0]) & fp6_eq(a[1], b[1])
+
+
+def fp12_zero(batch=(), device="cuda"):
+    return (fp6_zero(batch, device), fp6_zero(batch, device))
+
+
 def fp12_one(batch=(), device="cuda"):
-    zero = fp2_zero(batch, device)
-    return ((fp2_one(batch, device), zero, zero), (zero, zero, zero))
+    return (fp6_one(batch, device), fp6_zero(batch, device))
+
+
+def fp12_pow(a, e: int):
+    """a^e for a static e >= 0: MSB-first square-and-multiply from acc = a
+    (tower.py:861-878 of the JAX package), one `fp12_sqr` plan per bit
+    below the top and one `fp12_mul` plan at each set bit.  The JAX scan
+    multiplies at every bit and selects; the values are the same."""
+    if e == 0:
+        return fp12_one(a[0][0][0].shape[1:], a[0][0][0].device)
+    acc = a
+    for bit in bin(e)[3:]:
+        acc = fp12_sqr(acc)
+        if bit == "1":
+            acc = fp12_mul(acc, a)
+    return acc
 
 
 # =========================================================================

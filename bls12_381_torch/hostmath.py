@@ -1,16 +1,23 @@
-"""Host-side integer arithmetic the port needs: Fp/Fp2 on Python ints.
+"""Host-side integer arithmetic the port needs: Fp up to Fp12 on Python
+ints.
 
-A small subset of the reference package's pure-Python oracle.  It computes
-the Frobenius and endomorphism coefficients that `fields/tower.py`,
-`curves/g1.py` and `curves/g2.py` embed as constants, and the affine group
-law (add, neg, scalar multiple; None is the point at infinity) that the
-entry points and the checks use.  Tests hold the port against the full
-oracle; nothing here is on the device path.
+A subset of the reference package's pure-Python oracle.  It computes the
+Frobenius and endomorphism coefficients that `fields/tower.py`,
+`curves/g1.py` and `curves/g2.py` embed as constants, the Gt generator
+e(G1, G2) that `pairing/gt.py` embeds (a host pairing: affine Miller loop,
+final exponentiation by the plain exponent), square roots to build points
+outside the subgroups, and the affine group law (add, neg, scalar
+multiple, torsion test, cofactor clearing; None is the point at infinity)
+that the entry points and the checks use.  Tests hold the port against
+the full oracle; nothing here is on the device path.
 """
 
 from __future__ import annotations
 
-from .params import B_G1, B_G2, BLS_X, G1_GEN, P, Q
+import functools
+
+from .params import (B_G1, B_G2, BLS_X, BLS_X_IS_NEGATIVE, G1_GEN, G2_GEN,
+                     H_EFF_G1, H_EFF_G2, P, Q)
 
 # --- Fp2 = Fp[u]/(u^2 + 1); elements are (c0, c1) ------------------------
 
@@ -22,6 +29,13 @@ def fp_inv(a):
     if a % P == 0:
         raise ZeroDivisionError("inversion of zero in Fp")
     return pow(a, P - 2, P)
+
+
+def fp_sqrt(a):
+    """A square root in Fp (p = 3 mod 4: the candidate a^((p+1)/4)); None
+    for a non-square."""
+    c = pow(a, (P + 1) // 4, P)
+    return c if c * c % P == a % P else None
 
 
 def fp2_add(a, b):
@@ -53,6 +67,15 @@ def fp2_inv(a):
     return (a0 * ninv % P, (-a1) * ninv % P)
 
 
+def fp2_mul_fp(a, s):
+    return (a[0] * s % P, a[1] * s % P)
+
+
+def fp2_mul_by_nonresidue(a):
+    """Multiply by u + 1 (fp2.rs:156-166)."""
+    return ((a[0] - a[1]) % P, (a[0] + a[1]) % P)
+
+
 def fp2_conjugate(a):
     return (a[0], (-a[1]) % P)
 
@@ -68,6 +91,111 @@ def fp2_pow(a, e):
     return result
 
 
+def fp2_sqrt(a):
+    """A square root in Fp2 (any root; ePrint 2012/685 Alg. 9 shape), None
+    for a non-square."""
+    a = (a[0] % P, a[1] % P)
+    if a == FP2_ZERO:
+        return FP2_ZERO
+    a1 = fp2_pow(a, (P - 3) // 4)
+    alpha = fp2_mul(fp2_square(a1), a)
+    x0 = fp2_mul(a1, a)
+    if alpha == (P - 1, 0):
+        cand = ((-x0[1]) % P, x0[0])  # u x0
+    else:
+        cand = fp2_mul(fp2_pow(fp2_add(FP2_ONE, alpha), (P - 1) // 2), x0)
+    return cand if fp2_square(cand) == a else None
+
+
+# --- Fp6 = Fp2[v]/(v^3 - (u + 1)), Fp12 = Fp6[w]/(w^2 - v) ----------------
+
+FP6_ZERO = (FP2_ZERO, FP2_ZERO, FP2_ZERO)
+FP6_ONE = (FP2_ONE, FP2_ZERO, FP2_ZERO)
+FP12_ONE = (FP6_ONE, FP6_ZERO)
+
+
+def fp6_add(a, b):
+    return tuple(fp2_add(x, y) for x, y in zip(a, b))
+
+
+def fp6_sub(a, b):
+    return tuple(fp2_sub(x, y) for x, y in zip(a, b))
+
+
+def fp6_neg(a):
+    return tuple(fp2_neg(x) for x in a)
+
+
+def fp6_mul(a, b):
+    """c0 = a0 b0 + xi (a1 b2 + a2 b1), c1 = a0 b1 + a1 b0 + xi a2 b2,
+    c2 = a0 b2 + a1 b1 + a2 b0 (fp6.rs:195-274)."""
+    a0, a1, a2 = a
+    b0, b1, b2 = b
+    c0 = fp2_add(fp2_mul(a0, b0), fp2_mul_by_nonresidue(
+        fp2_add(fp2_mul(a1, b2), fp2_mul(a2, b1))))
+    c1 = fp2_add(fp2_add(fp2_mul(a0, b1), fp2_mul(a1, b0)),
+                 fp2_mul_by_nonresidue(fp2_mul(a2, b2)))
+    c2 = fp2_add(fp2_add(fp2_mul(a0, b2), fp2_mul(a2, b0)), fp2_mul(a1, b1))
+    return (c0, c1, c2)
+
+
+def fp6_mul_by_nonresidue(a):
+    """Multiply by v: (xi c2, c0, c1) (fp6.rs:139-150)."""
+    return (fp2_mul_by_nonresidue(a[2]), a[0], a[1])
+
+
+def fp6_inv(a):
+    """Adjugate inversion with one Fp2 inversion (fp6.rs:294-312)."""
+    a0, a1, a2 = a
+    c0 = fp2_sub(fp2_square(a0), fp2_mul_by_nonresidue(fp2_mul(a1, a2)))
+    c1 = fp2_sub(fp2_mul_by_nonresidue(fp2_square(a2)), fp2_mul(a0, a1))
+    c2 = fp2_sub(fp2_square(a1), fp2_mul(a0, a2))
+    t = fp2_add(fp2_mul_by_nonresidue(fp2_add(fp2_mul(a1, c2),
+                                              fp2_mul(a2, c1))),
+                fp2_mul(a0, c0))
+    tinv = fp2_inv(t)
+    return (fp2_mul(c0, tinv), fp2_mul(c1, tinv), fp2_mul(c2, tinv))
+
+
+def fp12_mul(a, b):
+    """Karatsuba over Fp6 (fp12.rs:197-213)."""
+    a0, a1 = a
+    b0, b1 = b
+    t0, t1 = fp6_mul(a0, b0), fp6_mul(a1, b1)
+    c1 = fp6_sub(fp6_sub(fp6_mul(fp6_add(a0, a1), fp6_add(b0, b1)), t0), t1)
+    return (fp6_add(t0, fp6_mul_by_nonresidue(t1)), c1)
+
+
+def fp12_square(a):
+    return fp12_mul(a, a)
+
+
+def fp12_conjugate(a):
+    """a^(p^6) (fp12.rs:130-141)."""
+    return (a[0], fp6_neg(a[1]))
+
+
+def fp12_inv(a):
+    """1/(c0 + c1 w) via the norm c0^2 - v c1^2 (fp12.rs:187-194)."""
+    a0, a1 = a
+    t = fp6_sub(fp6_mul(a0, a0), fp6_mul_by_nonresidue(fp6_mul(a1, a1)))
+    tinv = fp6_inv(t)
+    return (fp6_mul(a0, tinv), fp6_neg(fp6_mul(a1, tinv)))
+
+
+def fp12_pow(a, e):
+    """a^e (a negative e inverts first), square-and-multiply LSB first."""
+    if e < 0:
+        return fp12_pow(fp12_inv(a), -e)
+    result, base = FP12_ONE, a
+    while e > 0:
+        if e & 1:
+            result = fp12_mul(result, base)
+        base = fp12_square(base)
+        e >>= 1
+    return result
+
+
 # --- Frobenius coefficients (computed, not transcribed) -------------------
 
 XI = (1, 1)  # u + 1, the Fp6 nonresidue
@@ -76,6 +204,17 @@ XI = (1, 1)  # u + 1, the Fp6 nonresidue
 FROB6_C1 = fp2_pow(XI, (P - 1) // 3)
 FROB6_C2 = fp2_pow(XI, 2 * (P - 1) // 3)
 FROB12_C1 = fp2_pow(XI, (P - 1) // 6)
+
+
+def fp6_frobenius(a):
+    return (fp2_conjugate(a[0]), fp2_mul(fp2_conjugate(a[1]), FROB6_C1),
+            fp2_mul(fp2_conjugate(a[2]), FROB6_C2))
+
+
+def fp12_frobenius(a):
+    """a^p (fp12.rs:145-171)."""
+    return (fp6_frobenius(a[0]),
+            tuple(fp2_mul(x, FROB12_C1) for x in fp6_frobenius(a[1])))
 
 
 # --- affine group law (vartime; example inputs and checks only) -----------
@@ -130,6 +269,44 @@ g1_add, g1_neg, g1_mul = _G1.add_points, _G1.neg, _G1.scalar_mul
 g2_add, g2_neg, g2_mul = _G2.add_points, _G2.neg, _G2.scalar_mul
 
 
+def g1_is_torsion_free(pt):
+    return g1_mul(pt, Q) is None
+
+
+def g2_is_torsion_free(pt):
+    return g2_mul(pt, Q) is None
+
+
+def g1_clear_cofactor(pt):
+    return g1_mul(pt, H_EFF_G1)
+
+
+def g2_clear_cofactor(pt):
+    return g2_mul(pt, H_EFF_G2)
+
+
+def g1_point_outside_subgroup():
+    """The curve point (x, y) with the least x >= 5 that is not in G1."""
+    x = 5
+    while True:
+        y = fp_sqrt((x * x * x + B_G1) % P)
+        if y is not None and not g1_is_torsion_free((x, y)):
+            return (x, y)
+        x += 1
+
+
+def g2_point_outside_subgroup():
+    """The point of E'(Fp2) with x = (k, 1), k >= 1 least, that is not in
+    G2 (a square root by fp2_sqrt)."""
+    k = 1
+    while True:
+        x = (k, 1)
+        y = fp2_sqrt(fp2_add(fp2_mul(fp2_square(x), x), B_G2))
+        if y is not None and not g2_is_torsion_free((x, y)):
+            return (x, y)
+        k += 1
+
+
 # --- endomorphism constants (computed, not transcribed) -------------------
 
 
@@ -150,3 +327,63 @@ G1_BETA = _compute_beta()
 # c_y = 1/xi^((p-1)/2) (g2.rs:847-888)
 PSI_CX = fp2_inv(fp2_pow(XI, (P - 1) // 3))
 PSI_CY = fp2_inv(fp2_pow(XI, (P - 1) // 2))
+
+
+# --- the pairing (affine Miller loop; Gt's generator and the oracles) -----
+#
+# The line through T (and Q) in E'(Fp2), evaluated at P = (xp, yp), is the
+# sparse Fp12 element xi yp + (lam xt - yt) v w - lam xp v^2 w ("045"),
+# lam the affine slope.
+
+
+def _line(t, lam, p):
+    xt, yt = t
+    xp, yp = p
+    l0 = fp2_mul_by_nonresidue((yp, 0))
+    l4 = fp2_sub(fp2_mul(lam, xt), yt)
+    l5 = fp2_neg(fp2_mul_fp(lam, xp))
+    return ((l0, FP2_ZERO, FP2_ZERO), (FP2_ZERO, l4, l5))
+
+
+def _step(t, q, lam):
+    """T + Q (or 2T for Q = T) from the slope lam."""
+    x3 = fp2_sub(fp2_sub(fp2_square(lam), t[0]), q[0])
+    return (x3, fp2_sub(fp2_mul(lam, fp2_sub(t[0], x3)), t[1]))
+
+
+def miller_loop(p, q):
+    """f_{|z|,Q}(P), conjugated for z < 0 (pairings.rs:668-694): the bits
+    of BLS_X below the MSB, a doubling step each and an addition step at
+    each set bit."""
+    if p is None or q is None:
+        return FP12_ONE
+    f, t = FP12_ONE, q
+    for bit in bin(BLS_X)[3:]:
+        lam = fp2_mul(fp2_mul_fp(fp2_square(t[0]), 3),
+                      fp2_inv(fp2_add(t[1], t[1])))
+        f = fp12_mul(fp12_square(f), _line(t, lam, p))
+        t = _step(t, t, lam)
+        if bit == "1":
+            lam = fp2_mul(fp2_sub(q[1], t[1]), fp2_inv(fp2_sub(q[0], t[0])))
+            f = fp12_mul(f, _line(t, lam, p))
+            t = _step(t, q, lam)
+    return fp12_conjugate(f) if BLS_X_IS_NEGATIVE else f
+
+
+def final_exponentiation(f):
+    """The easy part (p^6 - 1)(p^2 + 1), then the hard part by its plain
+    exponent 3 (p^4 - p^2 + 1) / q: the reference's output (RELIC's value)
+    is the (p^12 - 1) / q power cubed."""
+    f = fp12_mul(fp12_conjugate(f), fp12_inv(f))
+    f = fp12_mul(fp12_frobenius(fp12_frobenius(f)), f)
+    return fp12_pow(f, 3 * (P ** 4 - P ** 2 + 1) // Q)
+
+
+def pairing(p, q):
+    return final_exponentiation(miller_loop(p, q))
+
+
+@functools.lru_cache(maxsize=None)
+def gt_generator():
+    """e(G1, G2), the generator of Gt (pairings.rs:359-475)."""
+    return pairing(G1_GEN, G2_GEN)

@@ -432,6 +432,57 @@ def barrett_divmod(a: torch.Tensor, d: int, q_limbs: int):
     return select(too_big, q_fix, q), select(too_big, r_fix, r)
 
 
+def digits4_msb(a: torch.Tensor, n_bits: int) -> torch.Tensor:
+    """[n, *batch] 16-bit limbs -> [ceil(n_bits / 4), *batch] int32 4-bit
+    digits, MSB first (each limb holds four aligned digits)."""
+    n_digits = -(-n_bits // 4)
+    x = a[:-(-n_digits // 4)].long()
+    shifts = _const_tensor((0, 4, 8, 12), a.device, torch.int64).reshape(
+        (1, 4) + (1,) * (a.dim() - 1))
+    d = (x.unsqueeze(1) >> shifts) & 15  # [limbs, 4, *batch], LSB first
+    return d.reshape((-1,) + a.shape[1:])[:n_digits].flip(0).to(DTYPE)
+
+
+def signed_digits_lsb(a: torch.Tensor, n_bits: int, window: int = 4):
+    """Balanced window digits of canonical limb tensors [n, *batch], LSB
+    first: (mags, negs), [n_digits, *batch] int32 magnitudes in
+    [0, 2^(window-1)] and sign masks, n_digits = ceil((n_bits + 1) / window)
+    so that the last carry fits a non-negative top digit (which is never
+    folded into the signed range).  The recoding runs LSB first with a
+    carry, in int64 (limbs.py:629-664 of the JAX package)."""
+    n_digits = -(-(n_bits + 1) // window)
+    half, full = 1 << (window - 1), 1 << window
+    x = a.long()
+    mags, negs = [], []
+    carry = 0
+    for w in range(n_digits):
+        lo_bit = window * w
+        raw = torch.zeros_like(x[0])
+        # the limbs the window touches; a part below it shifts right
+        for limb in range(lo_bit // LIMB_BITS,
+                          min((lo_bit + window - 1) // LIMB_BITS + 1,
+                              a.shape[0])):
+            shift = limb * LIMB_BITS - lo_bit
+            raw |= x[limb] << shift if shift >= 0 else x[limb] >> -shift
+        t = (raw & (full - 1)) + carry
+        if w == n_digits - 1:
+            d = t
+        else:
+            borrow = t >= half
+            d = torch.where(borrow, t - full, t)
+            carry = borrow.long()
+        mags.append(d.abs())
+        negs.append(d < 0)
+    return torch.stack(mags).to(DTYPE), torch.stack(negs)
+
+
+def signed_digits_msb(a: torch.Tensor, n_bits: int, window: int = 4):
+    """`signed_digits_lsb` with the digits MSB first, the order the
+    scalar multiplications read them in."""
+    mags, negs = signed_digits_lsb(a, n_bits, window)
+    return mags.flip(0), negs.flip(0)
+
+
 # ---------------------------------------------------------------------------
 # Predicates / selection
 # ---------------------------------------------------------------------------

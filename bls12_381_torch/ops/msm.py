@@ -26,7 +26,6 @@ from __future__ import annotations
 
 import torch
 
-from .. import hostmath as hm
 from .. import limbs, params
 from ..curves import g1 as G1
 from ..curves import g2 as G2
@@ -35,48 +34,6 @@ from ..limbs import FR
 from ..utils import scans
 
 MSM_WINDOW = 12  # bits per window: the JAX package's config.msm_window
-
-
-def _digits_raw(canon: torch.Tensor, c: int, n_windows: int) -> torch.Tensor:
-    """c-bit digits of canonical limb tensors [n_limbs, B]: [n_windows, B]
-    int32, LSB-first windows (shifted in int64, then masked)."""
-    n_limbs = canon.shape[0]
-    x = canon.long()
-    outs = []
-    for w in range(n_windows):
-        lo_bit = c * w
-        out = torch.zeros(canon.shape[1:], dtype=torch.int64,
-                          device=canon.device)
-        # a digit straddles at most 3 limbs
-        for limb in range(lo_bit // 16,
-                          min((lo_bit + c - 1) // 16 + 1, n_limbs)):
-            shift = limb * 16 - lo_bit
-            out |= x[limb] << shift if shift >= 0 else x[limb] >> -shift
-        outs.append(out & ((1 << c) - 1))
-    return torch.stack(outs).to(torch.int32)
-
-
-def _signed_digits(canon: torch.Tensor, c: int, bits: int):
-    """Balanced c-bit digits of canonical limb tensors: (mag, neg), int32
-    magnitudes in [0, 2^(c-1)] and the sign mask, [W, B] with
-    W = ceil((bits + 1) / c), so the top window takes the last carry and
-    stays non-negative."""
-    n_windows = -(-(bits + 1) // c)
-    raw = _digits_raw(canon, c, n_windows)
-    half, full = 1 << (c - 1), 1 << c
-    mags, negs = [], []
-    carry = torch.zeros(raw.shape[1:], dtype=torch.int32, device=raw.device)
-    for w in range(n_windows):
-        t = raw[w] + carry
-        if w == n_windows - 1:
-            d = t  # <= half by construction
-        else:
-            borrow = t >= half
-            d = torch.where(borrow, t - full, t)
-            carry = borrow.to(torch.int32)
-        mags.append(d.abs())
-        negs.append(d < 0)
-    return torch.stack(mags), torch.stack(negs)
 
 
 def _segmented_scan_add(curve, pts, heads):
@@ -160,15 +117,15 @@ def msm_g1(points_proj, scalars_mont, c: int = MSM_WINDOW, glv: bool = True):
     # start from z = 1; identity lanes get digit 0 (bucket 0, never read)
     ax, ay, inf = G1.to_affine(points_proj)
     if not glv:
-        mags, negs = _signed_digits(canon, c, 255)
+        mags, negs = limbs.signed_digits_lsb(canon, 255, c)
         return _msm_pipeline(G1, (ax, ay), mags.masked_fill(inf[None], 0),
                              negs, c)
     k2, k1 = limbs.barrett_divmod(canon, params.BLS_X ** 2, 9)
     beta = fp.const(G1.BETA, ax.shape[1:], device=ax.device)
     aff = tuple(torch.cat([a, b], dim=-1)
                 for a, b in zip((ax, ay), (fp.mul(beta, ax), fp.neg(ay))))
-    m1, n1 = _signed_digits(k1, c, 128)
-    m2, n2 = _signed_digits(k2, c, 128)
+    m1, n1 = limbs.signed_digits_lsb(k1, 128, c)
+    m2, n2 = limbs.signed_digits_lsb(k2, 128, c)
     mags = torch.cat([m1, m2], dim=-1).masked_fill(
         torch.cat([inf, inf])[None], 0)
     return _msm_pipeline(G1, aff, mags, torch.cat([n1, n2], dim=-1), c)
@@ -190,6 +147,18 @@ def msm_g1_large(points_proj, scalars_mont, c: int = MSM_WINDOW,
     return acc
 
 
+def _gls_points(ax, ay):
+    """P, [|z|]P = -psi(P), [|z|^2]P = psi^2(P), [|z|^3]P = -psi^3(P) of
+    affine (x, y), concatenated along the lanes; the psi images die on
+    return, before the window loop."""
+    pp = G2.psi_xy(ax, ay)
+    p3 = G2.psi_xy(*pp)
+    p4 = G2.psi_xy(*p3)
+    return scans.tree_map(lambda *ts: torch.cat(ts, dim=-1), (ax, ay),
+                          (pp[0], tw.fp2_neg(pp[1])), p3,
+                          (p4[0], tw.fp2_neg(p4[1])))
+
+
 def msm_g2(points_proj, scalars_mont, c: int = MSM_WINDOW, gls: bool = True):
     """sum_i [s_i] P_i over G2 (points: tuples of Fp2 coordinates).
 
@@ -201,7 +170,7 @@ def msm_g2(points_proj, scalars_mont, c: int = MSM_WINDOW, gls: bool = True):
     canon = limbs.from_mont(FR, scalars_mont)
     ax, ay, inf = G2.to_affine(points_proj)  # as in msm_g1
     if not gls:
-        mags, negs = _signed_digits(canon, c, 255)
+        mags, negs = limbs.signed_digits_lsb(canon, 255, c)
         return _msm_pipeline(G2, (ax, ay), mags.masked_fill(inf[None], 0),
                              negs, c)
     x = params.BLS_X
@@ -209,25 +178,8 @@ def msm_g2(points_proj, scalars_mont, c: int = MSM_WINDOW, gls: bool = True):
     q2, r2 = limbs.barrett_divmod(r3, x ** 2, 5)
     q1, c0 = limbs.barrett_divmod(r2, x, 5)
 
-    # psi on affine points (z = 1 is fixed by the conjugation)
-    batch, dev = inf.shape, inf.device
-    cx = tw.fp2_const(hm.PSI_CX, batch, dev)
-    cy = tw.fp2_const(hm.PSI_CY, batch, dev)
-
-    def psi_aff(a):
-        return (tw.fp2_mul(tw.fp2_conjugate(a[0]), cx),
-                tw.fp2_mul(tw.fp2_conjugate(a[1]), cy))
-
-    def neg_aff(a):
-        return (a[0], tw.fp2_neg(a[1]))
-
-    p1 = (ax, ay)
-    pp = psi_aff(p1)
-    p2 = neg_aff(pp)            # [|z|]P
-    p3 = psi_aff(pp)            # [|z|^2]P
-    p4 = neg_aff(psi_aff(p3))   # [|z|^3]P
-    aff = scans.tree_map(lambda *ts: torch.cat(ts, dim=-1), p1, p2, p3, p4)
-    parts = [_signed_digits(k, c, 64) for k in (c0, q1, q2, q3)]
+    aff = _gls_points(ax, ay)
+    parts = [limbs.signed_digits_lsb(k, 64, c) for k in (c0, q1, q2, q3)]
     mags = torch.cat([m for m, _ in parts], dim=-1).masked_fill(
         torch.cat([inf] * 4)[None], 0)
     return _msm_pipeline(G2, aff, mags, torch.cat([n for _, n in parts],

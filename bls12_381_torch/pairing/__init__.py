@@ -1,3 +1,4 @@
+from . import gt  # noqa: F401
 from .pairing import (  # noqa: F401
     G2Prepared,
     final_exponentiation,

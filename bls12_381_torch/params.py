@@ -24,6 +24,11 @@ BLS_X_IS_NEGATIVE = True
 B_G1 = 4
 B_G2 = (4, 4)
 
+# Effective cofactors (draft-irtf-cfrg-hash-to-curve-16 §8.8; g1.rs:800,
+# g2.rs:934): G1's is 1 - z = 1 + |z|
+H_EFF_G1 = 0xD201000000010001
+H_EFF_G2 = 0xBC69F08F2EE75B3584C6A0EA91B352888E2A8E9145AD7689986FF031508FFE1329C2F178731DB956D82BF015D1212B02EC0EC69D7477C1AE954CBC06689F6A359894C0ADEBBF6B4E8020005AAA95551
+
 G1_GEN = (
     0x17F1D3A73197D7942695638C4FA9AC0FC3688C4F9774B905A14E3A3F171BAC586C55E83FF97A1AEFFB3AF00ADB22C6BB,
     0x08B3F481E3AAA0F1A09E30ED741D8AE4FCF5E095D5D00AF600DB18CB2C04B3EDD03CC744A2888AE40CAA232946C5E7E1,

@@ -1,5 +1,7 @@
 """Work-efficient scans and reductions along the last axis, over power-of-two
-lane counts (counterpart of `bls12_381_tpu/utils/scans.py`).
+lane counts (counterpart of `bls12_381_tpu/utils/scans.py`), and the
+Straus engine of the windowed scalar multiplications with its per-lane
+table lookup.
 
 `xs` is a tensor or a nested tuple of tensors (a field element, a point)
 whose leaves share the last axis.  Every combine runs at a power-of-two lane
@@ -26,6 +28,66 @@ def tree_leaves(x) -> list:
     if isinstance(x, (tuple, list)):
         return [t for part in x for t in tree_leaves(part)]
     return [x]
+
+
+def tree_unflatten(like, leaves):
+    """A nested tuple shaped like `like` from its leaves, in order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
+
+
+def stack_table(entries) -> torch.Tensor:
+    """Equally nested entries ([L, *batch] leaves, broadcast to one shape)
+    -> one table tensor [n_entries, n_leaves, L, *batch]."""
+    leaves = [tree_leaves(e) for e in entries]
+    shape = torch.broadcast_shapes(*[t.shape for e in leaves for t in e])
+    return torch.stack([torch.stack([t.expand(shape) for t in e])
+                        for e in leaves])
+
+
+def take_entry(table: torch.Tensor, index: torch.Tensor, like):
+    """Entry index[b] of a `stack_table` table on each lane b, nested like
+    `like`: one gather over the whole table."""
+    idx = index.long().reshape((1, 1, 1) + tuple(index.shape)).expand(
+        (1,) + table.shape[1:])
+    return tree_unflatten(like, torch.gather(table, 0, idx)[0].unbind(0))
+
+
+def straus(points, digits_list, n_entries: int, identity, add,
+           double_window, neg_select=None):
+    """sum_i [k_i] P_i with shared doublings (Straus windows) in any group
+    given by its operations: per point a table of identity, P, ...,
+    (n_entries - 1) P built by successive adds, then per digit step (MSB
+    first) one `double_window` of the accumulator and, per point, one add
+    of its digit's entry.  digits_list holds (digits, negs) per point,
+    [n_digits, *batch] each; where negs is not None, neg_select(negs[s],
+    entry) negates the entry of a negative digit.  Shorter digit lists are
+    left-padded with zero digits; identity() is the identity at the
+    points' batch shape."""
+    tables = []
+    for p in points:
+        entries = [identity(), p]
+        for _ in range(2, n_entries):
+            entries.append(add(entries[-1], p))
+        tables.append(stack_table(entries))
+    n_steps = max(d.shape[0] for d, _ in digits_list)
+
+    def pad(d):
+        if d is None or d.shape[0] == n_steps:
+            return d
+        return torch.cat([d.new_zeros((n_steps - d.shape[0],) + d.shape[1:]),
+                          d])
+
+    digits_list = [(pad(d), pad(ng)) for d, ng in digits_list]
+    acc = identity()
+    for s in range(n_steps):
+        acc = double_window(acc)
+        for table, (digits, negs) in zip(tables, digits_list):
+            entry = take_entry(table, digits[s], points[0])
+            if negs is not None:
+                entry = neg_select(negs[s], entry)
+            acc = add(acc, entry)
+    return acc
 
 
 def _n_lanes(x) -> int:

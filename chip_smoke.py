@@ -22,13 +22,15 @@ Phases (each prints its lines and seconds; any failed check exits non-zero):
      pairing's line scaling as movedim views with yp, xp expanded over 68,
      a 0::2 scan level, a [24, n, 1] broadcast, a [24, 1] constant) and a
      non-affine one it copies; the calls of one pairing (its folds and its
-     norm), one msm_g1 (its products) and one ntt (its twiddle doublings),
+     norm), one msm_g1 (its products), one ntt (its twiddle doublings) and
+     one call of each smul row of phase 7 at its width (by route),
      recorded with their operands' strides and replayed; and, on the
      shapes that pick the launch shape, the chosen shape beside split = 1
      and a 32-lane tile.  Each launch prints its lane tile, group slots,
      threads per group, blocks, parameter bytes, registers and spills.
      Every plan at one lane, a ragged last tile and batch 1024, the
-     group-law plans also at the MSM's widths, each with its launch shape:
+     group-law plans also at the MSM's widths and phase smul's 4096, each
+     with its launch shape:
      lane tile, blocks, threads, shared memory, phases, registers;
      `pow_fixed` at p - 2 and (p+1)/4, B = 1 and 1024, and `pow_fixed_fr`
      at q - 2, B = 1024, over the edge lanes 0, 1, 2, m-1, m-2, R mod m;
@@ -59,21 +61,34 @@ Phases (each prints its lines and seconds; any failed check exits non-zero):
      in projective coordinates and glv=False / gls=False agree; host-clock
      median of MSM_REPS runs after the warm-up, host CPU share, the MSM's
      own peak memory.
-  7. kernel times: each kernel's device time per launch at the shapes of
-     phase 3 (torch.profiler); after phases 4-6, because a profiler session
+  7. smul: bench.py:350-427's rows through the port's entry points:
+     g1.scalar_mul (GLV) at 2^10 and 2^12 lanes, g2.scalar_mul (GLS) and
+     gt.scalar_mul (GLS) at 2^10, g1/g2.is_torsion_free and
+     clear_cofactor at 2^12 (the scalar multiplications' outputs, every
+     64th lane a point outside the subgroup), g1/g2.batch_normalize at
+     10,000 points: launch counts equal the static schedule, the row's
+     checks (the split equals scalar_mul_generic on every lane, 8 lanes
+     equal the host oracle, the torsion checks exactly false outside the
+     subgroup, cleared points torsion-free and equal to the host's
+     [h_eff]P), 16 lanes on the card equal the CPU path, host-clock median
+     of SMUL_REPS runs after the counted warm-up, own peak memory.
+  8. kernel times: each kernel's device time per launch at the shapes of
+     phase 3 (torch.profiler); after phases 4-7, because a profiler session
      may slow the host's launches for the rest of the process.
-  8. fold routes: the operands read in place (`limbs.sop_fold`,
+  9. fold routes: the operands read in place (`limbs.sop_fold`,
      `limbs.sum_of_products`) against the route before the row kernel
      (operands stacked into one tensor, then the same kernel) on the same
      operands: the paths' folds of two and three groups, the line scaling
      in its own layout, T = 7, 8, the pairing's norm and an MSM scan level;
      equal values, device ms of all device work and issue ms per call.
-  9. profiles: one pairing, one NTT, one msm_g1 and one msm_g2 under
+  10. profiles: one pairing, one NTT, one msm_g1, one msm_g2 and one call
+     of each smul row under
      torch.profiler -- device time by kernel (device-side events only), the
      port kernels' ms per launch, the `CatArrayBatchedCopy` and other copy
      launches, the rows `sop_rows` copied, and the device's busy share: the
      union of kernel intervals over the unprofiled wall time.
-  10. the `kernels` JSON line, then the device JSON line last.
+  11. the `kernels` JSON line (each kernel's launches per path, the smul
+     rows' as `launches_<row>`), then the device JSON line last.
 
 The script imports nothing of the JAX package.
 """
@@ -106,6 +121,20 @@ MSM_CHECK_LOG_N = 10               # the card = CPU comparison
 MSM_REPS = 5
 PLAN_RAGGED = 1021                 # 255 tiles of 4 lanes and one of 1
 MSM_SOPS = f"sop products of one msm_g1 at 2^{MSM_LOG_N['g1']}"
+# bench.py:350-427's scalar multiplication, subgroup and normalization rows:
+# (group, function, lanes)
+SMUL_ROWS = (("g1", "scalar_mul", 1 << 10), ("g1", "scalar_mul", 1 << 12),
+             ("g2", "scalar_mul", 1 << 10),
+             ("g1", "is_torsion_free", 1 << 12),
+             ("g2", "is_torsion_free", 1 << 12),
+             ("g1", "clear_cofactor", 1 << 12),
+             ("g2", "clear_cofactor", 1 << 12),
+             ("gt", "scalar_mul", 1 << 10),
+             ("g1", "batch_normalize", 10000),
+             ("g2", "batch_normalize", 10000))
+SMUL_REPS = 5
+SMUL_CPU_LANES = 16                # the card = CPU comparison
+BAD_LANE = 17                      # lanes i % 64 == 17: a point outside G1 / G2
 POW_BLOCK = 128                    # lanes per block of pow_kernel (kPowLanes)
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 # 32-bit integer multiply-adds per second: 132 SMs x 64 per clock (CUDA C
@@ -521,6 +550,9 @@ def msm_plan_shapes():
             (pe.g1_add_mixed_plan, BATCH), (pe.g2_add_mixed_plan, BATCH))
 
 
+SMUL_PLAN_WIDTH = 1 << 12  # the widest group-law launches of phase smul
+
+
 class KernelChecks:
     """Results of phase kernels: each kernel call held against its plain
     version, timed with CUDA events, with its bound, every time and bound
@@ -568,10 +600,13 @@ def phase_kernels(device, usage):
     import torch
 
     from bls12_381_torch import entry, limbs, params
+    from bls12_381_torch.curves import g1, g2
     from bls12_381_torch.kernels import LAUNCHES, mont, plan_exec as pe
     from bls12_381_torch.ops import ntt
+    from bls12_381_torch.pairing import gt
 
     P, Q = params.P, params.Q
+    mods = {"g1": g1, "g2": g2, "gt": gt}
     MSM_PLAN_SHAPES = msm_plan_shapes()
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
@@ -662,6 +697,9 @@ def phase_kernels(device, usage):
     msm_widths = {}
     for make_plan, B in MSM_PLAN_SHAPES:
         msm_widths.setdefault(make_plan, set()).add(B)
+    # phase smul's widest launches of the add and double plans
+    for make_plan, _ in MSM_PLAN_SHAPES[:4]:
+        msm_widths[make_plan].add(SMUL_PLAN_WIDTH)
     for make_plan in pe.MAIN_PATH_PLANS + pe.GROUP_LAW_PLANS:
         for B in sorted({1, PLAN_RAGGED, BATCH} | msm_widths.get(make_plan,
                                                                  set())):
@@ -788,6 +826,28 @@ def phase_kernels(device, usage):
     del fn, pts, sc
     hold_rows(MSM_SOPS, sops)
     del sops
+
+    # the row kernel's calls of one call of each phase smul row at its
+    # width, recorded and replayed by route (the kernels line puts their
+    # ms per launch beside its sop, fold_planned and sop_fr rows): beta x,
+    # the scalars' from_mont, the psi and Frobenius folds, eq's folds at
+    # 4096 lanes, batch_normalize's scans and products at 10,000
+    outs = {}
+    for group, name, n in SMUL_ROWS:
+        label = smul_label(group, name, n)
+        args = smul_args(group, name, n, device, outs)
+        fn = getattr(mods[group], name)
+
+        def run(fn=fn, args=args, key=(group, name, n)):
+            outs[key] = fn(*args)
+
+        calls = record_rows(run)
+        for route in ("sop", "fold_planned", "sop_fr"):
+            mine = [c for c in calls if row_route(c) == route]
+            if mine:
+                hold_rows(smul_rows_key(route, label), mine)
+        del args, calls
+    del outs
 
     # --- pow_fixed: Fp at B = 1 and 1024, at p - 2 (the inversion) and
     # (p+1)/4 (a square root's exponent); pow_fixed_fr at B = 1024, q - 2
@@ -1339,8 +1399,8 @@ def expected_msm_launches(group: str, n: int, c: int, split: bool = True):
     products, one Fp inversion (one pow_fixed), two products; G2 adds the
     norm, one sop, and two products, one fold) and its x, y products (one
     fold_planned);
-    the GLV split's beta x (one sop) or the GLS split's three affine psi
-    (two Fp2 products, one fold each); then per window of
+    the GLV split's beta x (one sop) or the GLS split's three psi (one
+    fold of two Fp2 products each); then per window of
     the signed digits the segmented scan (2 lg m adds over m lanes), the
     bucket sum (a suffix scan and a halving tree over 2^(c-1) buckets:
     3 (c - 1) adds), c doublings and one add."""
@@ -1355,7 +1415,7 @@ def expected_msm_launches(group: str, n: int, c: int, split: bool = True):
     if group == "g1":
         sops, folds = inv + int(split), 1
     else:
-        sops, folds = 1 + inv, 2 + (6 if split else 0)
+        sops, folds = 1 + inv, 2 + (3 if split else 0)
     return {"sop": sops, "sqr": 0, "plan_exec": adds + windows * c,
             "sop_fr": 1, "butterfly": 0, "fold_planned": folds,
             "pow_fixed": 1, "pow_fixed_fr": 0, "copied_rows": 0,
@@ -1366,16 +1426,10 @@ def expected_msm_launches(group: str, n: int, c: int, split: bool = True):
 def affine_ints(group: str, point):
     """A projective point with an empty batch shape -> host affine ints
     (None for the identity), through the port's to_affine."""
-    from bls12_381_torch.curves import g1, g2
-    from bls12_381_torch.fields import fp, tower as tw
+    from bls12_381_torch.utils import scans
 
-    x, y, inf = {"g1": g1, "g2": g2}[group].to_affine(point)
-    if bool(inf):
-        return None
-    if group == "g1":
-        return (int(fp.to_ints(x)), int(fp.to_ints(y)))
-    (x0, x1), (y0, y1) = tw.fp2_to_ints(x), tw.fp2_to_ints(y)
-    return ((int(x0), int(x1)), (int(y0), int(y1)))
+    return affine_lanes(group, scans.tree_map(lambda t: t.unsqueeze(-1),
+                                              point), [0])[0]
 
 
 def phase_msm(device):
@@ -1447,8 +1501,7 @@ def phase_msm(device):
         cpu_res = fn_s(scans.tree_map(lambda t: t.cpu(), pts_s), sc_s.cpu())
         cpu_s = time.perf_counter() - t1
         torch.set_num_threads(1)
-        if not all(torch.equal(a.cpu(), b) for a, b in
-                   zip(scans.tree_leaves(card), scans.tree_leaves(cpu_res))):
+        if not same_tree(card, cpu_res):
             fail(f"msm_{group} at 2^{MSM_CHECK_LOG_N}: the card differs "
                  "from the CPU path")
         if not bool(mod.eq(card, fn_s(pts_s, sc_s, msm.MSM_WINDOW, False))):
@@ -1465,6 +1518,365 @@ def phase_msm(device):
             points_per_s=n / med, host_cpu_share=sum(cpu) / sum(wall))
         out[group] = (counts, med, fn, pts, sc)
     return out
+
+
+def expected_smul_launches(group: str, name: str, n: int) -> dict:
+    """Kernel launches of one call of a phase smul row over n >= 16 lanes,
+    from the static schedules of curves/, pairing/gt.py and limbs.py:
+      - scalar_mul: from_mont of the scalars (one sop_fr); tables of
+        identity, P, ..., 8P per point (7 adds; Gt: 16 entries, 14
+        products), then per 4-bit digit step 4 doublings (Gt: one
+        fp12_cyclotomic_sqr_k(4)) and one add per point: G1 two points
+        over 33 steps, beta x (one sop); G2 four over 17, three psi (one
+        fold each); Gt four over 16, three Frobenius maps (three folds
+        each);
+      - mul_by_const(k): a doubling per bit of k, an add per set bit;
+        is_torsion_free: G1 two [|z|] chains, beta x, the fold of eq; G2
+        one chain, psi, the fold of eq; clear_cofactor: G1 [h_eff], G2
+        three chains, five adds, a doubling, three psi;
+      - batch_normalize: the z inversions (`batch_inv`: two product scans
+        of 2 lg n products, one pow_fixed, two products; G2 first the norm,
+        one sop) and the x, y products (one fold; G2 one more for
+        fp2_batch_inv's two products)."""
+    from bls12_381_torch import params
+
+    def lg(m):
+        return (m - 1).bit_length()
+
+    x = params.BLS_X
+    out = {"sop": 0, "sqr": 0, "plan_exec": 0, "sop_fr": 0, "butterfly": 0,
+           "fold_planned": 0, "pow_fixed": 0, "pow_fixed_fr": 0,
+           "copied_rows": 0}
+    plans = {}
+
+    def plan(what, k):
+        key = {"add": f"{group}_add_plan", "double": f"{group}_double_plan",
+               "mul": "fp12_mul_plan",
+               "sqr4": "fp12_cyclotomic_sqr_k_plan(4)"}[what]
+        plans[key] = plans.get(key, 0) + k
+
+    def mul_by_const(k):
+        plan("double", k.bit_length())
+        plan("add", bin(k).count("1"))
+
+    if name == "scalar_mul":
+        out["sop_fr"] = 1
+        if group == "gt":
+            steps = 64 // 4
+            out["fold_planned"] = 3 * 3
+            plan("mul", 4 * 14 + 4 * steps)
+            plan("sqr4", steps)
+        else:
+            points, bits = {"g1": (2, 128), "g2": (4, 64)}[group]
+            steps = -(-(bits + 1) // 4)
+            out["sop" if group == "g1" else "fold_planned"] = \
+                1 if group == "g1" else 3
+            plan("add", points * 7 + points * steps)
+            plan("double", 4 * steps)
+    elif name == "is_torsion_free":
+        for _ in range({"g1": 2, "g2": 1}[group]):
+            mul_by_const(x)
+        if group == "g1":
+            out["sop"], out["fold_planned"] = 1, 1
+        else:
+            out["fold_planned"] = 2
+    elif name == "clear_cofactor":
+        if group == "g1":
+            mul_by_const(params.H_EFF_G1)
+        else:
+            for _ in range(3):
+                mul_by_const(x)
+            plan("add", 5)
+            plan("double", 1)
+            out["fold_planned"] = 3
+    elif name == "batch_normalize":
+        out["sop"] = 4 * lg(n) + 2 + (group == "g2")
+        out["pow_fixed"] = 1
+        out["fold_planned"] = {"g1": 1, "g2": 2}[group]
+    else:
+        raise ValueError(f"no schedule for {group}.{name}")
+    out["plan_exec"] = sum(plans.values())
+    out["plan_exec_by_plan"] = plans
+    return out
+
+
+def smul_label(group: str, name: str, n: int) -> str:
+    return f"{group}_{name}_{n}"
+
+
+def smul_args(group: str, name: str, n: int, device, outs: dict):
+    """The inputs of a phase smul row: scalar_mul's from entry.smul_inputs;
+    the subgroup rows' the scalar_mul output at n lanes (outs[(group,
+    "scalar_mul", n)], made untimed where no row made it) with the lanes
+    i % 64 == BAD_LANE outside the subgroup, cached in outs;
+    batch_normalize's from normalize_inputs."""
+    from bls12_381_torch import entry
+    from bls12_381_torch.curves import g1, g2
+
+    if name == "scalar_mul":
+        return entry.smul_inputs(n.bit_length() - 1, group, seed=SEED,
+                                 device=device)
+    if name == "batch_normalize":
+        return (normalize_inputs(group, n, device),)
+    key = (group, "subgroup", n)
+    if key not in outs:
+        prev = outs.get((group, "scalar_mul", n))
+        if prev is None:
+            prev = {"g1": g1, "g2": g2}[group].scalar_mul(*entry.smul_inputs(
+                n.bit_length() - 1, group, seed=SEED, device=device))
+        outs[key] = with_bad_lanes(group, prev, device)
+    return (outs[key],)
+
+
+def row_route(call) -> str:
+    """The counter a recorded `sop_rows` call adds to: sop (Fp, one
+    group), fold_planned (Fp, G >= 2) or sop_fr (Fr)."""
+    if call[0].n_limbs == 16:
+        return "sop_fr"
+    return "fold_planned" if len(call[4]) > 1 else "sop"
+
+
+def smul_rows_key(route: str, label: str) -> str:
+    return f"{route} calls of one {label}"
+
+
+def normalize_inputs(group: str, n: int, device):
+    """Projective P_i = [i+1]G over n lanes (a scan of the group law; z is
+    not one), the lanes i % 64 == 5 the identity, as entry.msm_inputs makes
+    them for a power of two."""
+    import torch
+
+    from bls12_381_torch import entry
+    from bls12_381_torch.curves import g1, g2
+    from bls12_381_torch.utils import scans
+
+    mod = {"g1": g1, "g2": g2}[group]
+    pts = scans.inclusive_scan(mod.add, mod.generator((n,), device),
+                               mod.identity((1,), device))
+    lane = torch.arange(n, device=device) % entry.MSM_LANE_CYCLE
+    return scans.tree_map(
+        lambda i, p: torch.where(lane == entry.MSM_IDENTITY_LANE, i, p),
+        mod.identity((n,), device), pts)
+
+
+def with_bad_lanes(group: str, pts, device):
+    """pts with the lanes i % 64 == BAD_LANE replaced by the host's point
+    outside the subgroup (hostmath.g1/g2_point_outside_subgroup)."""
+    import torch
+
+    from bls12_381_torch import hostmath as hm
+    from bls12_381_torch.curves import g1, g2
+    from bls12_381_torch.fields import fp, tower as tw
+    from bls12_381_torch.utils import scans
+
+    n = scans.tree_leaves(pts)[0].shape[-1]
+    if group == "g1":
+        x, y = hm.g1_point_outside_subgroup()
+        bad = g1.from_affine((fp.const(x, (n,), device),
+                              fp.const(y, (n,), device),
+                              torch.zeros(n, dtype=torch.bool,
+                                          device=device)))
+    else:
+        x, y = hm.g2_point_outside_subgroup()
+        bad = g2.from_affine((tw.fp2_const(x, (n,), device),
+                              tw.fp2_const(y, (n,), device),
+                              torch.zeros(n, dtype=torch.bool,
+                                          device=device)))
+    mask = torch.arange(n, device=device) % 64 == BAD_LANE
+    return scans.tree_map(lambda b, p: torch.where(mask, b, p), bad, pts)
+
+
+def affine_to_host(group: str, aff):
+    """Host affine ints (None for the identity) of an affine batch."""
+    from bls12_381_torch.fields import fp, tower as tw
+
+    x, y, inf = aff
+    if group == "g1":
+        xy = ((int(a), int(b)) for a, b in zip(fp.to_ints(x), fp.to_ints(y)))
+    else:
+        (x0, x1), (y0, y1) = tw.fp2_to_ints(x), tw.fp2_to_ints(y)
+        xy = (((int(a), int(b)), (int(c), int(d)))
+              for a, b, c, d in zip(x0, x1, y0, y1))
+    return [None if i else v for v, i in zip(xy, inf.tolist())]
+
+
+def pick_lanes(t, lanes):
+    """A nested tuple of tensors at some lanes of its last axis."""
+    import torch
+
+    from bls12_381_torch.utils import scans
+
+    idx = torch.tensor(lanes, device=scans.tree_leaves(t)[0].device)
+    return scans.tree_map(lambda x: x.index_select(-1, idx), t)
+
+
+def affine_lanes(group: str, pts, lanes):
+    """Host affine ints of a projective batch at some lanes, through the
+    port's to_affine on the device."""
+    from bls12_381_torch.curves import g1, g2
+
+    return affine_to_host(group, {"g1": g1, "g2": g2}[group].to_affine(
+        pick_lanes(pts, lanes)))
+
+
+def gt_lanes(f, lanes):
+    """Host Fp12 values (nested int tuples) of a Gt batch at some lanes."""
+    from bls12_381_torch.fields import tower as tw
+
+    h = tw.fp12_to_host(f)
+    return [tuple(tuple((int(c[0][i]), int(c[1][i])) for c in c6)
+                  for c6 in h) for i in lanes]
+
+
+def same_tree(a, b) -> bool:
+    """Two nested tuples of tensors hold equal limbs (any devices)."""
+    from bls12_381_torch.utils import scans
+
+    return all(x.cpu().equal(y.cpu()) for x, y in
+               zip(scans.tree_leaves(a), scans.tree_leaves(b)))
+
+
+def phase_smul(device):
+    """bench.py:350-427's rows through the port's entry points: for each row
+    the inputs, one counted call (the warm-up: launch counts against
+    `expected_smul_launches`, own peak memory), SMUL_REPS host-clock runs,
+    and the row's checks:
+      - scalar_mul (inputs `entry.smul_inputs`): equal to
+        scalar_mul_generic on every lane (`eq`, projective), 8 lanes
+        (an identity lane, a zero scalar) equal the host's [k (i+1)]G or
+        e(G1, G2)^k after to_affine;
+      - is_torsion_free (the scalar_mul outputs at 2^12, lanes i % 64 ==
+        BAD_LANE a point outside the subgroup): true exactly off those
+        lanes;
+      - clear_cofactor (the same points): torsion-free on every lane and
+        equal to the host's [h_eff]P on sample lanes;
+      - batch_normalize (`normalize_inputs`): 8 lanes equal [i+1]G;
+    and on SMUL_CPU_LANES lanes the card equals the CPU path limb for limb
+    (projective coordinates).  Returns per row (counts, median seconds,
+    the call)."""
+    import torch
+
+    from bls12_381_torch import entry, hostmath as hm, params
+    from bls12_381_torch.curves import g1, g2
+    from bls12_381_torch.kernels import LAUNCHES
+    from bls12_381_torch.pairing import gt
+    from bls12_381_torch.utils import scans
+
+    q = params.Q
+    r_inv = pow(1 << 256, -1, q)
+    mods = {"g1": g1, "g2": g2, "gt": gt}
+    gens = {"g1": params.G1_GEN, "g2": params.G2_GEN}
+    mul = {"g1": hm.g1_mul, "g2": hm.g2_mul}
+    clear = {"g1": hm.g1_clear_cofactor, "g2": hm.g2_clear_cofactor}
+    outs, rows = {}, {}
+
+    def to_cpu(t):
+        return scans.tree_map(lambda x: x.cpu(), t)
+
+    for group, name, n in SMUL_ROWS:
+        label = smul_label(group, name, n)
+        mod = mods[group]
+        fn = getattr(mod, name)
+        t0 = time.perf_counter()
+        args = smul_args(group, name, n, device, outs)
+        torch.cuda.synchronize()
+        inputs_s = time.perf_counter() - t0
+
+        # the row's path, counted (the warm-up of the timed runs)
+        LAUNCHES.reset()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        counts = LAUNCHES.snapshot()
+        peak = torch.cuda.max_memory_allocated() - held
+        want = expected_smul_launches(group, name, n)
+        say("smul", row=label, n=n, inputs_seconds=inputs_s,
+            first_seconds=first_s, launches=counts, expected=want,
+            peak_bytes=peak, held_bytes=held)
+        if counts != want:
+            fail(f"{label}: launch counts {counts} differ from the schedule "
+                 f"{want}")
+        outs[(group, name, n)] = out
+
+        # checks
+        t0 = time.perf_counter()
+        check = {}
+        cycle = entry.MSM_LANE_CYCLE
+        if name == "scalar_mul":
+            lanes = [0, 1, entry.MSM_IDENTITY_LANE, entry.MSM_ZERO_LANE,
+                     cycle - 1, n // 2 + 3, n - 2, n - 1]
+            ks = [m * r_inv % q for m in limb_ints(args[1])]
+            generic = mod.scalar_mul_generic(*args)
+            if not bool(mod.eq(out, generic).all()):
+                fail(f"{label}: the split and scalar_mul_generic differ")
+            if group == "gt":
+                inf = [False] * n
+                g = hm.gt_generator()
+                want_h = [hm.fp12_pow(g, ks[i]) for i in lanes]
+                got_h = gt_lanes(out, lanes)
+            else:
+                inf = mod.is_identity(args[0]).cpu().tolist()
+                want_h = [None if inf[i] else
+                          mul[group](gens[group], ks[i] * (i + 1) % q)
+                          for i in lanes]
+                got_h = affine_lanes(group, out, lanes)
+            if got_h != want_h:
+                fail(f"{label}: lanes {lanes} differ from the host oracle")
+            check.update(generic_equal=True, host_lanes=lanes,
+                         identity_points=sum(inf[i] for i in lanes),
+                         zero_scalars=sum(ks[i] == 0 for i in lanes))
+        elif name == "is_torsion_free":
+            bad = (torch.arange(n) % 64 == BAD_LANE)
+            if not torch.equal(out.cpu(), ~bad):
+                fail(f"{label}: not exactly false at the lanes outside the "
+                     "subgroup")
+            check.update(false_lanes=int(bad.sum()))
+        elif name == "clear_cofactor":
+            if not bool(mod.is_torsion_free(out).all()):
+                fail(f"{label}: a cleared point is not torsion-free")
+            lanes = [BAD_LANE, 64 + BAD_LANE, 0, n - 1]
+            src = affine_lanes(group, args[0], lanes)
+            if affine_lanes(group, out, lanes) != [clear[group](p)
+                                                   for p in src]:
+                fail(f"{label}: lanes {lanes} differ from the host's "
+                     "[h_eff]P")
+            check.update(torsion_free=True, host_lanes=lanes)
+        else:
+            lanes = [0, 1, entry.MSM_IDENTITY_LANE, cycle - 1, 5000, n - 1]
+            want_h = [None if i % cycle == entry.MSM_IDENTITY_LANE else
+                      mul[group](gens[group], i + 1) for i in lanes]
+            if affine_to_host(group, pick_lanes(out, lanes)) != want_h:
+                fail(f"{label}: lanes {lanes} are not [i+1]G")
+            check.update(host_lanes=lanes)
+        # the card equals the CPU path on SMUL_CPU_LANES lanes: the first
+        # ones (an identity point, a zero scalar), two outside the
+        # subgroup, the last two
+        lanes = list(range(SMUL_CPU_LANES - 4)) + [BAD_LANE, 64 + BAD_LANE,
+                                                   n - 2, n - 1]
+        sub = tuple(pick_lanes(a, lanes) for a in args)
+        torch.set_num_threads(max(1, min(8, os.cpu_count() or 1)))
+        t1 = time.perf_counter()
+        cpu_out = fn(*(to_cpu(a) for a in sub))
+        cpu_s = time.perf_counter() - t1
+        torch.set_num_threads(1)
+        if not same_tree(fn(*sub), cpu_out):
+            fail(f"{label}: the card differs from the CPU path at lanes "
+                 f"{lanes}")
+        say("smul", row=label, checks="passed", cpu_lanes=lanes,
+            cpu_path_seconds=cpu_s,
+            host_check_seconds=time.perf_counter() - t0, **check)
+
+        # host clock around synchronized work, after the counted warm-up
+        wall, cpu = host_times(lambda fn=fn, args=args: fn(*args),
+                               reps=SMUL_REPS)
+        med = statistics.median(wall)
+        say("smul", row=label, seconds=wall, median_seconds=med,
+            per_s=n / med, host_cpu_share=sum(cpu) / sum(wall))
+        rows[label] = (counts, med, fn, args)
+    return rows
 
 
 def phase_profile(label: str, fn, wall_s: float) -> dict:
@@ -1548,6 +1960,7 @@ def main() -> None:
     counts, med, (p_aff, q_aff) = phase("main", phase_main, device)
     counts_ntt, med_ntt, x = phase("ntt", phase_ntt, device)
     msms = phase("msm", phase_msm, device)
+    smuls = phase("smul", phase_smul, device)
     phase("kernel_times", phase_kernel_times, results, timed)
     del timed
     phase("fold_routes", phase_fold_routes, device)
@@ -1561,17 +1974,28 @@ def main() -> None:
     for group, (_, med_msm, fn, pts, sc) in msms.items():
         phase(f"profile_msm_{group}", phase_profile, f"msm_{group}",
               lambda fn=fn, pts=pts, sc=sc: fn(pts, sc), med_msm)
+    for label, (_, med_row, fn, args) in smuls.items():
+        phase(f"profile_{label}", phase_profile, label,
+              lambda fn=fn, args=args: fn(*args), med_row)
 
     from bls12_381_torch.kernels import plan_exec as pe
 
+    def smul_launches(counter, plan=None):
+        """A kernel's launches in one call of each phase smul row."""
+        return {f"launches_{label}": (
+            c["plan_exec_by_plan"].get(plan, 0) if plan else c[counter])
+            for label, (c, *_) in smuls.items()}
+
     def entry(name, source, replaces, launches, key, **extra):
         r = results[key]
+        counter, _, plan = name.partition(":")
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": None,
-                "shape": key, "mismatches": r["mismatches"], **extra}
+                "shape": key, "mismatches": r["mismatches"],
+                **smul_launches(counter, plan), **extra}
 
     src = "bls12_381_torch/kernels/csrc/"
     pallas = "bls12_381_tpu/kernels/pallas_mont.py"
@@ -1583,6 +2007,16 @@ def main() -> None:
         r = results[key]
         return {f"{prefix}_shape": key, **{f"{prefix}_{k}": r[k] for k in (
             "ms", "bound_ms", "plain_ms", "mismatches", "max_abs_err")}}
+
+    def smul_beside(route):
+        """The row kernel's calls of each phase smul row on one route,
+        replayed in phase kernels: their numbers per launch."""
+        out = {}
+        for group, name, n in SMUL_ROWS:
+            label = smul_label(group, name, n)
+            if smul_rows_key(route, label) in results:
+                out.update(beside(label, smul_rows_key(route, label)))
+        return out
 
     def launch(key):
         """A row-kernel row's launch shape(s), as phase kernels printed."""
@@ -1601,7 +2035,7 @@ def main() -> None:
               PAIRING_NORM, note=rows_note,
               launches_msm_g1=msm_counts["g1"]["sop"],
               launches_msm_g2=msm_counts["g2"]["sop"], **launch(PAIRING_NORM),
-              **beside("msm_g1", MSM_SOPS),
+              **beside("msm_g1", MSM_SOPS), **smul_beside("sop"),
               **beside("stacked", f"sop T=2 B={BATCH}")),
         entry("sqr", src + "mont.cu", f"{pallas}:711", counts["sqr"],
               f"sqr G=1 B={BATCH}",
@@ -1626,7 +2060,8 @@ def main() -> None:
               launches_msm_g2=msm_counts["g2"]["fold_planned"],
               **launch(PAIRING_FOLDS),
               **beside("line_scaling", "sop_rows line scaling, movedim "
-                       "views and yp, xp expanded over 68")),
+                       "views and yp, xp expanded over 68"),
+              **smul_beside("fold_planned")),
     ]
     for make_plan in pe.MAIN_PATH_PLANS:
         plan = pe.compile_plan(make_plan())
@@ -1634,19 +2069,22 @@ def main() -> None:
             f"plan_exec:{plan.name}", src + "plan_exec.cu", plan_src,
             counts["plan_exec_by_plan"].get(plan.name, 0),
             f"plan_exec {plan.name} B={BATCH}"))
-    # the group-law plans: launches per msm of their group
+    # the group-law plans: launches per msm of their group, phase smul's
+    # widest launches beside them
     for make_plan, B in msm_plan_shapes()[:4]:
         plan = pe.compile_plan(make_plan())
         kernels.append(entry(
             f"plan_exec:{plan.name}", src + "plan_exec.cu", plan_src,
             msm_counts[plan.name[:2]]["plan_exec_by_plan"][plan.name],
-            f"plan_exec {plan.name} B={B}"))
+            f"plan_exec {plan.name} B={B}",
+            **beside(f"b{SMUL_PLAN_WIDTH}",
+                     f"plan_exec {plan.name} B={SMUL_PLAN_WIDTH}")))
     # the NTT's kernels: launches per ntt at 2^20; ms, plain ms and bound
     # per launch at the shapes the ntt launches (its twiddle doublings, a
     # stage)
     kernels.append(entry("sop_fr", src + "fr.cu", f"{pallas}:620",
                          counts_ntt["sop_fr"], DOUBLINGS, note=rows_note,
-                         **launch(DOUBLINGS)))
+                         **launch(DOUBLINGS), **smul_beside("sop_fr")))
     kernels.append(entry("butterfly", src + "fr.cu", f"{pallas}:414",
                          counts_ntt["butterfly"], f"butterfly B={NTT_N // 2}"))
     say("phase", name="total", seconds=time.perf_counter() - t_all)

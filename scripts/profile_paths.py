@@ -14,8 +14,9 @@ of one run (median of N after a warm-up, ending in a synchronize), the
 device time of one run under torch.profiler (device-side events only), the
 device's busy share of the wall, the launches and device ms of the
 `CatArrayBatchedCopy` kernels (torch.cat / torch.stack) and of the other
-copy kernels, and those of the port's kernels by name.  It imports nothing
-of JAX.
+copy kernels, those of the port's kernels by name, and the run's own peak
+of allocated device memory above what was held before it.  It imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -74,6 +75,12 @@ def measure(label: str, fn, reps: int) -> dict:
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     wall_ms = statistics.median(walls) * 1e3
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
     evs = device_events(fn)
 
     def total(pick):
@@ -90,6 +97,7 @@ def measure(label: str, fn, reps: int) -> dict:
                                                            for w in walls],
             "device_ms": sum(e - s for _, s, e in evs) / 1e3,
             "busy_share": busy_us(evs) / 1e3 / wall_ms,
+            "own_peak_bytes": peak,
             "launches": len(evs),
             "cat_copies": total(lambda n: "CatArrayBatchedCopy" in n),
             "other_copies": total(lambda n: "copy" in n.lower()

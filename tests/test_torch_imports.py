@@ -56,6 +56,14 @@ def test_entry_defaults_to_the_card():
         limbs.resolve_device("cuda")
 
 
+@pytest.mark.parametrize("group", ["g1", "g2", "gt"])
+def test_smul_entry_defaults_to_the_card(group):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        entry.smul_entry(2, group)
+
+
 def test_wrappers_take_the_plain_path_only_for_cpu_tensors():
     x = torch.zeros((1, 24, 2), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):

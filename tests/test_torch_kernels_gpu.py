@@ -15,8 +15,10 @@ import numpy as np
 import pytest
 import torch
 
-from bls12_381_torch import entry, limbs, params
-from bls12_381_torch.fields import fr
+from bls12_381_torch import entry, hostmath as hm, limbs, params
+from bls12_381_torch.curves import g1, g2
+from bls12_381_torch.fields import fr, tower as tw
+from bls12_381_torch.pairing import gt
 from bls12_381_torch.kernels import LAUNCHES, mont, plan_exec as pe
 from bls12_381_torch.ops import ntt
 from bls12_381_torch.utils import scans
@@ -92,7 +94,9 @@ def test_plan_kernel_matches_plain(cuda, make_plan, B):
     assert torch.equal(got.cpu(), pe.plan_exec_plain(ops.cpu(), plan))
 
 
-@pytest.mark.parametrize("B", PLAN_WIDTHS)
+# the group-law plans also at 4096 lanes, the widest of the scalar
+# multiplications and subgroup checks in chip_smoke.py
+@pytest.mark.parametrize("B", PLAN_WIDTHS + [4096])
 @pytest.mark.parametrize("make_plan", pe.GROUP_LAW_PLANS,
                          ids=lambda b: b.__name__)
 def test_group_law_plan_kernel_matches_plain(cuda, make_plan, B):
@@ -347,8 +351,55 @@ def test_msm_on_card_matches_cpu(cuda, group):
     assert counts["plan_exec"] > 0 and counts["sop_fr"] == 1
     assert counts["pow_fixed"] == 1 and counts["sqr"] == 0
     # to_affine's x, y products; on G2 also fp2_batch_inv's two products
-    # and the GLS split's six Fp2 products (psi)
-    assert counts["fold_planned"] == {"g1": 1, "g2": 8}[group]
+    # and the GLS split's three psi (two Fp2 products in one fold each)
+    assert counts["fold_planned"] == {"g1": 1, "g2": 5}[group]
     ref = fn(scans.tree_map(lambda t: t.cpu(), pts), sc.cpu(), 6)
     assert all(torch.equal(a.cpu(), b) for a, b in
                zip(scans.tree_leaves(got), scans.tree_leaves(ref)))
+
+
+def _bad_point(group, n, device):
+    """n lanes of the host's point outside G1 / G2, projective."""
+    mod = {"g1": g1, "g2": g2}[group]
+    const = {"g1": lambda v: limbs.const(limbs.FP, v, (n,), device),
+             "g2": lambda v: tw.fp2_const(v, (n,), device)}[group]
+    x, y = getattr(hm, f"{group}_point_outside_subgroup")()
+    return mod.from_affine((const(x), const(y), torch.zeros(
+        n, dtype=torch.bool, device=device)))
+
+
+# every public function of the scalar multiplication, subgroup and Gt slice
+SMUL_FUNCTIONS = [(g, name) for g in ("g1", "g2") for name in (
+    "scalar_mul", "scalar_mul_generic", "mul_by_x", "is_torsion_free",
+    "clear_cofactor")] + [("g2", "psi2"), ("gt", "scalar_mul"),
+                          ("gt", "scalar_mul_generic"), ("gt", "fp12_pow")]
+
+
+@pytest.mark.parametrize("group,name", SMUL_FUNCTIONS)
+def test_smul_on_card_matches_cpu(cuda, group, name):
+    """16 lanes (`entry.smul_inputs`: an identity point, a zero scalar; for
+    the subgroup functions lane 3 a point outside the subgroup) on the card
+    against the CPU path, limb for limb in projective coordinates."""
+    bases, sc = entry.smul_inputs(4, group, seed=11)
+    if group == "gt":
+        fn = (lambda a: tw.fp12_pow(a, params.BLS_X)) if name == "fp12_pow" \
+            else getattr(gt, name)
+    else:
+        fn = getattr({"g1": g1, "g2": g2}[group], name)
+    if name in ("scalar_mul", "scalar_mul_generic"):
+        args = (bases, sc)
+    else:
+        bad = _bad_point(group, 16, cuda) if group != "gt" else bases
+        lane = torch.arange(16, device=cuda) == 3
+        args = (scans.tree_map(lambda b, p: torch.where(lane, b, p), bad,
+                               bases),)
+    LAUNCHES.reset()
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert LAUNCHES.plan_exec + LAUNCHES.fold_planned > 0
+    assert LAUNCHES.copied_rows == 0
+    ref = fn(*scans.tree_map(lambda t: t.cpu(), args))
+    assert all(torch.equal(a.cpu(), b) for a, b in
+               zip(scans.tree_leaves(got), scans.tree_leaves(ref)))
+    if name == "is_torsion_free":
+        assert got.cpu().tolist() == [i != 3 for i in range(16)]

@@ -182,6 +182,6 @@ def test_scalar_splits_match_jax():
         assert [int(v) for v in limbs.to_ints(limbs.FR, r, from_mont=False)] \
             == [k % d for k in ks]
     for c, bits in ((4, 128), (12, 255), (12, 64)):
-        mags, negs = msm._signed_digits(tc, c, bits)
+        mags, negs = limbs.signed_digits_lsb(tc, bits, c)
         jm, jn = jmsm._signed_digits(jc, c, bits)
         assert same(mags, jm) and same(negs, jn)
