@@ -1,15 +1,18 @@
 """Batched G2: E'(Fp2): y^2 = x^3 + 4(u + 1) (reference src/g2.rs),
-counterpart of `bls12_381_tpu/curves/g2.py` without the byte codecs: the
-group law, psi, the GLS scalar multiplication, Budroni-Pintore cofactor
-clearing and the psi-based subgroup check.
+counterpart of `bls12_381_tpu/curves/g2.py`: the group law, psi, the GLS
+scalar multiplication, Budroni-Pintore cofactor clearing, the psi-based
+subgroup check and the byte codecs.
 
 Points are tuples of Fp2 elements (pairs of Fp limb tensors): projective
 (x, y, z), affine (x, y, inf_mask).  A plan takes each Fp2 coordinate as
-its (c0, c1) rows.
+its (c0, c1) rows.  Encodings are numpy uint8 [*batch, 96] (compressed)
+or [*batch, 192] (uncompressed), an Fp2 element as c1 then c0
+(g2.rs:254-282).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import hostmath as hm
@@ -148,3 +151,99 @@ def to_affine(p):
 
 
 batch_normalize = to_affine
+
+
+# ---------------------------------------------------------------------------
+# Serialization (g1.py's split: bytes on the host, the square root and the
+# checks on the device)
+# ---------------------------------------------------------------------------
+
+
+def _to_bytes_host(coords, inf) -> np.ndarray:
+    """Fp2 coordinates (zero on the identity) -> uint8 [*batch, 96 k], each
+    as c1 then c0, from one product launch."""
+    batch, dev = inf.shape, inf.device
+    zero = tw.fp2_zero(batch, dev)
+    rows = [c for x in coords for c in reversed(tw.fp2_select(inf, zero, x))]
+    out = fp.to_bytes_host(torch.stack(rows, -1))
+    return out.reshape(tuple(batch) + (48 * len(rows),))
+
+
+def to_compressed_host(aff) -> np.ndarray:
+    """Affine batch -> uint8 [*batch, 96]."""
+    x, y, inf = aff
+    out = _to_bytes_host([x], inf)
+    inf_np, large = _g1.masks_host(inf, tw.fp2_lexicographically_largest(y))
+    return _g1.set_flags(out, True, inf_np, large & ~inf_np)
+
+
+def to_uncompressed_host(aff) -> np.ndarray:
+    """Affine batch -> uint8 [*batch, 192]: x then y."""
+    x, y, inf = aff
+    return _g1.set_flags(_to_bytes_host([x, y], inf), False,
+                         inf.cpu().numpy(), False)
+
+
+def _fp2_from_bytes(body: np.ndarray, k: int, device):
+    """uint8 [*batch, 96 k] -> (k Fp2 elements, numpy mask: every half
+    < p), from one product launch."""
+    m, ok = fp.from_bytes_host(body.reshape(body.shape[:-1] + (2 * k, 48)),
+                               device)
+    return [(m[..., 2 * i + 1], m[..., 2 * i]) for i in range(k)], ok.all(-1)
+
+
+def _decompress_device(x, inf, sort, check_subgroup: bool):
+    """g1._decompress_device over Fp2: y from `tw.fp2_sqrt` of
+    x^3 + 4(u + 1) (two Fp2 power launches)."""
+    batch, dev = inf.shape, inf.device
+    rhs = tw.fp2_add(tw.fp2_mul(tw.fp2_sqr(x), x),
+                     tw.fp2_const(params.B_G2, batch, dev))
+    y, on_curve = tw.fp2_sqrt(rhs)
+    flip = tw.fp2_lexicographically_largest(y) != sort
+    y = tw.fp2_select(flip, tw.fp2_neg(y), y)
+    aff = (tw.fp2_select(inf, tw.fp2_zero(batch, dev), x),
+           tw.fp2_select(inf, tw.fp2_one(batch, dev), y), inf)
+    tf = is_torsion_free(from_affine(aff)) if check_subgroup else \
+        torch.ones(batch, dtype=torch.bool, device=dev)
+    return aff, on_curve, tw.fp2_is_zero(x), tf
+
+
+def from_compressed_host(data, check_subgroup: bool = True, device="cuda"):
+    """uint8 [*batch, 96] -> (affine batch on `device`, numpy valid mask),
+    with g1.from_compressed_host's rules over Fp2."""
+    data = np.asarray(data, dtype=np.uint8)
+    comp, inf, sort = _g1.flags(data)
+    (x,), x_ok = _fp2_from_bytes(_g1.bodies(data, 96), 1, device)
+    dev = x[0].device
+    aff, on_curve, x_zero, tf = _decompress_device(
+        x, torch.from_numpy(inf).to(dev), torch.from_numpy(sort).to(dev),
+        check_subgroup)
+    on_curve, x_zero, tf = _g1.masks_host(on_curve, x_zero, tf)
+    valid = comp & x_ok & (~inf | (x_zero & ~sort)) & (inf | on_curve)
+    return aff, valid & (tf | inf)
+
+
+def _from_uncompressed_device(x, y, inf, check: bool):
+    batch, dev = inf.shape, inf.device
+    zeros = tw.fp2_is_zero(x) & tw.fp2_is_zero(y)
+    aff = (tw.fp2_select(inf, tw.fp2_zero(batch, dev), x),
+           tw.fp2_select(inf, tw.fp2_one(batch, dev), y), inf)
+    if check:
+        proj = from_affine(aff)
+        ok = is_on_curve(proj) & (is_torsion_free(proj) | inf)
+    else:
+        ok = torch.ones(batch, dtype=torch.bool, device=dev)
+    return aff, zeros, ok
+
+
+def from_uncompressed_host(data, check: bool = True, device="cuda"):
+    """uint8 [*batch, 192] -> (affine batch on `device`, numpy valid mask),
+    with g1.from_uncompressed_host's rules over Fp2."""
+    data = np.asarray(data, dtype=np.uint8)
+    comp, inf, sort = _g1.flags(data)
+    (x, y), ok = _fp2_from_bytes(_g1.bodies(data, 192), 2, device)
+    aff, zeros, on = _from_uncompressed_device(
+        x, y, torch.from_numpy(inf).to(x[0].device), check)
+    zeros, on = _g1.masks_host(zeros, on)
+    valid = ~comp & ~sort & ok & (~inf | zeros)
+    return aff, valid & on

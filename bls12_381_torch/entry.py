@@ -1,6 +1,7 @@
 """Entry points of the port's paths: the batched optimal-ate pairing, the
-radix-2 NTT over Fr, the G1/G2 multi-scalar multiplication and the batched
-scalar multiplication of G1, G2 and Gt.
+radix-2 NTT over Fr, the G1/G2 multi-scalar multiplication, the batched
+scalar multiplication of G1, G2 and Gt, the G1/G2 point decoders and
+hash to curve.
 
 `entry()` mirrors `__graft_entry__.entry()` of the JAX package: it returns
 the pairing function and example inputs e([i+1]G1, [2i+1]G2), i < batch, on
@@ -10,10 +11,19 @@ returns the NTT and random coefficients at N = 2^log_n, as `bench.py`'s
 N = 2^log_n points [i+1]G with random scalars.  `smul_entry()` returns
 `g1.scalar_mul`, `g2.scalar_mul` or `gt.scalar_mul` and N = 2^log_n bases
 with one random scalar each, as `bench.py`'s `bench_curves` times them.
+`codec_entry()` returns `from_compressed_host` or `from_uncompressed_host`
+of G1 or G2 and the encodings of `msm_inputs`' points, a point outside the
+subgroup in every 64th lane, as `bench.py`'s `bench_deserialize` rows at
+2^10.  `h2c_entry()` returns `hash_to_curve_*` or `encode_to_curve_*` with
+device expansion and 256 random 32-byte messages under one DST, as
+`bench.py`'s `bench_h2c` times them.
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from . import hostmath as hm
@@ -21,14 +31,19 @@ from . import params
 from .curves import g1 as G1
 from .curves import g2 as G2
 from .fields import fp, tower as tw
+from .hash_to_curve import h2c
 from .limbs import DTYPE, FR, resolve_device
 from .ops import msm, ntt
 from .pairing import gt, pairing
 from .utils import scans
 
 # lanes i of msm_inputs with i % MSM_LANE_CYCLE == MSM_IDENTITY_LANE hold the
-# identity point, those with i % MSM_LANE_CYCLE == MSM_ZERO_LANE the scalar 0
+# identity point, those with i % MSM_LANE_CYCLE == MSM_ZERO_LANE the scalar 0;
+# codec_inputs puts a point outside the subgroup at the lanes with
+# i % MSM_LANE_CYCLE == CODEC_BAD_LANE
 MSM_LANE_CYCLE, MSM_IDENTITY_LANE, MSM_ZERO_LANE = 64, 5, 9
+CODEC_BAD_LANE = 17
+H2C_DST = b"BENCH-DST_"
 
 
 def tiny_pairing_inputs(batch: int, device="cuda"):
@@ -143,3 +158,54 @@ def smul_entry(log_n: int = 10, group: str = "g1", seed: int = 5,
     `gt.scalar_mul` (GLS), each [k_i] B_i per lane, and `smul_inputs`."""
     fn = {"g1": G1.scalar_mul, "g2": G2.scalar_mul, "gt": gt.scalar_mul}[group]
     return fn, smul_inputs(log_n, group, seed, device)
+
+
+def codec_inputs(log_n: int = 10, group: str = "g1",
+                 form: str = "compressed", device="cuda") -> np.ndarray:
+    """Encodings uint8 [2^log_n, n] of the affine [i+1]G of `msm_inputs`
+    (the identity at its identity lanes) with the lanes
+    i % MSM_LANE_CYCLE == CODEC_BAD_LANE replaced by
+    `hostmath.g{1,2}_point_outside_subgroup()`, through the port's own
+    encoder (`to_compressed_host` or `to_uncompressed_host`)."""
+    mod = {"g1": G1, "g2": G2}[group]
+    n = 1 << log_n
+    dev = resolve_device(device)
+    x, y, inf = mod.to_affine(msm_inputs(log_n, group, device=dev)[0])
+    bad = torch.arange(n, device=dev) % MSM_LANE_CYCLE == CODEC_BAD_LANE
+    if group == "g1":
+        bx, by = (fp.const(c, (n,), device=dev)
+                  for c in hm.g1_point_outside_subgroup())
+    else:
+        bx, by = (tw.fp2_const(c, (n,), dev)
+                  for c in hm.g2_point_outside_subgroup())
+    x, y = scans.tree_map(lambda b, p: torch.where(bad, b, p), (bx, by),
+                          (x, y))
+    return getattr(mod, f"to_{form}_host")((x, y, inf & ~bad))
+
+
+def codec_entry(log_n: int = 10, group: str = "g1",
+                form: str = "compressed", device="cuda"):
+    """(fn, example_args): `from_compressed_host` (subgroup check on) or
+    `from_uncompressed_host` (check on) of G1 or G2, decoding onto
+    `device`, and `codec_inputs`."""
+    mod = {"g1": G1, "g2": G2}[group]
+    fn = functools.partial(getattr(mod, f"from_{form}_host"),
+                           device=resolve_device(device))
+    return fn, (codec_inputs(log_n, group, form, device),)
+
+
+def h2c_inputs(log_n: int = 8) -> np.ndarray:
+    """2^log_n random 32-byte messages, uint8 [2^log_n, 32], from
+    `np.random.RandomState(5)` (`bench.py`'s `bench_h2c` at 256)."""
+    return np.random.RandomState(5).randint(
+        0, 256, size=(1 << log_n, 32)).astype(np.uint8)
+
+
+def h2c_entry(log_n: int = 8, group: str = "g1", kind: str = "hash",
+              device="cuda"):
+    """(fn, example_args): `hash_to_curve_g1/_g2` (kind "hash") or
+    `encode_to_curve_g1/_g2` (kind "encode") with device expansion onto
+    `device`, and (`h2c_inputs`, H2C_DST)."""
+    fn = functools.partial(getattr(h2c, f"{kind}_to_curve_{group}"),
+                           expand="device", device=resolve_device(device))
+    return fn, (h2c_inputs(log_n), H2C_DST)

@@ -5,7 +5,9 @@
   Fp12 = Fp6[w]/(w^2 - v)         elements: (c0, c1) tuples of Fp6
 
 Counterpart of `bls12_381_tpu/fields/tower.py` in its default
-configuration.  Every Fp12 multiplication-type operation runs as one
+configuration.  An Fp2 power by a public exponent (`fp2_pow`, two in every
+`fp2_sqrt`) is one launch of the Fp2 power kernel (`mont.fp2_pow_fixed`).
+Every Fp12 multiplication-type operation runs as one
 expression plan (`kernels/plan_exec.py`): the plan kernel on a CUDA tensor,
 its plain version on a CPU tensor.  Fp2 and Fp6 products are folds of fused
 Fp sums of products (`fp.sop_fold`: one `fold_planned` launch for two or
@@ -16,9 +18,10 @@ into few carry networks.  Results are canonical, so they equal the JAX package's
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-from .. import hostmath as hm
-from ..kernels import plan_exec as pe
+from .. import hostmath as hm, params
+from ..kernels import mont, plan_exec as pe
 from . import fp
 
 CYCLO_FUSE = 4  # cyclotomic squarings chained per plan launch in exp-by-|z|
@@ -156,6 +159,53 @@ def fp2_const(c, batch=(), device="cuda"):
     """A host (c0, c1) integer pair as a broadcast constant."""
     return (fp.const(c[0], batch, device=device),
             fp.const(c[1], batch, device=device))
+
+
+def fp2_lexicographically_largest(a):
+    """c1-major lexicographic order (fp2.rs:171-180): both halves'
+    canonical values from one product launch."""
+    large = fp.lexicographically_largest(
+        torch.stack(torch.broadcast_tensors(*a), 1))  # [2, *batch]
+    return large[1] | (fp.is_zero(a[1]) & large[0])
+
+
+def fp2_sgn0(a):
+    """sgn0 for m = 2 (draft-16 §4.1; map_g2.rs:381-388): both halves'
+    parities from one product launch."""
+    s = fp.sgn0_mont(torch.stack(torch.broadcast_tensors(*a), 1)) != 0
+    return s[0] | (fp.is_zero(a[0]) & s[1])
+
+
+def fp2_pow(a, e: int):
+    """a^e for a public exponent: ONE launch of the Fp2 power kernel
+    (`mont.fp2_pow_fixed`) over the flattened batch; a CPU tensor takes its
+    plain version, the JAX package's bit schedule (tower.py:287-309).  e = 0
+    is one without a launch, as in the JAX package."""
+    a0, a1 = torch.broadcast_tensors(*a)
+    if e == 0:
+        return fp2_one(a0.shape[1:], a0.device)
+    c0, c1 = mont.fp2_pow_fixed(a0.reshape(fp.FP.n_limbs, -1),
+                                a1.reshape(fp.FP.n_limbs, -1), e)
+    return c0.reshape(a0.shape), c1.reshape(a0.shape)
+
+
+def fp2_sqrt(a):
+    """Square root in Fp2 with a fixed schedule (ePrint 2012/685 Alg. 9,
+    the algorithm family of fp2.rs:245-295) and the JAX package's root
+    choice: (root, ok).  Both branches run and are mask-selected; two
+    `fp2_pow` launches."""
+    batch, dev = a[0].shape[1:], a[0].device
+    a1 = fp2_pow(a, (params.P - 3) // 4)
+    alpha = fp2_mul(fp2_sqr(a1), a)
+    x0 = fp2_mul(a1, a)
+    # alpha == -1: root = u x0
+    is_m1 = fp2_eq(alpha, fp2_const((params.P - 1, 0), batch, dev))
+    root_m1 = (fp.neg(x0[1]), x0[0])
+    # otherwise: root = (1 + alpha)^((p-1)/2) x0
+    b = fp2_pow(fp2_add(fp2_one(batch, dev), alpha), (params.P - 1) // 2)
+    root = fp2_select(is_m1, root_m1, fp2_mul(b, x0))
+    root = fp2_select(fp2_is_zero(a), fp2_zero(batch, dev), root)
+    return root, fp2_eq(fp2_sqr(root), a)
 
 
 # =========================================================================

@@ -8,13 +8,17 @@ e(G1, G2) that `pairing/gt.py` embeds (a host pairing: affine Miller loop,
 final exponentiation by the plain exponent), square roots to build points
 outside the subgroups, and the affine group law (add, neg, scalar
 multiple, torsion test, cofactor clearing; None is the point at infinity)
-that the entry points and the checks use.  Tests hold the port against
-the full oracle; nothing here is on the device path.
+that the entry points and the checks use.  Its G1/G2 byte codecs are the
+oracle of the device codecs, and its hash_to_field (expand_message_xmd /
+xof by hashlib, the OKM reductions) is `hash_to_curve`'s host expander.
+Tests hold the port against the full oracle; nothing here runs on the
+device.
 """
 
 from __future__ import annotations
 
 import functools
+import hashlib
 
 from .params import (B_G1, B_G2, BLS_X, BLS_X_IS_NEGATIVE, G1_GEN, G2_GEN,
                      H_EFF_G1, H_EFF_G2, P, Q)
@@ -231,6 +235,12 @@ class _Curve:
     def neg(self, pt):
         return None if pt is None else (pt[0], self.sub(self.zero, pt[1]))
 
+    def is_on_curve(self, pt):
+        if pt is None:
+            return True
+        x, y = pt
+        return self.mul(y, y) == self.add(self.mul(self.mul(x, x), x), self.b)
+
     def double(self, pt):
         if pt is None or pt[1] == self.zero:
             return None
@@ -267,6 +277,7 @@ _G2 = _Curve(fp2_add, fp2_sub, fp2_mul, fp2_inv, B_G2, FP2_ZERO)
 
 g1_add, g1_neg, g1_mul = _G1.add_points, _G1.neg, _G1.scalar_mul
 g2_add, g2_neg, g2_mul = _G2.add_points, _G2.neg, _G2.scalar_mul
+g1_is_on_curve, g2_is_on_curve = _G1.is_on_curve, _G2.is_on_curve
 
 
 def g1_is_torsion_free(pt):
@@ -387,3 +398,229 @@ def pairing(p, q):
 def gt_generator():
     """e(G1, G2), the generator of Gt (pairings.rs:359-475)."""
     return pairing(G1_GEN, G2_GEN)
+
+
+# --- signs and serialization (notes/serialization.rs, g1.rs:221-390) -----
+
+
+def fp_lexicographically_largest(a):
+    """a > (p - 1) / 2 (fp.rs:273)."""
+    return a % P > (P - 1) // 2
+
+
+def fp2_lexicographically_largest(a):
+    """c1-major lexicographic order (fp2.rs:171-180)."""
+    if a[1] % P != 0:
+        return fp_lexicographically_largest(a[1])
+    return fp_lexicographically_largest(a[0])
+
+
+def fp_to_bytes(a):
+    return (a % P).to_bytes(48, "big")
+
+
+def fp_from_bytes(data):
+    v = int.from_bytes(data, "big")
+    return v if v < P else None
+
+
+def fp2_to_bytes(a):
+    """Fp2 serializes c1 then c0 (g2.rs:254-282)."""
+    return fp_to_bytes(a[1]) + fp_to_bytes(a[0])
+
+
+def _flags(data):
+    """(compression, infinity, sort) bits of an encoding's first byte."""
+    return data[0] >> 7 & 1, data[0] >> 6 & 1, data[0] >> 5 & 1
+
+
+def g1_to_compressed(pt):
+    if pt is None:
+        return bytes([0b1100_0000]) + bytes(47)
+    out = bytearray(fp_to_bytes(pt[0]))
+    out[0] |= 0b1000_0000
+    if fp_lexicographically_largest(pt[1]):
+        out[0] |= 0b0010_0000
+    return bytes(out)
+
+
+def g1_to_uncompressed(pt):
+    if pt is None:
+        return bytes([0b0100_0000]) + bytes(95)
+    return fp_to_bytes(pt[0]) + fp_to_bytes(pt[1])
+
+
+def g1_from_compressed(data, check_subgroup=True):
+    """The point, or ValueError for a malformed encoding."""
+    compression, infinity, sort = _flags(data)
+    if not compression:
+        raise ValueError("compression flag not set")
+    x = fp_from_bytes(bytes([data[0] & 0b0001_1111]) + data[1:48])
+    if x is None:
+        raise ValueError("non-canonical x")
+    if infinity:
+        if sort or x != 0:
+            raise ValueError("malformed infinity encoding")
+        return None
+    y = fp_sqrt((x * x % P * x + B_G1) % P)
+    if y is None:
+        raise ValueError("x not on curve")
+    if fp_lexicographically_largest(y) != bool(sort):
+        y = (-y) % P
+    if check_subgroup and not g1_is_torsion_free((x, y)):
+        raise ValueError("not in subgroup")
+    return (x, y)
+
+
+def g1_from_uncompressed(data, check=True):
+    compression, infinity, sort = _flags(data)
+    if compression or sort:
+        raise ValueError("bad flags")
+    x = fp_from_bytes(bytes([data[0] & 0b0001_1111]) + data[1:48])
+    y = fp_from_bytes(data[48:96])
+    if x is None or y is None:
+        raise ValueError("non-canonical coordinate")
+    if infinity:
+        if x != 0 or y != 0:
+            raise ValueError("malformed infinity encoding")
+        return None
+    if check and not (g1_is_on_curve((x, y)) and g1_is_torsion_free((x, y))):
+        raise ValueError("invalid point")
+    return (x, y)
+
+
+def g2_to_compressed(pt):
+    if pt is None:
+        return bytes([0b1100_0000]) + bytes(95)
+    out = bytearray(fp2_to_bytes(pt[0]))
+    out[0] |= 0b1000_0000
+    if fp2_lexicographically_largest(pt[1]):
+        out[0] |= 0b0010_0000
+    return bytes(out)
+
+
+def g2_to_uncompressed(pt):
+    if pt is None:
+        return bytes([0b0100_0000]) + bytes(191)
+    return fp2_to_bytes(pt[0]) + fp2_to_bytes(pt[1])
+
+
+def g2_from_compressed(data, check_subgroup=True):
+    compression, infinity, sort = _flags(data)
+    if not compression:
+        raise ValueError("compression flag not set")
+    xc1 = fp_from_bytes(bytes([data[0] & 0b0001_1111]) + data[1:48])
+    xc0 = fp_from_bytes(data[48:96])
+    if xc0 is None or xc1 is None:
+        raise ValueError("non-canonical x")
+    if infinity:
+        if sort or xc0 != 0 or xc1 != 0:
+            raise ValueError("malformed infinity encoding")
+        return None
+    x = (xc0, xc1)
+    y = fp2_sqrt(fp2_add(fp2_mul(fp2_square(x), x), B_G2))
+    if y is None:
+        raise ValueError("x not on curve")
+    if fp2_lexicographically_largest(y) != bool(sort):
+        y = fp2_neg(y)
+    if check_subgroup and not g2_is_torsion_free((x, y)):
+        raise ValueError("not in subgroup")
+    return (x, y)
+
+
+def g2_from_uncompressed(data, check=True):
+    compression, infinity, sort = _flags(data)
+    if compression or sort:
+        raise ValueError("bad flags")
+    xc1 = fp_from_bytes(bytes([data[0] & 0b0001_1111]) + data[1:48])
+    xc0 = fp_from_bytes(data[48:96])
+    yc1 = fp_from_bytes(data[96:144])
+    yc0 = fp_from_bytes(data[144:192])
+    if None in (xc0, xc1, yc0, yc1):
+        raise ValueError("non-canonical coordinate")
+    if infinity:
+        if (xc0, xc1, yc0, yc1) != (0, 0, 0, 0):
+            raise ValueError("malformed infinity encoding")
+        return None
+    pt = ((xc0, xc1), (yc0, yc1))
+    if check and not (g2_is_on_curve(pt) and g2_is_torsion_free(pt)):
+        raise ValueError("invalid point")
+    return pt
+
+
+# --- hash_to_field (draft-irtf-cfrg-hash-to-curve-16 §5; expand_msg.rs) --
+
+
+def expand_message_xmd(msg: bytes, dst: bytes, len_in_bytes: int,
+                       hash_name="sha256"):
+    """expand_message_xmd (draft-16 §5.3.1, expand_msg.rs:230-328), a DST
+    over 255 bytes first reduced (§5.3.3)."""
+    h = hashlib.new(hash_name)
+    b_in_bytes, s_in_bytes = h.digest_size, h.block_size
+    if len(dst) > 255:
+        dst = hashlib.new(hash_name, b"H2C-OVERSIZE-DST-" + dst).digest()
+    ell = -(-len_in_bytes // b_in_bytes)
+    if ell > 255 or len_in_bytes > 65535:
+        raise ValueError("len_in_bytes too large")
+    dst_prime = dst + bytes([len(dst)])
+    b0 = hashlib.new(hash_name, bytes(s_in_bytes) + msg
+                     + len_in_bytes.to_bytes(2, "big") + b"\x00"
+                     + dst_prime).digest()
+    blocks = [hashlib.new(hash_name, b0 + b"\x01" + dst_prime).digest()]
+    for i in range(2, ell + 1):
+        xored = bytes(a ^ b for a, b in zip(b0, blocks[-1]))
+        blocks.append(hashlib.new(hash_name, xored + bytes([i])
+                                  + dst_prime).digest())
+    return b"".join(blocks)[:len_in_bytes]
+
+
+def expand_message_xof(msg: bytes, dst: bytes, len_in_bytes: int,
+                       hash_name="shake_128"):
+    """expand_message_xof (draft-16 §5.3.2, expand_msg.rs:167-217), a DST
+    over 255 bytes first reduced to 2k/8 bytes (k = 128 or 256)."""
+    if len(dst) > 255:
+        k = 128 if hash_name == "shake_128" else 256
+        dst = hashlib.new(hash_name, b"H2C-OVERSIZE-DST-" + dst).digest(
+            2 * k // 8)
+    if len_in_bytes > 65535:
+        raise ValueError("len_in_bytes too large")
+    return hashlib.new(hash_name, msg + len_in_bytes.to_bytes(2, "big") + dst
+                       + bytes([len(dst)])).digest(len_in_bytes)
+
+
+def fp_from_okm(okm: bytes):
+    """L = 64 bytes, big-endian, as two 32-byte halves db 2^256 + da
+    (map_g1.rs:513-531)."""
+    if len(okm) != 64:
+        raise ValueError("fp_from_okm takes 64 bytes")
+    db = int.from_bytes(okm[:32], "big") % P
+    da = int.from_bytes(okm[32:], "big") % P
+    return (db * (1 << 256) + da) % P
+
+
+def fp2_from_okm(okm: bytes):
+    if len(okm) != 128:
+        raise ValueError("fp2_from_okm takes 128 bytes")
+    return (fp_from_okm(okm[:64]), fp_from_okm(okm[64:]))
+
+
+def fr_from_okm(okm: bytes):
+    """L = 48 bytes, big-endian, reduced mod q (map_scalar.rs:10-23)."""
+    if len(okm) != 48:
+        raise ValueError("fr_from_okm takes 48 bytes")
+    return int.from_bytes(okm, "big") % Q
+
+
+def hash_to_field_fp(msg, dst, count, expand=expand_message_xmd, **kw):
+    okm = expand(msg, dst, count * 64, **kw)
+    return [fp_from_okm(okm[i * 64:(i + 1) * 64]) for i in range(count)]
+
+
+def hash_to_field_fp2(msg, dst, count, expand=expand_message_xmd, **kw):
+    okm = expand(msg, dst, count * 128, **kw)
+    return [fp2_from_okm(okm[i * 128:(i + 1) * 128]) for i in range(count)]
+
+
+def hash_to_field_fr(msg, dst, count, expand=expand_message_xmd, **kw):
+    okm = expand(msg, dst, count * 48, **kw)
+    return [fr_from_okm(okm[i * 48:(i + 1) * 48]) for i in range(count)]

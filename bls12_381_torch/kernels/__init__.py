@@ -1,4 +1,6 @@
-"""Hand-written Hopper kernels of the port and their launch counts.
+"""Hand-written Hopper kernels of the port and their launch counts (and
+the device SHA-256 / Keccak expanders, `sha256.py` and `keccak.py`: plain
+PyTorch ops, as the JAX package's are plain jnp).
 
 Each wrapper adds one to its count in `LAUNCHES` where it launches its CUDA
 kernel, and nowhere else (a CPU tensor takes the plain PyTorch version and
@@ -24,6 +26,7 @@ class LaunchCounts:
     fold_planned: int = 0
     pow_fixed: int = 0
     pow_fixed_fr: int = 0
+    fp2_pow_fixed: int = 0
     copied_rows: int = 0
     plan_exec_by_plan: collections.Counter = dataclasses.field(
         default_factory=collections.Counter)
@@ -31,7 +34,8 @@ class LaunchCounts:
     def reset(self) -> None:
         self.sop = self.sqr = self.plan_exec = 0
         self.sop_fr = self.butterfly = self.fold_planned = 0
-        self.pow_fixed = self.pow_fixed_fr = self.copied_rows = 0
+        self.pow_fixed = self.pow_fixed_fr = self.fp2_pow_fixed = 0
+        self.copied_rows = 0
         self.plan_exec_by_plan.clear()
 
     def snapshot(self) -> dict:
@@ -39,6 +43,7 @@ class LaunchCounts:
                 "sop_fr": self.sop_fr, "butterfly": self.butterfly,
                 "fold_planned": self.fold_planned,
                 "pow_fixed": self.pow_fixed, "pow_fixed_fr": self.pow_fixed_fr,
+                "fp2_pow_fixed": self.fp2_pow_fixed,
                 "copied_rows": self.copied_rows,
                 "plan_exec_by_plan": dict(self.plan_exec_by_plan)}
 

@@ -59,7 +59,7 @@ extern "C" int bls_sop_rows_fr(const SopRow* rows, int n_rows,
 extern "C" int bls_pow_fixed_fr(const void* a, void* out,
                                 const uint8_t* digits, int n_digits, int B,
                                 void* stream) {
-  return launch_pow<Field>(a, out, digits, n_digits, B, stream);
+  return launch_pow<FpElem<Field>>(&a, &out, digits, n_digits, B, stream);
 }
 
 extern "C" int bls_butterfly(const void* a, const void* b, const void* w,

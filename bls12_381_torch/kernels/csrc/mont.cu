@@ -16,6 +16,10 @@
 //            a int32 [24, B]; e as n_digits host uint8 4-bit digits, most
 //            significant first, n_digits <= 256 (montgomery.cuh's pow_kernel
 //            for Fp)
+//   bls_fp2_pow_fixed:
+//            (out0 + out1 u)[:, b] = (a0 + a1 u)[:, b]^e in Fp2 = Fp[u]/(u^2+1),
+//            Montgomery form, a0, a1, out0, out1 int32 [24, B]; e as for
+//            bls_pow_fixed (montgomery.cuh's pow_kernel for Fp2)
 //
 // The C functions launch on the given stream and return cudaGetLastError().
 #include "fp384.cuh"
@@ -66,5 +70,13 @@ extern "C" int bls_sqr(const void* a, void* out, int G, int B, void* stream) {
 
 extern "C" int bls_pow_fixed(const void* a, void* out, const uint8_t* digits,
                              int n_digits, int B, void* stream) {
-  return launch_pow<Field>(a, out, digits, n_digits, B, stream);
+  return launch_pow<FpElem<Field>>(&a, &out, digits, n_digits, B, stream);
+}
+
+extern "C" int bls_fp2_pow_fixed(const void* a0, const void* a1, void* out0,
+                                 void* out1, const uint8_t* digits,
+                                 int n_digits, int B, void* stream) {
+  const void* a[2] = {a0, a1};
+  void* out[2] = {out0, out1};
+  return launch_pow<Fp2Elem<Field>>(a, out, digits, n_digits, B, stream);
 }

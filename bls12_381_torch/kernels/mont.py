@@ -19,6 +19,10 @@ fixed-exponent power template: the JAX package's `limbs.pow_fixed`
 (limbs.py:693, a scan of `sqr_pallas` and `sop_pallas` launches: 14 table
 products, then 4 squares and a product per 4-bit digit) in one launch, so
 `sqr_pallas`'s body (`sqr_wide`) reaches the paths through it.
+`fp2_pow_fixed` (`csrc/mont.cu`, the same template over Fp2 elements) does
+the same for the JAX package's `tower.fp2_pow` (tower.py:287, a scan over the
+exponent's bits of fp2_sqr, fp2_mul and a select, whose Fp products are
+`sop_pallas` launches): the Fp2 square roots' powers, one launch each.
 
 Design.  The 16-bit limbs of each operand are packed into 32-bit words in
 registers (12 for Fp, 8 for Fr), a group's products are summed into a
@@ -63,7 +67,13 @@ as the JAX schedule has it.  A block holds 128 lanes (`kPowLanes`, fixed at
 compile time): at B = 1024 a launch at p - 2 took 0.560 ms with 128 lanes
 per block, 0.635 with 64 and 0.708 with 32, and 0.556 at B = 1
 (`chip_smoke.py`, NVIDIA H100 80GB HBM3 at 700 W; PERF.md).  Why the
-smaller blocks are slower has not been traced.
+smaller blocks are slower has not been traced.  The Fp2 instance runs
+that plan with the accumulator's two halves in registers (140-150 of them,
+no spill) and a 16-entry table of Fp2 values (192 KB per 128-lane
+block, one block per SM): a product is two 2-term sums with one reduction
+each, a square two products.  At (p-1)/2 it took 1.513 ms at B = 1024
+with 128 lanes per block, 1.698 with 64, 1.912 with 32, and 1.443 at
+B = 1 (same card and script).
 
 Bound on the card.  A T = 1 Fp product reads 2 x 24 and writes 24 int32
 words per lane (288 bytes) and does 2 x 12 x 12 word products plus the
@@ -78,7 +88,10 @@ butterfly reads 3 x 64 and writes 2 x 64 bytes per lane (320 bytes) for
 about 270 IMADs: bound by memory, ~50 us per NTT stage of 2^19 lanes.  A
 power moves 2 L words per lane but runs ~480 dependent products (p - 2):
 at B = 1024 its multiplies are ~14 us of the card's rate, spread over only
-32 warps, so its time is the chain's latency.  The kernels keep every
+32 warps, so its time is the chain's latency; the Fp2 power's
+multiplies, its products counted at Karatsuba's three word products (~2.5
+times as many per lane), are ~0.036 ms at B = 1024, and it runs at about 40
+times that for the same reason.  The kernels keep every
 intermediate in registers or shared memory (nothing but the operands and
 the result touches device memory); packing the boundary to 32-bit words
 would halve their bytes and is left to a later change.
@@ -116,6 +129,8 @@ _ROW = struct.Struct("<Qiiii")
 
 POW_WINDOW = 4            # bits per digit of pow_fixed (the JAX default)
 POW_DIGITS = 256          # digits the pow kernel takes by value (1024 bits)
+POW_LANES = 128           # lanes (threads) per block of the pow kernel
+                          # (montgomery.cuh's kPowLanes)
 
 _POW_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_int, ctypes.c_void_p)
@@ -133,6 +148,9 @@ _SIGNATURES = {
                 ctypes.c_int, ctypes.c_void_p),
     # (a, out, digits [host uint8], n_digits, B, stream)
     "bls_pow_fixed": _POW_ARGS,
+    # (a0, a1, out0, out1, digits [host uint8], n_digits, B, stream)
+    "bls_fp2_pow_fixed": (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 2 + (
+        ctypes.c_void_p,),
 }
 _SIGNATURES_FR = {
     "bls_sop_rows_fr": _ROWS_ARGS,
@@ -316,6 +334,39 @@ def pow_fixed_plain(spec: limbs.FieldSpec, a: torch.Tensor,
             acc = mul(acc, acc)
         acc = mul(acc, table[d])
     return acc
+
+
+def fp2_pow_plain(a0: torch.Tensor, a1: torch.Tensor,
+                  exponent: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(a0 + a1 u)^exponent in Fp2 for int32 [24, *batch] x2 by the JAX
+    package's bit schedule (`tower.fp2_pow`, tower.py:287-309): from one,
+    per bit of the exponent, zero-padded to at least p's 381 bits, a square
+    and then the product by a where the bit is set (the JAX select by the
+    static bit keeps the product exactly there).  Both halves of a square,
+    (a0 + a1)(a0 - a1) and a0 a1 + a0 a1, and of a product, a0 b0 + a1 (-b1)
+    and a0 b1 + a1 b0, are one `_sop_plain` call over a stacked axis."""
+    if not isinstance(exponent, int) or exponent < 0:
+        raise ValueError(f"fp2_pow: exponent {exponent!r} is not an int "
+                         ">= 0")
+    spec = limbs.FP
+    zero = torch.zeros_like(a0)
+    nb1 = limbs.neg(spec, a1)
+
+    def sums(terms):
+        """[(x0, y0, x1, y1), ...] terms -> (sum x0 y0, sum x1 y1)."""
+        x = torch.stack([torch.stack([t[0], t[2]], 1) for t in terms])
+        y = torch.stack([torch.stack([t[1], t[3]], 1) for t in terms])
+        return _sop_plain(spec, x, y).unbind(1)  # [T, 24, 2, *batch]
+
+    c0 = limbs._col(spec.one_mont, a0, limbs.DTYPE).expand(a0.shape)
+    c1 = zero
+    width = max(exponent.bit_length(), spec.modulus.bit_length())
+    for i in range(width - 1, -1, -1):
+        s, d = limbs.add(spec, c0, c1), limbs.sub(spec, c0, c1)
+        c0, c1 = sums([(s, d, c0, c1), (zero, zero, c0, c1)])
+        if (exponent >> i) & 1:
+            c0, c1 = sums([(c0, a0, c0, a1), (c1, nb1, c1, a0)])
+    return c0, c1
 
 
 # ---------------------------------------------------------------------------
@@ -560,29 +611,35 @@ def butterfly(a: torch.Tensor, b: torch.Tensor,
     return out
 
 
-def _pow_launch(fn, spec: limbs.FieldSpec, a: torch.Tensor, exponent: int,
+def _pow_launch(fn, spec: limbs.FieldSpec, operands, exponent: int,
                 name: str):
-    """Validate and launch a fixed-exponent power kernel on int32 [L, B];
-    returns None for a CPU tensor (the caller runs the plain version)."""
+    """Validate the components (one for Fp or Fr, two for Fp2), each int32
+    [L, B] on one device, and launch a fixed-exponent power kernel:
+    returns [components, L, B], or None for CPU tensors (the caller runs
+    the plain version)."""
     n = spec.n_limbs
-    if a.dtype != limbs.DTYPE or a.dim() != 2 or a.shape[0] != n:
-        raise ValueError(f"{name}: expected int32 [{n}, B], got "
-                         f"{tuple(a.shape)} {a.dtype}")
+    for a in operands:
+        if a.dtype != limbs.DTYPE or a.dim() != 2 or a.shape[0] != n:
+            raise ValueError(f"{name}: expected int32 [{n}, B], got "
+                             f"{tuple(a.shape)} {a.dtype}")
+        _check_pair(operands[0], a, name)
     digits = pow_digits(exponent, spec.modulus)
     if len(digits) > POW_DIGITS:
         raise ValueError(f"{name}: a {exponent.bit_length()}-bit exponent; "
                          f"the kernel takes up to {POW_WINDOW * POW_DIGITS} "
                          "bits")
-    if device_kind(a) == "cpu":
+    if device_kind(operands[0]) == "cpu":
         return None
-    a = a.contiguous()
-    out = torch.empty_like(a)
-    B = a.shape[1]
+    operands = [a.contiguous() for a in operands]
+    B = operands[0].shape[1]
+    out = torch.empty((len(operands), n, B), dtype=limbs.DTYPE,
+                      device=operands[0].device)
     if B == 0:
         return out
-    with torch.cuda.device(a.device):
-        rc = fn()(a.data_ptr(), out.data_ptr(), digits.ctypes.data,
-                  len(digits), B, _stream(a))
+    with torch.cuda.device(out.device):
+        rc = fn()(*(a.data_ptr() for a in operands),
+                  *(o.data_ptr() for o in out), digits.ctypes.data,
+                  len(digits), B, _stream(out))
         setattr(LAUNCHES, name, getattr(LAUNCHES, name) + 1)
     check_launch(rc, name)
     return out
@@ -591,14 +648,26 @@ def _pow_launch(fn, spec: limbs.FieldSpec, a: torch.Tensor, exponent: int,
 def pow_fixed(a: torch.Tensor, exponent: int) -> torch.Tensor:
     """a^exponent in Montgomery form for a public exponent < 2^1024: int32
     [24, B] -> [24, B], the whole chain in one launch."""
-    out = _pow_launch(lambda: _lib().bls_pow_fixed, limbs.FP, a, exponent,
+    out = _pow_launch(lambda: _lib().bls_pow_fixed, limbs.FP, [a], exponent,
                       "pow_fixed")
-    return pow_fixed_plain(limbs.FP, a, exponent) if out is None else out
+    return pow_fixed_plain(limbs.FP, a, exponent) if out is None else out[0]
+
+
+def fp2_pow_fixed(a0: torch.Tensor, a1: torch.Tensor, exponent: int):
+    """(a0 + a1 u)^exponent in Fp2, Montgomery form, for a public exponent
+    < 2^1024: int32 [24, B] x2 -> (c0, c1), the whole chain in one launch
+    of the pow kernel's Fp2 instance (the JAX package's `tower.fp2_pow`, a scan of
+    sop_pallas launches, tower.py:287)."""
+    out = _pow_launch(lambda: _lib().bls_fp2_pow_fixed, limbs.FP, [a0, a1],
+                      exponent, "fp2_pow_fixed")
+    if out is None:
+        return fp2_pow_plain(a0, a1, exponent)
+    return out[0], out[1]
 
 
 def pow_fixed_fr(a: torch.Tensor, exponent: int) -> torch.Tensor:
     """a^exponent mod q in Montgomery form for a public exponent < 2^1024:
     int32 [16, B] -> [16, B], the whole chain in one launch."""
-    out = _pow_launch(lambda: _lib_fr().bls_pow_fixed_fr, limbs.FR, a,
+    out = _pow_launch(lambda: _lib_fr().bls_pow_fixed_fr, limbs.FR, [a],
                       exponent, "pow_fixed_fr")
-    return pow_fixed_plain(limbs.FR, a, exponent) if out is None else out
+    return pow_fixed_plain(limbs.FR, a, exponent) if out is None else out[0]

@@ -501,6 +501,20 @@ def select(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor):
     return torch.where(mask.unsqueeze(0), a, b)
 
 
+def gt_half(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
+    """a > (m-1)/2 for canonical limbs, i.e. `lexicographically_largest`
+    (fp.rs:273): no borrow out of a - (m+1)/2."""
+    a64 = a.long()
+    half = params.to_limbs((spec.modulus + 1) // 2, spec.n_limbs)
+    _, borrow = _sub_limbs(a64, _col(half, a64), spec.n_limbs)
+    return borrow == 0
+
+
+def sgn0(a: torch.Tensor) -> torch.Tensor:
+    """Parity of the canonical value (draft-16 sgn0 for m = 1), int32."""
+    return a[0] & 1
+
+
 # ---------------------------------------------------------------------------
 # Exponentiation by a fixed public exponent
 # ---------------------------------------------------------------------------
@@ -640,6 +654,7 @@ def wide_reduce(spec: FieldSpec, lo: torch.Tensor, hi: torch.Tensor):
     """(lo + hi R) mod p in Montgomery form, for raw limb tensors lo, hi
     (any value < R): lo R^2 R^-1 + hi R^3 R^-1 (scalar.rs:300-331).  A
     product with one canonical operand reduces to < R p / R + p = 2p, so
-    the raw inputs are legal for the kernels too."""
-    return add(spec, mont_mul(spec, lo, _col(spec.r2_limbs, lo, DTYPE)),
-               mont_mul(spec, hi, _col(spec.r3_limbs, hi, DTYPE)))
+    the raw inputs are legal for the kernels too.  Both products are one
+    fold."""
+    return add(spec, *mul_many(spec, [(lo, _col(spec.r2_limbs, lo, DTYPE)),
+                                      (hi, _col(spec.r3_limbs, hi, DTYPE))]))

@@ -64,12 +64,25 @@ def test_smul_entry_defaults_to_the_card(group):
         entry.smul_entry(2, group)
 
 
+@pytest.mark.parametrize("make", [
+    lambda: entry.codec_entry(2, "g1", "compressed"),
+    lambda: entry.codec_entry(2, "g2", "uncompressed"),
+    lambda: entry.h2c_entry(1, "g2", "hash")])
+def test_codec_and_h2c_entries_default_to_the_card(make):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make()
+
+
 def test_wrappers_take_the_plain_path_only_for_cpu_tensors():
     x = torch.zeros((1, 24, 2), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         mont.sop(x, x)
     with pytest.raises(ValueError, match="unsupported device"):
         mont.sqr(x)
+    with pytest.raises(ValueError, match="unsupported device"):
+        mont.fp2_pow_fixed(x[0], x[0], 3)
     plan = pe.compile_plan(pe.fp12_sqr_plan())
     with pytest.raises(ValueError, match="unsupported device"):
         pe.plan_exec(torch.zeros((12, 24, 2), dtype=torch.int32,

@@ -307,6 +307,37 @@ def test_pow_kernel_matches_plain(cuda, wrapper, B, name):
     assert torch.equal(got, mont.pow_fixed_plain(spec, a, e))
 
 
+# the Fp2 square root's two exponents beside 0 (one), 1 (a) and 2
+FP2_POW_EXPONENTS = {"(p-3)/4": (P - 3) // 4, "(p-1)/2": (P - 1) // 2,
+                     "0": 0, "1": 1, "2": 2}
+FP2_EDGES = ((0, 0), (1, 0), (0, 1), (P - 1, P - 1), (0, P - 1), (P - 1, 0))
+
+
+def fp2_pow_operand(B: int, device, seed: int):
+    """Random canonical (a0, a1) [24, B]; lanes 0..5 hold FP2_EDGES, as
+    many as B has room for."""
+    a0 = pow_operand(limbs.FP, B, "cpu", seed)
+    a1 = pow_operand(limbs.FP, B, "cpu", seed + 1)
+    for lane, (x, y) in enumerate(FP2_EDGES[:B]):
+        a0[:, lane] = torch.tensor(params.to_limbs(x, 24))
+        a1[:, lane] = torch.tensor(params.to_limbs(y, 24))
+    return a0.to(device), a1.to(device)
+
+
+@pytest.mark.parametrize("name", list(FP2_POW_EXPONENTS))
+@pytest.mark.parametrize("B", [1, 1021, 1024])
+def test_fp2_pow_kernel_matches_plain(cuda, B, name):
+    """One launch; B = 1021 a ragged block."""
+    a0, a1 = fp2_pow_operand(B, cuda, seed=B)
+    e = FP2_POW_EXPONENTS[name]
+    LAUNCHES.reset()
+    got = mont.fp2_pow_fixed(a0, a1, e)
+    torch.cuda.synchronize()
+    assert LAUNCHES.snapshot()["fp2_pow_fixed"] == 1
+    want = mont.fp2_pow_plain(a0, a1, e)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
 def test_ntt_on_card_matches_cpu(cuda):
     log_n = 12
     x = entry.ntt_inputs(log_n, seed=5)
@@ -403,3 +434,48 @@ def test_smul_on_card_matches_cpu(cuda, group, name):
                zip(scans.tree_leaves(got), scans.tree_leaves(ref)))
     if name == "is_torsion_free":
         assert got.cpu().tolist() == [i != 3 for i in range(16)]
+
+
+@pytest.mark.parametrize("group,form", [(g, f) for g in ("g1", "g2")
+                                        for f in ("compressed",
+                                                  "uncompressed")])
+def test_codec_on_card_matches_cpu(cuda, group, form):
+    """`entry.codec_inputs` at 32 lanes (an identity, lane 17 outside the
+    subgroup) decoded on the card and on the CPU: equal limbs and masks; a
+    G2 decompression is two Fp2 power launches; the encoder gives the
+    bytes back."""
+    fn, (data,) = entry.codec_entry(5, group, form)
+    LAUNCHES.reset()
+    aff, valid = fn(data)
+    torch.cuda.synchronize()
+    assert LAUNCHES.fp2_pow_fixed == (2 if (group, form) == ("g2",
+                                                             "compressed")
+                                      else 0)
+    mod = {"g1": g1, "g2": g2}[group]
+    ref, ref_valid = getattr(mod, f"from_{form}_host")(data, device="cpu")
+    assert np.array_equal(valid, ref_valid)
+    assert valid.tolist() == [i != entry.CODEC_BAD_LANE for i in range(32)]
+    assert all(torch.equal(a.cpu(), b) for a, b in
+               zip(scans.tree_leaves(aff), scans.tree_leaves(ref)))
+    assert np.array_equal(getattr(mod, f"to_{form}_host")(aff), data)
+
+
+@pytest.mark.parametrize("group,kind", [("g1", "hash"), ("g2", "hash"),
+                                        ("g1", "encode"), ("g2", "encode")])
+def test_h2c_on_card_matches_cpu(cuda, group, kind):
+    """Four lanes of `entry.h2c_entry` (device expansion) on the card and
+    on the CPU: equal projective limbs; G2 maps take four Fp2 power
+    launches."""
+    fn, (msgs, dst) = entry.h2c_entry(2, group, kind)
+    LAUNCHES.reset()
+    got = fn(msgs, dst)
+    torch.cuda.synchronize()
+    assert LAUNCHES.fp2_pow_fixed == (4 if group == "g2" else 0)
+    assert LAUNCHES.copied_rows == 0
+    from bls12_381_torch.hash_to_curve import h2c
+
+    ref = getattr(h2c, f"{kind}_to_curve_{group}")(msgs, dst,
+                                                   expand="device",
+                                                   device="cpu")
+    assert all(torch.equal(a.cpu(), b) for a, b in
+               zip(scans.tree_leaves(got), scans.tree_leaves(ref)))

@@ -264,9 +264,11 @@ def test_fr_bits_and_digits_match_jax():
 
 def count_launches(fn, *args):
     """Run fn on CPU tensors, counting each plain version of a kernel the
-    way its wrapper counts the kernel's launches on the card."""
+    way its wrapper counts the kernel's launches on the card; returns
+    (counts, fn's value)."""
     LAUNCHES.reset()
-    real = (mont.sop_rows_plain, pe.plan_exec_plain, mont.pow_fixed_plain)
+    real = (mont.sop_rows_plain, pe.plan_exec_plain, mont.pow_fixed_plain,
+            mont.sqr_plain, mont.fp2_pow_plain)
 
     def rows(spec, *a):
         counter = "sop_fr" if spec.n_limbs == 16 else \
@@ -284,13 +286,22 @@ def count_launches(fn, *args):
         setattr(LAUNCHES, name, getattr(LAUNCHES, name) + 1)
         return real[2](spec, a, e)
 
-    mont.sop_rows_plain, pe.plan_exec_plain, mont.pow_fixed_plain = \
-        rows, plan, power
+    def sqr(a):
+        LAUNCHES.sqr += 1
+        return real[3](a)
+
+    def fp2_power(a0, a1, e):
+        LAUNCHES.fp2_pow_fixed += 1
+        return real[4](a0, a1, e)
+
+    (mont.sop_rows_plain, pe.plan_exec_plain, mont.pow_fixed_plain,
+     mont.sqr_plain, mont.fp2_pow_plain) = rows, plan, power, sqr, fp2_power
     try:
-        fn(*args)
+        out = fn(*args)
     finally:
-        mont.sop_rows_plain, pe.plan_exec_plain, mont.pow_fixed_plain = real
-    return LAUNCHES.snapshot()
+        (mont.sop_rows_plain, pe.plan_exec_plain, mont.pow_fixed_plain,
+         mont.sqr_plain, mont.fp2_pow_plain) = real
+    return LAUNCHES.snapshot(), out
 
 
 @pytest.mark.parametrize("group,name", sorted(
@@ -302,7 +313,7 @@ def test_phase_smul_launch_schedules(group, name):
     else:
         args = (entry.msm_inputs(5, group, device="cpu")[0],)
     fn = getattr({"g1": g1, "g2": g2, "gt": gt}[group], name)
-    assert count_launches(fn, *args) == \
+    assert count_launches(fn, *args)[0] == \
         chip_smoke.expected_smul_launches(group, name, n)
 
 
@@ -311,7 +322,7 @@ def test_msm_launch_schedules(group):
     """msm_g1 / msm_g2 (G2's three psi one fold each) against
     `chip_smoke.expected_msm_launches`."""
     fn, (pts, sc) = entry.msm_entry(5, group, device="cpu")
-    assert count_launches(fn, pts, sc, 6) == \
+    assert count_launches(fn, pts, sc, 6)[0] == \
         chip_smoke.expected_msm_launches(group, 32, 6)
 
 
