@@ -5,8 +5,9 @@ as the reference), slice by slice; the slices so far are the batched
 optimal-ate pairing, the radix-2 NTT over the scalar field, the G1/G2
 group law with Pippenger multi-scalar multiplication, the batched
 scalar multiplications of G1, G2 and Gt with the subgroup checks and
-cofactor clearing, and the square roots, point codecs and hash to curve
-that a BLS signer and verifier need.  Same numeric domain and boundary
+cofactor clearing, the square roots, point codecs and hash to curve
+that a BLS signer and verifier need, and the sharded MSM, NTT and pairing
+across the ranks of a `torch.distributed` process group.  Same numeric domain and boundary
 layout as the JAX
 package: a field element batch is an int32 tensor [L, *batch] of 16-bit
 Montgomery limbs (R = 2^384 for Fp, 2^256 for Fr), so values compare as
@@ -23,7 +24,8 @@ Layers:
                      fp2_pow_fixed) and plain versions; the device SHA-256
                      and Keccak expanders (sha256.py, keccak.py: plain torch)
   fields           — Fp, the Fp2/Fp6/Fp12 tower, Fr; square roots and signs
-  utils            — power-of-two scans and reductions, table lookups
+  utils            — power-of-two scans and reductions, table lookups;
+                     tracing, timing and the H100 roofline (profiling.py)
   curves           — G1 and G2: the complete group law, scalar
                      multiplication (GLV / GLS), subgroup checks, cofactor
                      clearing, psi, to_affine, the byte codecs
@@ -33,10 +35,12 @@ Layers:
                      (msm_g1, msm_g1_large, msm_g2)
   hash_to_curve    — hash_to_field, SSWU, the isogenies, hash_to_curve and
                      encode_to_curve for G1 and G2 (draft-16)
+  parallel         — meshes of ranks (DeviceMesh), msm_g1/g2_sharded,
+                     ntt_sharded (four-step), pairing_sharded
   convert          — arrays of the JAX package <-> the port's tensors
   entry            — `entry()`, `ntt_entry()`, `msm_entry()`, `smul_entry()`,
-                     `codec_entry()`, `h2c_entry()`: the paths and example
-                     inputs
+                     `codec_entry()`, `h2c_entry()`, `multichip_entry()`:
+                     the paths and example inputs
 
 A tensor on a CUDA device goes through the kernels; a CPU tensor through
 their plain PyTorch versions.  Entry points default to `device="cuda"`.

@@ -16,7 +16,9 @@ of G1 or G2 and the encodings of `msm_inputs`' points, a point outside the
 subgroup in every 64th lane, as `bench.py`'s `bench_deserialize` rows at
 2^10.  `h2c_entry()` returns `hash_to_curve_*` or `encode_to_curve_*` with
 device expansion and 256 random 32-byte messages under one DST, as
-`bench.py`'s `bench_h2c` times them.
+`bench.py`'s `bench_h2c` times them.  `multichip_entry()` mirrors
+`__graft_entry__.dryrun_multichip()`: one step of each sharded path of
+`parallel/` on a mesh of the initialised process group's ranks.
 """
 
 from __future__ import annotations
@@ -30,11 +32,13 @@ from . import hostmath as hm
 from . import params
 from .curves import g1 as G1
 from .curves import g2 as G2
-from .fields import fp, tower as tw
+from .fields import fp, fr, tower as tw
 from .hash_to_curve import h2c
 from .limbs import DTYPE, FR, resolve_device
 from .ops import msm, ntt
 from .pairing import gt, pairing
+from .parallel import mesh as mesh_mod
+from .parallel import msm_g1_sharded, ntt_sharded, pairing_sharded
 from .utils import scans
 
 # lanes i of msm_inputs with i % MSM_LANE_CYCLE == MSM_IDENTITY_LANE hold the
@@ -209,3 +213,36 @@ def h2c_entry(log_n: int = 8, group: str = "g1", kind: str = "hash",
     fn = functools.partial(getattr(h2c, f"{kind}_to_curve_{group}"),
                            expand="device", device=resolve_device(device))
     return fn, (h2c_inputs(log_n), H2C_DST)
+
+
+def multichip_entry(n_devices: int, device="cuda"):
+    """One step of each sharded path on a mesh of the n_devices ranks of
+    the initialised process group (called on every rank; the counterpart
+    of `__graft_entry__.dryrun_multichip`): `msm_g1_sharded` (window 4) of
+    4 n points [1]G with random scalars on the 1-D mesh and, for even n, on
+    the 2 x n/2 mesh; `ntt_sharded` at max(64, 4 n^2) random coefficients;
+    the aggregate `pairing_sharded` of `tiny_pairing_inputs(n)` without the
+    final exponentiation.  "cuda" is the rank's card
+    (`parallel.mesh.rank_device`).  Returns (results, inputs), dicts keyed
+    "msm", "msm_2d" (even n), "ntt", "pairing"; the inputs are the same on
+    every rank."""
+    mesh = mesh_mod.make_mesh(n_devices)
+    dev = mesh_mod.rank_device(device)
+    b = 4 * n_devices
+    rng = np.random.RandomState(0)
+    scalars = fr.from_ints(list(rng.randint(1, 1 << 30, size=b)),
+                           device=dev)
+    pts = G1.generator((b,), dev)
+    results = {"msm": msm_g1_sharded(mesh, pts, scalars, c=4)}
+    if n_devices % 2 == 0:
+        results["msm_2d"] = msm_g1_sharded(
+            mesh_mod.make_mesh_2d(2, n_devices // 2), pts, scalars, c=4)
+    n = max(64, 4 * n_devices * n_devices)
+    coeffs = fr.from_ints(list(rng.randint(0, 1 << 30, size=n)), device=dev)
+    results["ntt"] = ntt_sharded(mesh, coeffs)
+    p_aff, q_aff = tiny_pairing_inputs(n_devices, dev)
+    results["pairing"] = pairing_sharded(mesh, p_aff, q_aff, aggregate=True,
+                                         final_exp=False)
+    inputs = {"msm": (pts, scalars), "ntt": coeffs,
+              "pairing": (p_aff, q_aff)}
+    return results, inputs

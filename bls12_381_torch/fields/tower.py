@@ -103,6 +103,20 @@ def fp2_mul(a, b):
     return fp2_mul_many([(a, b)])[0]
 
 
+def fp2_mul_fp(a, s):
+    """An Fp2 element times an Fp element: both products in one launch."""
+    return tuple(fp.mul_many([(a[0], s), (a[1], s)]))
+
+
+def fp2_sop(terms):
+    """Fused sum of Fp2 products sum_i x_i y_i, one Montgomery reduction
+    per output component (one launch); at most 4 terms (T <= 8 Fp
+    products per component)."""
+    if not 1 <= len(terms) <= 4:
+        raise ValueError(f"fp2_sop takes 1 to 4 terms, got {len(terms)}")
+    return _fp2_sops([[(x, y, False) for x, y in terms]])[0]
+
+
 def fp2_sqr(a):
     """Complex squaring: ((a0+a1)(a0-a1), 2 a0 a1) (fp2.rs:182-203)."""
     s = fp.add(a[0], a[1])
@@ -262,6 +276,23 @@ def fp6_sqr(a):
     return fp6_mul(a, a)
 
 
+def fp6_mul_by_0(a, g0):
+    """a * (g0 + 0 v + 0 v^2): three Fp2 products in one fold."""
+    return tuple(fp2_mul_many([(a[0], g0), (a[1], g0), (a[2], g0)]))
+
+
+def fp6_mul_by_12(a, g1, g2):
+    """a * (g1 v + g2 v^2) in one fold:
+      c0 = xi (a2 g1 + a1 g2)
+      c1 = a0 g1 + xi (a2 g2)
+      c2 = a1 g1 + a0 g2"""
+    return tuple(_fp2_sops([
+        [(a[2], g1, True), (a[1], g2, True)],
+        [(a[0], g1, False), (a[2], g2, True)],
+        [(a[1], g1, False), (a[0], g2, False)],
+    ]))
+
+
 def fp6_mul_by_nonresidue(a):
     """Multiply by v: (xi c2, c0, c1) (fp6.rs:139-150)."""
     return (fp2_mul_by_nonresidue(a[2]), a[0], a[1])
@@ -325,6 +356,11 @@ def _run_fp12_plan(plan, comps):
 
 def _f12_rows(a):
     return _fp6_flat(a[0]) + _fp6_flat(a[1])
+
+
+def fp12_add(a, b):
+    """Component-wise sum in one carry network."""
+    return _unflatten12(fp.add_many(list(zip(_f12_rows(a), _f12_rows(b)))))
 
 
 def fp12_mul(a, b):

@@ -47,11 +47,14 @@ def _bit_reverse_perm(log_n: int, device) -> torch.Tensor:
     return rev
 
 
-def ntt(coeffs: torch.Tensor, inverse: bool = False) -> torch.Tensor:
+def ntt(coeffs: torch.Tensor, inverse: bool = False,
+        _skip_scale: bool = False) -> torch.Tensor:
     """In-order radix-2 NTT of an Fr batch [16, *batch, N].
 
     Forward: evaluates at omega^k in natural order.  With inverse=True,
-    computes the inverse transform including the 1/N scaling."""
+    computes the inverse transform including the 1/N scaling, which
+    _skip_scale suppresses for the sharded four-step
+    (`parallel/ntt_sharded.py`), as in the JAX package."""
     n = coeffs.shape[-1]
     log_n = n.bit_length() - 1
     if n < 1 or 1 << log_n != n:
@@ -76,7 +79,7 @@ def ntt(coeffs: torch.Tensor, inverse: bool = False) -> torch.Tensor:
         x = torch.cat([lo.reshape(lead + (n // m, half)),
                        hi.reshape(lead + (n // m, half))],
                       dim=-1).reshape(lead + (n,))
-    if inverse:
+    if inverse and not _skip_scale:
         n_inv = fr.const(pow(n, params.Q - 2, params.Q), x.shape[1:],
                          device=dev)
         x = fr.mul(x, n_inv)

@@ -5,5 +5,6 @@ from .pairing import (  # noqa: F401
     miller_loop_batched,
     multi_miller_loop,
     pairing,
+    pairing_batched,
     prepare_g2,
 )

@@ -259,3 +259,9 @@ def final_exponentiation(f):
 def pairing(p_aff, q_aff):
     """e(P_i, Q_i) for batches of affine points (pairings.rs:607-653)."""
     return final_exponentiation(miller_loop_batched(p_aff, prepare_g2(q_aff)))
+
+
+def pairing_batched(p_aff, q_aff):
+    """The JAX package's alias of `pairing` for its batch semantics:
+    element-wise e(P_i, Q_i)."""
+    return pairing(p_aff, q_aff)

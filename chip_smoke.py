@@ -96,24 +96,38 @@ Phases (each prints its lines and seconds; any failed check exits non-zero):
      serialize, parse with the subgroup checks, verify by pairing): every
      honest lane verifies, every tampered lane (another message, a flipped
      bit, a point outside G2) fails; each stage's seconds.
-  11. kernel times: each kernel's device time per launch at the shapes of
-     phase 3 (torch.profiler); after phases 4-10, because a profiler
+  11. parallel: the sharded paths of `bls12_381_torch/parallel/` at the
+     widths above (pairing_sharded at batch 1024 on phase 4's inputs,
+     element-wise and aggregated with and without the final
+     exponentiation; msm_g1_sharded at 2^16 and msm_g2_sharded at 2^12,
+     window 12; ntt_sharded at 2^20 and its inverse), on one NCCL rank in
+     this process and on four gloo ranks spawned on the one card (msm_g1
+     and the NTTs also on a 2 x 2 mesh), then `entry.multichip_entry` on
+     every rank: every rank's values equal the local paths' (pairing,
+     multi_miller_loop, its final exponentiation = the host's
+     e(G1, G2)^(sum a_i b_i), the MSMs in affine = the host's point, ntt /
+     intt limb for limb), launch counts equal
+     `expected_parallel_launches`, own peak memory < 1 GB; host-clock
+     medians of 5 runs per row at 1 and 4 ranks beside the local call's.
+  12. kernel times: each kernel's device time per launch at the shapes of
+     phase 3 (torch.profiler); after phases 4-11, because a profiler
      session may slow the host's launches for the rest of the process.
-  12. fold routes: the operands read in place (`limbs.sop_fold`,
+  13. fold routes: the operands read in place (`limbs.sop_fold`,
      `limbs.sum_of_products`) against the route before the row kernel
      (operands stacked into one tensor, then the same kernel) on the same
      operands: the paths' folds of two and three groups, the line scaling
      in its own layout, T = 7, 8, the pairing's norm and an MSM scan level;
      equal values, device ms of all device work and issue ms per call.
-  13. profiles: one pairing, one NTT, one msm_g1, one msm_g2 and one call
+  14. profiles: one pairing, one NTT, one msm_g1, one msm_g2 and one call
      of each smul, codec and h2c row under
      torch.profiler -- device time by kernel (device-side events only), the
      port kernels' ms per launch, the `CatArrayBatchedCopy` and other copy
      launches, the rows `sop_rows` copied, and the device's busy share: the
      union of kernel intervals over the unprofiled wall time.
-  14. the `kernels` JSON line (each kernel's launches per path, the smul,
-     codec and h2c rows' and the round trip's as `launches_<row>`), then
-     the device JSON line last.
+  15. the `kernels` JSON line (each kernel's launches per path, the smul,
+     codec and h2c rows', the round trip's and phase parallel's as
+     `launches_<row>`, the last as `launches_parallel_<row>_r<ranks>`:
+     rank 0's), then the device JSON line last.
 
 The script imports nothing of the JAX package.
 """
@@ -124,6 +138,7 @@ import collections
 import ctypes
 import gc
 import json
+import math
 import os
 import re
 import statistics
@@ -190,10 +205,13 @@ BLS_LOG_N = 8                      # the round trip's lanes
 # the proof-of-possession suite, minimal public-key size (pk in G1)
 BLS_DST = b"BLS_SIG_BLS12381G2_XMD:SHA-256_SSWU_RO_POP_"
 BLS_WRONG_MESSAGE, BLS_FLIPPED_BIT, BLS_OUTSIDE_G2 = 3, 7, 11  # lanes i % 64
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
-# 32-bit integer multiply-adds per second: 132 SMs x 64 per clock (CUDA C
-# Programming Guide throughput table, compute capability 9.0) x 1.98 GHz
-IMAD_PER_S = 132 * 64 * 1.98e9
+# phase parallel: the sharded paths at the widths above on one rank (NCCL,
+# in this process) and on PARALLEL_RANKS ranks sharing the card (gloo,
+# spawned: NCCL refuses two ranks of one communicator on one device)
+PARALLEL_RANKS = 4
+PARALLEL_WINDOW = 12
+PARALLEL_REPS = 5
+PEAK_LIMIT_BYTES = 1 << 30         # PERF.md section 2: < 1 GB per row
 
 
 def fail(msg: str) -> None:
@@ -266,6 +284,10 @@ def fp2_pow_work(exponent: int, B: int):
 
 
 def bound(n_bytes: float, n_imads: float):
+    """(least ms, what bounds it) on one H100 (`utils/profiling.py`'s
+    HBM_BYTES_PER_S and IMAD_PER_S)."""
+    from bls12_381_torch.utils.profiling import HBM_BYTES_PER_S, IMAD_PER_S
+
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_imads / IMAD_PER_S * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
@@ -2524,6 +2546,447 @@ def phase_bls(device):
     return counts, total
 
 
+def expected_parallel_launches(kind: str, n: int, mesh_shape: tuple,
+                                window: int = PARALLEL_WINDOW) -> dict:
+    """Kernel launches of one call of a sharded path on one rank of a mesh
+    of `mesh_shape`, from the schedules of parallel/ (n: the global batch,
+    points or transform size):
+      - pairing: the pairing's schedule on the rank's shard
+        (`expected_launches`; the same at any batch);
+      - pairing_agg (final_exp=False): prepare_g2 and the Miller loop (68
+        plans each, the line scaling's fold), the halving tree product of
+        the shard (ceil(lg b) fp12_mul) and of each axis' gathered values
+        (ceil(lg size)); pairing_agg_fe adds one final exponentiation;
+      - msm_g1 / msm_g2: the local msm of the shard
+        (`expected_msm_launches`) and size - 1 adds per axis;
+      - ntt / intt: two local NTTs of lengths n1 and n2 (lg N butterflies,
+        lg n1 - 1 + lg n2 - 1 twiddle doublings) and the outer twiddle
+        product, the inverse's 1/N scaling: `expected_ntt_launches`'s
+        counts, with the twiddle table cached (its first call adds 2 lg n2
+        `sop_fr` launches).
+    `copied_rows` is 0 on every path."""
+    import importlib
+
+    def lg(m):
+        return (m - 1).bit_length()
+
+    ranks = math.prod(mesh_shape)
+    if kind in ("ntt", "intt"):
+        return expected_ntt_launches(n, kind == "intt")
+    if kind in ("msm_g1", "msm_g2"):
+        group = kind[-2:]
+        want = expected_msm_launches(group, n // ranks, window)
+        adds = sum(size - 1 for size in mesh_shape)
+        want["plan_exec"] += adds
+        want["plan_exec_by_plan"][f"{group}_add_plan"] += adds
+        return want
+    pm = importlib.import_module("bls12_381_torch.pairing.pairing")
+    whole = expected_launches()
+    if kind == "pairing":
+        return whole
+    tree = lg(n // ranks) + sum(lg(size) for size in mesh_shape)
+    want = {"plan_exec": 2 * pm.N_COEFFS + tree, "sqr": 0, "sop": 0,
+            "fold_planned": 1, "pow_fixed": 0, "pow_fixed_fr": 0,
+            "fp2_pow_fixed": 0, "copied_rows": 0, "sop_fr": 0,
+            "butterfly": 0}
+    if kind == "pairing_agg_fe":  # the pairing's schedule less its Miller part
+        want["plan_exec"] += whole["plan_exec"] - 2 * pm.N_COEFFS
+        want["fold_planned"] += whole["fold_planned"] - 1
+        want["sop"], want["pow_fixed"] = whole["sop"], whole["pow_fixed"]
+    return want
+
+
+PARALLEL_KINDS = ("pairing_agg_fe", "pairing_agg", "pairing", "msm_g1",
+                  "msm_g2", "intt", "ntt")
+
+
+def parallel_kind(row: str) -> str:
+    """The schedule of a phase parallel row: its name up to the size or
+    mesh suffix ("ntt_20_2x2" -> "ntt")."""
+    return next(k for k in PARALLEL_KINDS
+                if row == k or row.startswith(k + "_"))
+
+
+def digest(tree) -> str:
+    """SHA-256 of a nested tuple of tensors (shapes, dtypes and limbs):
+    equal digests are equal values."""
+    import hashlib
+
+    from bls12_381_torch.utils import scans
+
+    h = hashlib.sha256()
+    for t in scans.tree_leaves(tree):
+        t = t.detach().cpu().contiguous()
+        h.update(f"{tuple(t.shape)} {t.dtype}".encode())
+        h.update(t.numpy().tobytes())
+    return h.hexdigest()
+
+
+def affine_of(mod):
+    """A projective point with an empty batch shape -> its affine (x, y,
+    inf) over one lane, through the port's to_affine."""
+    from bls12_381_torch.utils import scans
+
+    return lambda pt: mod.to_affine(scans.tree_map(
+        lambda t: t.unsqueeze(-1), pt))
+
+
+def as_is(value):
+    return value
+
+
+def parallel_rows(inputs: dict, window: int, world: int):
+    """(row, call, post) of phase parallel over the initialised world:
+    every sharded path on the 1-D mesh of all ranks, and for a world of
+    PARALLEL_RANKS msm_g1 and the NTTs on the 2 x world/2 mesh as well.
+    `post` turns a call's value into what is compared (affine points for
+    the MSMs).  inputs: "pairing" (p_aff, q_aff), "msm_g1" / "msm_g2"
+    (points, scalars), "ntt" {lg N: coefficients}, "ntt_y" {lg N: their
+    transform}, the same on every rank."""
+    from bls12_381_torch.curves import g1, g2
+    from bls12_381_torch.parallel import (mesh as mesh_mod, msm_g1_sharded,
+                                          msm_g2_sharded, ntt_sharded,
+                                          pairing_sharded)
+
+    mesh = mesh_mod.make_mesh()
+    meshes = [("", mesh)]
+    if world == PARALLEL_RANKS:
+        meshes.append((f"_2x{world // 2}", mesh_mod.make_mesh_2d(
+            2, world // 2)))
+    p, q = inputs["pairing"]
+    rows = [
+        ("pairing", lambda: pairing_sharded(mesh, p, q), as_is),
+        ("pairing_agg", lambda: pairing_sharded(
+            mesh, p, q, aggregate=True, final_exp=False), as_is),
+        ("pairing_agg_fe", lambda: pairing_sharded(
+            mesh, p, q, aggregate=True), as_is),
+        ("msm_g2", lambda: msm_g2_sharded(mesh, *inputs["msm_g2"], c=window),
+         affine_of(g2))]
+    for suffix, m in meshes:
+        rows.append((f"msm_g1{suffix}", lambda m=m: msm_g1_sharded(
+            m, *inputs["msm_g1"], c=window), affine_of(g1)))
+        for log_n, x in inputs["ntt"].items():
+            y = inputs["ntt_y"][log_n]
+            rows += [(f"ntt_{log_n}{suffix}",
+                      lambda m=m, x=x: ntt_sharded(m, x), as_is),
+                     (f"intt_{log_n}{suffix}",
+                      lambda m=m, y=y: ntt_sharded(m, y, inverse=True),
+                      as_is)]
+    return rows
+
+
+def parallel_local(inputs: dict, window: int) -> dict:
+    """row -> (call, post) of the local (one-device) path that each row of
+    `parallel_rows` must equal; the 2-D rows share the 1-D rows'."""
+    from bls12_381_torch import pairing as pr
+    from bls12_381_torch.curves import g1, g2
+    from bls12_381_torch.ops import msm, ntt
+
+    p, q = inputs["pairing"]
+    local = {
+        "pairing": (lambda: pr.pairing(p, q), as_is),
+        "pairing_agg": (lambda: pr.multi_miller_loop(p, pr.prepare_g2(q)),
+                        as_is),
+        "pairing_agg_fe": (lambda: pr.final_exponentiation(
+            pr.multi_miller_loop(p, pr.prepare_g2(q))), as_is),
+        "msm_g1": (lambda: msm.msm_g1(*inputs["msm_g1"], c=window),
+                   affine_of(g1)),
+        "msm_g2": (lambda: msm.msm_g2(*inputs["msm_g2"], c=window),
+                   affine_of(g2))}
+    for log_n, x in inputs["ntt"].items():
+        y = inputs["ntt_y"][log_n]
+        local[f"ntt_{log_n}"] = (lambda x=x: ntt.ntt(x), as_is)
+        local[f"intt_{log_n}"] = (lambda y=y: ntt.intt(y), as_is)
+    return local
+
+
+def parallel_job(spec: dict, inputs_path: str) -> dict:
+    """One rank's part of phase parallel (also run on the CPU by
+    tests/test_torch_parallel.py), in an initialised process group: the
+    inputs from `inputs_path` on spec["device"], then per row of
+    `parallel_rows` an uncounted warm-up call when spec["reps"] timed calls
+    follow (it builds the NTT's twiddle table), a call with the launch
+    counts set to 0 just before it and read just after (with the row's own
+    peak memory on a card), and the spec["reps"] timed calls, each started
+    together on every rank (a barrier) and ended in a synchronize; then
+    `multichip_entry` once.  Returns row -> {"value": the compared value (its
+    `digest` unless spec["values"]), "launches", "first_seconds",
+    "seconds", "cpu_seconds", "peak_bytes", "held_bytes"}, and "entry" ->
+    the entry's (results, inputs) on the CPU."""
+    import torch
+    import torch.distributed as dist
+
+    from bls12_381_torch import entry
+    from bls12_381_torch.kernels import LAUNCHES
+
+    device = torch.device(spec["device"])
+    cuda = device.type == "cuda"
+    inputs = torch.load(inputs_path, map_location=device)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(device)
+
+    out = {}
+    for row, call, post in parallel_rows(inputs, spec["window"],
+                                         dist.get_world_size()):
+        if spec["reps"]:
+            call()
+            sync()
+        dist.barrier()
+        held = peak = None
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+            held = torch.cuda.memory_allocated(device)
+        LAUNCHES.reset()
+        t0 = time.perf_counter()
+        value = call()
+        sync()
+        first = time.perf_counter() - t0
+        counts = LAUNCHES.snapshot()
+        if cuda:
+            peak = torch.cuda.max_memory_allocated(device) - held
+        wall, cpu = [], []
+        for _ in range(spec["reps"]):
+            dist.barrier()
+            t0, c0 = time.perf_counter(), time.thread_time()
+            call()
+            cpu.append(time.thread_time() - c0)
+            sync()
+            wall.append(time.perf_counter() - t0)
+        value = post(value)
+        out[row] = {"value": to_cpu(value) if spec["values"]
+                    else digest(value), "launches": counts,
+                    "first_seconds": first, "seconds": wall,
+                    "cpu_seconds": cpu, "peak_bytes": peak,
+                    "held_bytes": held}
+    results, ins = entry.multichip_entry(dist.get_world_size(), device)
+    out["entry"] = to_cpu((results, ins))
+    return out
+
+
+def parallel_rank(rank: int, world: int, backend: str, store: str,
+                  spec: dict, inputs_path: str, out_dir: str) -> None:
+    """A spawned rank: set its device and one host thread, join the
+    process group (a file store), run `parallel_job`, save what it
+    returns to out_dir/rank{rank}.pt and leave the group."""
+    import torch
+    import torch.distributed as dist
+
+    if torch.device(spec["device"]).type == "cuda":
+        torch.cuda.set_device(torch.device(spec["device"]))
+    torch.set_num_threads(1)
+    dist.init_process_group(backend, init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    out = parallel_job(spec, inputs_path)
+    torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def spawn_ranks(world: int, backend: str, spec: dict, inputs_path: str,
+                tmp: str) -> list:
+    """`parallel_job` on `world` spawned ranks (start method spawn: CUDA
+    cannot be forked; the kernels must be built already); raises if a rank
+    raises or exits nonzero (the others are then ended).  Returns each
+    rank's value, in rank order."""
+    import torch
+    import torch.multiprocessing as mp
+
+    store = str(Path(tmp) / f"store_{backend}_{world}")
+    mp.start_processes(parallel_rank, args=(
+        world, backend, store, spec, inputs_path, tmp), nprocs=world,
+        join=True, start_method="spawn")
+    return [torch.load(Path(tmp) / f"rank{r}.pt")
+            for r in range(world)]
+
+
+def to_cpu(obj):
+    """Tensors of nested dicts, tuples and lists copied to the CPU."""
+    if isinstance(obj, dict):
+        return {k: to_cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(to_cpu(v) for v in obj)
+    return obj.cpu()
+
+
+def fp12_host(f) -> tuple:
+    """An Fp12 value with an empty batch shape as host nested int tuples."""
+    from bls12_381_torch.fields import tower as tw
+
+    return tuple(tuple((int(c[0]), int(c[1])) for c in c6)
+                 for c6 in tw.fp12_to_host(f))
+
+
+def msm_host(group: str, pts, sc):
+    """The host's [sum_i k_i (i+1) mod q]G of `entry.msm_inputs`' points
+    (P_i = [i+1]G, identity lanes skipped) and Montgomery scalars."""
+    from bls12_381_torch import hostmath as hm, params
+    from bls12_381_torch.curves import g1, g2
+
+    mod = {"g1": g1, "g2": g2}[group]
+    inf = mod.is_identity(pts).cpu().tolist()
+    r_inv = pow(1 << 256, -1, params.Q)
+    ks = [k * r_inv % params.Q for k in limb_ints(sc)]
+    total = sum(k * (i + 1) for i, (k, o) in enumerate(zip(ks, inf))
+                if not o) % params.Q
+    return {"g1": hm.g1_mul, "g2": hm.g2_mul}[group](
+        {"g1": params.G1_GEN, "g2": params.G2_GEN}[group], total)
+
+
+def check_parallel(world: int, ranks: list, want: dict) -> None:
+    """Every rank of a run holds every row's local value (digests) with the
+    schedule's launch counts and an own peak below PEAK_LIMIT_BYTES."""
+    rows = set(want) if world == PARALLEL_RANKS else \
+        {r for r in want if "_2x" not in r}
+    for rank, res in enumerate(ranks):
+        if set(res) - {"entry"} != rows:
+            fail(f"parallel: rank {rank} of {world} ran the rows "
+                 f"{sorted(res)}, not {sorted(rows)}")
+        for row in sorted(rows):
+            got = res[row]
+            if got["value"] != want[row]:
+                fail(f"parallel: {row} on rank {rank} of {world} differs "
+                     "from the local path")
+            mesh_shape = (2, world // 2) if "_2x" in row else (world,)
+            kind = parallel_kind(row)
+            n = (1 << int(row.split("_")[1]) if kind in ("ntt", "intt")
+                 else 1 << MSM_LOG_N[kind[4:]] if kind.startswith("msm")
+                 else BATCH)
+            expected = expected_parallel_launches(kind, n, mesh_shape)
+            if any(got["launches"][k] != v for k, v in expected.items()):
+                fail(f"parallel: {row} on rank {rank} of {world} launched "
+                     f"{got['launches']}, the schedule is {expected}")
+            if got["peak_bytes"] >= PEAK_LIMIT_BYTES:
+                fail(f"parallel: {row} on rank {rank} of {world} peaked at "
+                     f"{got['peak_bytes']} bytes")
+
+
+def check_multichip_entry(world: int, value, device) -> None:
+    """`entry.multichip_entry`'s results against the local paths on its own
+    inputs: the MSM (1-D and 2-D) = the host's [sum k_i]G, the NTT = `ntt`,
+    the aggregate Miller value = `multi_miller_loop`."""
+    from bls12_381_torch import hostmath as hm, params
+    from bls12_381_torch import pairing as pr
+    from bls12_381_torch.fields import fr
+    from bls12_381_torch.ops import ntt
+    from bls12_381_torch.utils import scans
+
+    results, ins = value
+    k = sum(int(v) for v in fr.to_ints(ins["msm"][1])) % params.Q
+    for key in ("msm", "msm_2d") if world % 2 == 0 else ("msm",):
+        if affine_ints("g1", results[key]) != hm.g1_mul(params.G1_GEN, k):
+            fail(f"multichip_entry({world}): {key} differs from the host")
+    if not same_tree(results["ntt"], ntt.ntt(ins["ntt"].to(device))):
+        fail(f"multichip_entry({world}): the NTT differs from ntt")
+    p, q = scans.tree_map(lambda t: t.to(device), ins["pairing"])
+    if fp12_host(results["pairing"]) != fp12_host(
+            pr.multi_miller_loop(p, pr.prepare_g2(q))):
+        fail(f"multichip_entry({world}): the aggregate Miller value "
+             "differs from multi_miller_loop")
+
+
+def phase_parallel(device):
+    """The sharded paths (parallel/) at full width: pairing_sharded at
+    batch BATCH on phase main's inputs (element-wise = `pairing`;
+    aggregated without the final exponentiation = `multi_miller_loop`;
+    with it = the host's e(G1, G2)^(sum a_i b_i)), msm_g1_sharded at 2^16
+    and msm_g2_sharded at 2^12 with window PARALLEL_WINDOW on
+    `entry.msm_inputs` (affine = the local MSM = the host's
+    [sum k_i (i+1)]G), ntt_sharded at 2^NTT_LOG_N (= `ntt`; its inverse of
+    ntt(x) = x); on one NCCL rank in this process and on PARALLEL_RANKS
+    gloo ranks sharing the card (spawned; msm_g1 and the NTTs also on the
+    2 x 2 mesh): every rank's values against the local ones (digests),
+    launches against `expected_parallel_launches`, own peak memory < 1 GB,
+    host-clock medians of PARALLEL_REPS runs beside the local call's; and
+    `entry.multichip_entry` on every rank.  Returns {ranks: rank 0's
+    results by row}."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from bls12_381_torch import entry, hostmath as hm, params
+    from bls12_381_torch.ops import ntt
+
+    t0 = time.perf_counter()
+    a_idx, b_idx, p_aff, q_aff = pairing_inputs(device)
+    x = entry.ntt_inputs(NTT_LOG_N, seed=SEED, device=device)
+    inputs = {"pairing": (p_aff, q_aff), "ntt": {NTT_LOG_N: x},
+              "ntt_y": {NTT_LOG_N: ntt.ntt(x)}}
+    for group in ("g1", "g2"):
+        inputs[f"msm_{group}"] = entry.msm_inputs(
+            MSM_LOG_N[group], group, seed=SEED, device=device)
+    torch.cuda.synchronize()
+    say("parallel", inputs_seconds=time.perf_counter() - t0)
+
+    # the local paths: the values every rank must hold, timed as the rows
+    t0 = time.perf_counter()
+    want, local_s = {}, {}
+    for row, (call, post) in parallel_local(inputs, PARALLEL_WINDOW).items():
+        raw = call()
+        value = post(raw)
+        want[row] = digest(value)
+        wall, _ = host_times(call, reps=PARALLEL_REPS)
+        local_s[row] = statistics.median(wall)
+        if row == "pairing_agg_fe":
+            s = sum(a * b for a, b in zip(a_idx, b_idx)) % params.Q
+            if fp12_host(value) != hm.fp12_pow(hm.gt_generator(), s):
+                fail("parallel: the product of the pairings differs from "
+                     "the host's e(G1, G2)^(sum a_i b_i)")
+        elif row.startswith("msm_"):
+            if affine_ints(row[-2:], raw) != msm_host(row[-2:],
+                                                      *inputs[row]):
+                fail(f"parallel: the local {row} differs from the host's "
+                     "[sum k_i (i+1)]G")
+        elif row.startswith("intt_") and not torch.equal(value, x):
+            fail("parallel: intt(ntt(x)) != x")
+    for row in list(want):
+        if row == "msm_g1" or row.split("_")[0] in ("ntt", "intt"):
+            want[f"{row}_2x{PARALLEL_RANKS // 2}"] = want[row]
+    say("parallel", local_median_seconds=local_s, host_checks="passed",
+        seconds=time.perf_counter() - t0)
+
+    spec = {"device": str(device), "window": PARALLEL_WINDOW,
+            "reps": PARALLEL_REPS, "values": False}
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs_path = str(Path(tmp) / "inputs.pt")
+        torch.save(to_cpu(inputs), inputs_path)
+        # one rank: NCCL, in this process
+        t0 = time.perf_counter()
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store_1",
+                                rank=0, world_size=1)
+        runs[1] = [parallel_job(spec, inputs_path)]
+        dist.destroy_process_group()
+        seconds = {1: time.perf_counter() - t0}
+        # PARALLEL_RANKS ranks sharing the card: gloo, spawned
+        t0 = time.perf_counter()
+        runs[PARALLEL_RANKS] = spawn_ranks(PARALLEL_RANKS, "gloo", spec,
+                                           inputs_path, tmp)
+        seconds[PARALLEL_RANKS] = time.perf_counter() - t0
+    for world, ranks in runs.items():
+        check_parallel(world, ranks, want)
+        for res in ranks:
+            check_multichip_entry(world, res["entry"], device)
+        rows = {row: {
+            "median_seconds": statistics.median(r["seconds"]),
+            "local_median_seconds": local_s[row.split("_2x")[0]],
+            "max_rank_median_seconds": max(statistics.median(
+                res[row]["seconds"]) for res in ranks),
+            "first_seconds": r["first_seconds"], "seconds": r["seconds"],
+            "host_cpu_share": sum(r["cpu_seconds"]) / sum(r["seconds"]),
+            "peak_bytes": r["peak_bytes"],
+            "max_rank_peak_bytes": max(res[row]["peak_bytes"]
+                                       for res in ranks),
+            "launches": r["launches"]}
+            for row, r in ranks[0].items() if row != "entry"}
+        say("parallel", ranks=world,
+            backend="nccl" if world == 1 else "gloo (CUDA tensors, no "
+            "host staging)", wall_seconds=seconds[world], rows=rows,
+            checks="passed", multichip_entry="passed")
+    return {world: ranks[0] for world, ranks in runs.items()}
+
+
 def phase_profile(label: str, fn, wall_s: float) -> dict:
     """Where one run of a path goes on the card: device time by kernel,
     from the profiler's device-side events only, each port kernel's mean
@@ -2626,6 +3089,7 @@ def main() -> None:
     codecs = phase("codec", phase_codec, device)
     h2cs = phase("h2c", phase_h2c, device)
     bls_counts, _ = phase("bls", phase_bls, device)
+    par = phase("parallel", phase_parallel, device)
     phase("kernel_times", phase_kernel_times, results, timed)
     del timed
     phase("fold_routes", phase_fold_routes, device)
@@ -2652,6 +3116,12 @@ def main() -> None:
         paths = {label: c for label, (c, *_) in {**smuls, **codecs,
                                                   **h2cs}.items()}
         paths["bls_round_trip"] = bls_counts
+        # phase parallel: rank 0's launches per sharded call, by row and
+        # number of ranks
+        for world, rows in par.items():
+            for row, r in rows.items():
+                if row != "entry":
+                    paths[f"parallel_{row}_r{world}"] = r["launches"]
         return {f"launches_{label}": (
             c["plan_exec_by_plan"].get(plan, 0) if plan else c[counter])
             for label, c in paths.items()}
