@@ -15,9 +15,10 @@ plain arrays.
 
 Layers:
   params, hostmath — constants (with hash to curve's SSWU and isogeny
-                     ones) and the host integer arithmetic they need (the
-                     host pairing gives Gt's generator; byte codecs and
-                     hashlib expanders are the oracles)
+                     ones) and the host oracle on Python ints, name for
+                     name the JAX package's (the host pairing gives Gt's
+                     generator; its codecs, expanders, hash to curve,
+                     multi-Miller loop, psi and Fr are the oracles)
   limbs            — batched 16-bit-limb Montgomery arithmetic
   kernels          — CUDA kernels (sop_rows as sop / fold_planned / sop_fr,
                      sqr, plan_exec, butterfly, pow_fixed, pow_fixed_fr,
@@ -25,7 +26,9 @@ Layers:
                      and Keccak expanders (sha256.py, keccak.py: plain torch)
   fields           — Fp, the Fp2/Fp6/Fp12 tower, Fr; square roots and signs
   utils            — power-of-two scans and reductions, table lookups;
-                     tracing, timing and the H100 roofline (profiling.py)
+                     tracing, timing and the H100 roofline (profiling.py);
+                     the native host runtime (native.py: Fp byte codecs
+                     and expand_message_xmd in C++, built at first use)
   curves           — G1 and G2: the complete group law, scalar
                      multiplication (GLV / GLS), subgroup checks, cofactor
                      clearing, psi, to_affine, the byte codecs

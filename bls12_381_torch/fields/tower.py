@@ -134,6 +134,9 @@ def fp2_conjugate(a):
     return (a[0], fp.neg(a[1]))
 
 
+fp2_frobenius = fp2_conjugate  # a^p in Fp2
+
+
 def fp2_inv(a):
     """1/(a0 + a1 u) = (a0 - a1 u) / (a0^2 + a1^2) (fp2.rs:300-319)."""
     ninv = fp.inv(fp.sop([(a[0], a[0]), (a[1], a[1])]))

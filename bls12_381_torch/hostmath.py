@@ -1,18 +1,20 @@
-"""Host-side integer arithmetic the port needs: Fp up to Fp12 on Python
-ints.
+"""Host-side integer arithmetic: Fp up to Fp12, Fr and the curves on
+Python ints.
 
-A subset of the reference package's pure-Python oracle.  It computes the
-Frobenius and endomorphism coefficients that `fields/tower.py`,
-`curves/g1.py` and `curves/g2.py` embed as constants, the Gt generator
-e(G1, G2) that `pairing/gt.py` embeds (a host pairing: affine Miller loop,
-final exponentiation by the plain exponent), square roots to build points
-outside the subgroups, and the affine group law (add, neg, scalar
-multiple, torsion test, cofactor clearing; None is the point at infinity)
-that the entry points and the checks use.  Its G1/G2 byte codecs are the
-oracle of the device codecs, and its hash_to_field (expand_message_xmd /
-xof by hashlib, the OKM reductions) is `hash_to_curve`'s host expander.
-Tests hold the port against the full oracle; nothing here runs on the
-device.
+The port's copy of the reference package's pure-Python oracle, name for
+name.  It computes the Frobenius and endomorphism coefficients that
+`fields/tower.py`, `curves/g1.py` and `curves/g2.py` embed as constants,
+the Gt generator e(G1, G2) that `pairing/gt.py` embeds (a host pairing:
+affine Miller loop, final exponentiation by the plain exponent), square
+roots to build points outside the subgroups, and the affine group law (add,
+negate, double, scalar multiple, torsion test, cofactor clearing; None is
+the point at infinity) that the entry points and the checks use.  Its G1/G2
+byte codecs are the oracle of the device codecs, its hash_to_field
+(expand_message_xmd / xof by hashlib, the OKM reductions) is
+`hash_to_curve`'s host expander, and its hash to curve (SSWU and the
+isogenies on ints, `params.ISO_CONSTS`), multi-Miller loop, psi and Fr
+helpers are the independent oracles the device paths are held to.  Nothing
+here runs on the device, and nothing here calls the device code.
 """
 
 from __future__ import annotations
@@ -21,12 +23,25 @@ import functools
 import hashlib
 
 from .params import (B_G1, B_G2, BLS_X, BLS_X_IS_NEGATIVE, G1_GEN, G2_GEN,
-                     H_EFF_G1, H_EFF_G2, P, Q)
+                     H_EFF_G1, H_EFF_G2, ISO_CONSTS, P, Q)
 
-# --- Fp2 = Fp[u]/(u^2 + 1); elements are (c0, c1) ------------------------
+# --- Fp ---------------------------------------------------------------------
 
-FP2_ZERO = (0, 0)
-FP2_ONE = (1, 0)
+
+def fp_add(a, b):
+    return (a + b) % P
+
+
+def fp_sub(a, b):
+    return (a - b) % P
+
+
+def fp_neg(a):
+    return (-a) % P
+
+
+def fp_mul(a, b):
+    return (a * b) % P
 
 
 def fp_inv(a):
@@ -40,6 +55,16 @@ def fp_sqrt(a):
     for a non-square."""
     c = pow(a, (P + 1) // 4, P)
     return c if c * c % P == a % P else None
+
+
+def fp_sgn0(a):
+    return a % P & 1
+
+
+# --- Fp2 = Fp[u]/(u^2 + 1); elements are (c0, c1) ------------------------
+
+FP2_ZERO = (0, 0)
+FP2_ONE = (1, 0)
 
 
 def fp2_add(a, b):
@@ -84,6 +109,16 @@ def fp2_conjugate(a):
     return (a[0], (-a[1]) % P)
 
 
+def fp2_is_zero(a):
+    return a[0] % P == 0 and a[1] % P == 0
+
+
+def fp2_sgn0(a):
+    """sgn0 for m = 2 (draft-16 §4.1, map_g2.rs:381-388)."""
+    s0, z0, s1 = a[0] % P & 1, a[0] % P == 0, a[1] % P & 1
+    return s0 | (z0 & s1)
+
+
 def fp2_pow(a, e):
     result = FP2_ONE
     base = a
@@ -99,7 +134,7 @@ def fp2_sqrt(a):
     """A square root in Fp2 (any root; ePrint 2012/685 Alg. 9 shape), None
     for a non-square."""
     a = (a[0] % P, a[1] % P)
-    if a == FP2_ZERO:
+    if fp2_is_zero(a):
         return FP2_ZERO
     a1 = fp2_pow(a, (P - 3) // 4)
     alpha = fp2_mul(fp2_square(a1), a)
@@ -115,6 +150,7 @@ def fp2_sqrt(a):
 
 FP6_ZERO = (FP2_ZERO, FP2_ZERO, FP2_ZERO)
 FP6_ONE = (FP2_ONE, FP2_ZERO, FP2_ZERO)
+FP12_ZERO = (FP6_ZERO, FP6_ZERO)
 FP12_ONE = (FP6_ONE, FP6_ZERO)
 
 
@@ -143,6 +179,10 @@ def fp6_mul(a, b):
     return (c0, c1, c2)
 
 
+def fp6_square(a):
+    return fp6_mul(a, a)
+
+
 def fp6_mul_by_nonresidue(a):
     """Multiply by v: (xi c2, c0, c1) (fp6.rs:139-150)."""
     return (fp2_mul_by_nonresidue(a[2]), a[0], a[1])
@@ -159,6 +199,10 @@ def fp6_inv(a):
                 fp2_mul(a0, c0))
     tinv = fp2_inv(t)
     return (fp2_mul(c0, tinv), fp2_mul(c1, tinv), fp2_mul(c2, tinv))
+
+
+def fp12_add(a, b):
+    return (fp6_add(a[0], b[0]), fp6_add(a[1], b[1]))
 
 
 def fp12_mul(a, b):
@@ -221,6 +265,51 @@ def fp12_frobenius(a):
             tuple(fp2_mul(x, FROB12_C1) for x in fp6_frobenius(a[1])))
 
 
+# --- the scalar field Fq ("Fr" in device code) -----------------------------
+
+
+def fr_inv(a):
+    if a % Q == 0:
+        raise ZeroDivisionError("inversion of zero in Fq")
+    return pow(a, Q - 2, Q)
+
+
+def fr_sqrt(a):
+    """Tonelli-Shanks square root in Fq (q - 1 = 2^32 t, the non-square 7);
+    None for a non-square."""
+    a %= Q
+    if a == 0:
+        return 0
+    if pow(a, (Q - 1) // 2, Q) != 1:
+        return None
+    m, t = 32, (Q - 1) >> 32
+    c, u, r = pow(7, t, Q), pow(a, t, Q), pow(a, (t + 1) // 2, Q)
+    while u != 1:
+        i, v = 0, u  # the least i with u^(2^i) = 1
+        while v != 1:
+            v, i = v * v % Q, i + 1
+        b = pow(c, 1 << (m - i - 1), Q)
+        m, c = i, b * b % Q
+        u, r = u * c % Q, r * b % Q
+    return r
+
+
+def fr_from_bytes_wide(data: bytes) -> int:
+    """64 little-endian bytes reduced mod q (scalar.rs:300-331)."""
+    if len(data) != 64:
+        raise ValueError("fr_from_bytes_wide takes 64 bytes")
+    return int.from_bytes(data, "little") % Q
+
+
+def fr_to_bytes(a):
+    return (a % Q).to_bytes(32, "little")
+
+
+def fr_from_bytes(data):
+    v = int.from_bytes(data, "little")
+    return v if v < Q else None
+
+
 # --- affine group law (vartime; example inputs and checks only) -----------
 
 
@@ -232,7 +321,7 @@ class _Curve:
         self.add, self.sub, self.mul, self.inv = add, sub, mul, inv
         self.b, self.zero = b, zero
 
-    def neg(self, pt):
+    def negate(self, pt):
         return None if pt is None else (pt[0], self.sub(self.zero, pt[1]))
 
     def is_on_curve(self, pt):
@@ -250,7 +339,7 @@ class _Curve:
         x3 = self.sub(self.mul(lam, lam), self.add(x, x))
         return (x3, self.sub(self.mul(lam, self.sub(x, x3)), y))
 
-    def add_points(self, p1, p2):
+    def point_add(self, p1, p2):
         if p1 is None:
             return p2
         if p2 is None:
@@ -263,21 +352,26 @@ class _Curve:
         return (x3, self.sub(self.mul(lam, self.sub(x1, x3)), y1))
 
     def scalar_mul(self, pt, k):
+        """[k]pt; a negative k gives [|k|](-pt)."""
+        if k < 0:
+            return self.scalar_mul(self.negate(pt), -k)
         acc = None
-        for bit in bin(k)[2:] if k > 0 else "":
+        for bit in bin(k)[2:] if k else "":
             acc = self.double(acc)
             if bit == "1":
-                acc = self.add_points(acc, pt)
+                acc = self.point_add(acc, pt)
         return acc
 
 
-_G1 = _Curve(lambda a, b: (a + b) % P, lambda a, b: (a - b) % P,
-             lambda a, b: a * b % P, fp_inv, B_G1, 0)
-_G2 = _Curve(fp2_add, fp2_sub, fp2_mul, fp2_inv, B_G2, FP2_ZERO)
+G1_CURVE = _Curve(fp_add, fp_sub, fp_mul, fp_inv, B_G1, 0)
+G2_CURVE = _Curve(fp2_add, fp2_sub, fp2_mul, fp2_inv, B_G2, FP2_ZERO)
 
-g1_add, g1_neg, g1_mul = _G1.add_points, _G1.neg, _G1.scalar_mul
-g2_add, g2_neg, g2_mul = _G2.add_points, _G2.neg, _G2.scalar_mul
-g1_is_on_curve, g2_is_on_curve = _G1.is_on_curve, _G2.is_on_curve
+g1_add, g1_double, g1_neg = (G1_CURVE.point_add, G1_CURVE.double,
+                             G1_CURVE.negate)
+g1_mul, g1_is_on_curve = G1_CURVE.scalar_mul, G1_CURVE.is_on_curve
+g2_add, g2_double, g2_neg = (G2_CURVE.point_add, G2_CURVE.double,
+                             G2_CURVE.negate)
+g2_mul, g2_is_on_curve = G2_CURVE.scalar_mul, G2_CURVE.is_on_curve
 
 
 def g1_is_torsion_free(pt):
@@ -334,10 +428,23 @@ def _compute_beta():
 
 G1_BETA = _compute_beta()
 
-# psi(x, y) = (c_x conj(x), c_y conj(y)) with c_x = 1/xi^((p-1)/3),
-# c_y = 1/xi^((p-1)/2) (g2.rs:847-888)
-PSI_CX = fp2_inv(fp2_pow(XI, (P - 1) // 3))
-PSI_CY = fp2_inv(fp2_pow(XI, (P - 1) // 2))
+
+def _compute_psi_constants():
+    """psi(x, y) = (c_x conj(x), c_y conj(y)) with c_x = 1/xi^((p-1)/3),
+    c_y = 1/xi^((p-1)/2) (g2.rs:847-888)."""
+    return (fp2_inv(fp2_pow(XI, (P - 1) // 3)),
+            fp2_inv(fp2_pow(XI, (P - 1) // 2)))
+
+
+PSI_CX, PSI_CY = _compute_psi_constants()
+
+
+def g2_psi(pt):
+    if pt is None:
+        return None
+    x, y = pt
+    return (fp2_mul(fp2_conjugate(x), PSI_CX),
+            fp2_mul(fp2_conjugate(y), PSI_CY))
 
 
 # --- the pairing (affine Miller loop; Gt's generator and the oracles) -----
@@ -347,19 +454,36 @@ PSI_CY = fp2_inv(fp2_pow(XI, (P - 1) // 2))
 # lam the affine slope.
 
 
-def _line(t, lam, p):
-    xt, yt = t
-    xp, yp = p
-    l0 = fp2_mul_by_nonresidue((yp, 0))
-    l4 = fp2_sub(fp2_mul(lam, xt), yt)
-    l5 = fp2_neg(fp2_mul_fp(lam, xp))
+def _sparse_line_045(l0, l4, l5):
+    """The Fp12 element l0 + l4 v w + l5 v^2 w."""
     return ((l0, FP2_ZERO, FP2_ZERO), (FP2_ZERO, l4, l5))
 
 
-def _step(t, q, lam):
-    """T + Q (or 2T for Q = T) from the slope lam."""
-    x3 = fp2_sub(fp2_sub(fp2_square(lam), t[0]), q[0])
-    return (x3, fp2_sub(fp2_mul(lam, fp2_sub(t[0], x3)), t[1]))
+def _line_through(t, lam, x3, p):
+    """(T', the line of slope lam through T at P), T' = (x3, lam (xt - x3)
+    - yt)."""
+    (xt, yt), (xp, yp) = t, p
+    return ((x3, fp2_sub(fp2_mul(lam, fp2_sub(xt, x3)), yt)),
+            _sparse_line_045(fp2_mul_by_nonresidue((yp, 0)),
+                             fp2_sub(fp2_mul(lam, xt), yt),
+                             fp2_neg(fp2_mul_fp(lam, xp))))
+
+
+def _line_double(t, p):
+    """The tangent at T in E'(Fp2), evaluated at P: (2T, line)."""
+    xt, yt = t
+    lam = fp2_mul(fp2_mul_fp(fp2_square(xt), 3), fp2_inv(fp2_add(yt, yt)))
+    return _line_through(t, lam, fp2_sub(fp2_square(lam), fp2_add(xt, xt)),
+                         p)
+
+
+def _line_add(t, q, p):
+    """The chord through T and Q in E'(Fp2), evaluated at P: (T + Q,
+    line)."""
+    (xt, yt), (xq, yq) = t, q
+    lam = fp2_mul(fp2_sub(yq, yt), fp2_inv(fp2_sub(xq, xt)))
+    return _line_through(t, lam, fp2_sub(fp2_sub(fp2_square(lam), xt), xq),
+                         p)
 
 
 def miller_loop(p, q):
@@ -370,15 +494,20 @@ def miller_loop(p, q):
         return FP12_ONE
     f, t = FP12_ONE, q
     for bit in bin(BLS_X)[3:]:
-        lam = fp2_mul(fp2_mul_fp(fp2_square(t[0]), 3),
-                      fp2_inv(fp2_add(t[1], t[1])))
-        f = fp12_mul(fp12_square(f), _line(t, lam, p))
-        t = _step(t, t, lam)
+        t, line = _line_double(t, p)
+        f = fp12_mul(fp12_square(f), line)
         if bit == "1":
-            lam = fp2_mul(fp2_sub(q[1], t[1]), fp2_inv(fp2_sub(q[0], t[0])))
-            f = fp12_mul(f, _line(t, lam, p))
-            t = _step(t, q, lam)
+            t, line = _line_add(t, q, p)
+            f = fp12_mul(f, line)
     return fp12_conjugate(f) if BLS_X_IS_NEGATIVE else f
+
+
+def multi_miller_loop(terms):
+    """The product of the Miller values of (P, Q) pairs."""
+    f = FP12_ONE
+    for p, q in terms:
+        f = fp12_mul(f, miller_loop(p, q))
+    return f
 
 
 def final_exponentiation(f):
@@ -551,6 +680,10 @@ def g2_from_uncompressed(data, check=True):
 # --- hash_to_field (draft-irtf-cfrg-hash-to-curve-16 §5; expand_msg.rs) --
 
 
+def _i2osp(v, length):
+    return v.to_bytes(length, "big")
+
+
 def expand_message_xmd(msg: bytes, dst: bytes, len_in_bytes: int,
                        hash_name="sha256"):
     """expand_message_xmd (draft-16 §5.3.1, expand_msg.rs:230-328), a DST
@@ -562,14 +695,14 @@ def expand_message_xmd(msg: bytes, dst: bytes, len_in_bytes: int,
     ell = -(-len_in_bytes // b_in_bytes)
     if ell > 255 or len_in_bytes > 65535:
         raise ValueError("len_in_bytes too large")
-    dst_prime = dst + bytes([len(dst)])
+    dst_prime = dst + _i2osp(len(dst), 1)
     b0 = hashlib.new(hash_name, bytes(s_in_bytes) + msg
-                     + len_in_bytes.to_bytes(2, "big") + b"\x00"
+                     + _i2osp(len_in_bytes, 2) + b"\x00"
                      + dst_prime).digest()
     blocks = [hashlib.new(hash_name, b0 + b"\x01" + dst_prime).digest()]
     for i in range(2, ell + 1):
         xored = bytes(a ^ b for a, b in zip(b0, blocks[-1]))
-        blocks.append(hashlib.new(hash_name, xored + bytes([i])
+        blocks.append(hashlib.new(hash_name, xored + _i2osp(i, 1)
                                   + dst_prime).digest())
     return b"".join(blocks)[:len_in_bytes]
 
@@ -584,8 +717,8 @@ def expand_message_xof(msg: bytes, dst: bytes, len_in_bytes: int,
             2 * k // 8)
     if len_in_bytes > 65535:
         raise ValueError("len_in_bytes too large")
-    return hashlib.new(hash_name, msg + len_in_bytes.to_bytes(2, "big") + dst
-                       + bytes([len(dst)])).digest(len_in_bytes)
+    return hashlib.new(hash_name, msg + _i2osp(len_in_bytes, 2) + dst
+                       + _i2osp(len(dst), 1)).digest(len_in_bytes)
 
 
 def fp_from_okm(okm: bytes):
@@ -624,3 +757,104 @@ def hash_to_field_fp2(msg, dst, count, expand=expand_message_xmd, **kw):
 def hash_to_field_fr(msg, dst, count, expand=expand_message_xmd, **kw):
     okm = expand(msg, dst, count * 48, **kw)
     return [fr_from_okm(okm[i * 48:(i + 1) * 48]) for i in range(count)]
+
+
+# --- hash to curve (draft-irtf-cfrg-hash-to-curve-16 §6.6.2, §8.8;
+# map_g1.rs, map_g2.rs): the simplified SWU map onto the isogenous curve,
+# the 11- / 3-isogeny, cofactor clearing; the constants are
+# params.ISO_CONSTS
+
+
+def _sswu(u, A, B, Z, field):
+    """The simplified SWU map onto y^2 = x^3 + A x + B (draft-16 appendix
+    F.2's straight-line recipe): affine (x, y) with sgn0(y) = sgn0(u)."""
+    add, neg, mul, sqr, inv = (field["add"], field["neg"], field["mul"],
+                               field["sqr"], field["inv"])
+    sqrt, sgn0, one, zero = (field["sqrt"], field["sgn0"], field["one"],
+                             field["zero"])
+    z_usq = mul(Z, sqr(u))
+    tv = add(sqr(z_usq), z_usq)       # Z^2 u^4 + Z u^2
+    x1num = mul(B, add(tv, one))      # B (tv + 1)
+    x1den = mul(A, neg(tv)) if tv != zero else mul(Z, A)
+    # g(x1) = x1^3 + A x1 + B as a fraction over x1den^3
+    gxd = mul(sqr(x1den), x1den)
+    gxn = add(add(mul(sqr(x1num), x1num), mul(mul(A, x1num), sqr(x1den))),
+              mul(B, gxd))
+    g = mul(gxn, inv(gxd))
+    y = sqrt(g)
+    if y is not None:
+        x = mul(x1num, inv(x1den))
+    else:
+        # x2 = Z u^2 x1, g(x2) = g(x1) Z^3 u^6
+        y = sqrt(mul(g, mul(sqr(z_usq), z_usq)))
+        if y is None:
+            raise AssertionError("neither g(x1) nor g(x2) is a square")
+        x = mul(mul(z_usq, x1num), inv(x1den))
+    if sgn0(y) != sgn0(u):
+        y = neg(y)
+    return (x, y)
+
+
+_FP_FIELD = dict(
+    add=fp_add, sub=fp_sub, neg=fp_neg, mul=fp_mul, sqr=lambda a: a * a % P,
+    inv=fp_inv, sqrt=fp_sqrt, sgn0=fp_sgn0, one=1, zero=0,
+)
+_FP2_FIELD = dict(
+    add=fp2_add, sub=fp2_sub, neg=fp2_neg, mul=fp2_mul, sqr=fp2_square,
+    inv=fp2_inv, sqrt=fp2_sqrt, sgn0=fp2_sgn0, one=FP2_ONE, zero=FP2_ZERO,
+)
+
+
+def _iso_map(pt, xnum, xden, ynum, yden, field):
+    """A rational isogeny map at an affine point (Horner; coefficients
+    lowest degree first)."""
+    mul, add, inv = field["mul"], field["add"], field["inv"]
+    x, y = pt
+
+    def horner(coeffs):
+        acc = coeffs[-1]
+        for c in reversed(coeffs[:-1]):
+            acc = add(mul(acc, x), c)
+        return acc
+
+    xn, xd, yn, yd = horner(xnum), horner(xden), horner(ynum), horner(yden)
+    return (mul(xn, inv(xd)), mul(y, mul(yn, inv(yd))))
+
+
+def _map_to_curve(u, group, iso, field):
+    c = ISO_CONSTS
+    return _iso_map(
+        _sswu(u, c[f"{group}_sswu_a"], c[f"{group}_sswu_b"],
+              c[f"{group}_sswu_xi"], field),
+        *(c[f"{iso}_{part}"] for part in ("xnum", "xden", "ynum", "yden")),
+        field)
+
+
+def map_to_curve_g1(u):
+    """SSWU and the 11-isogeny (map_g1.rs:545-630)."""
+    return _map_to_curve(u, "g1", "iso11", _FP_FIELD)
+
+
+def map_to_curve_g2(u):
+    """SSWU and the 3-isogeny (map_g2.rs:391-492)."""
+    return _map_to_curve(u, "g2", "iso3", _FP2_FIELD)
+
+
+def hash_to_curve_g1(msg, dst, expand=expand_message_xmd, **kw):
+    u0, u1 = hash_to_field_fp(msg, dst, 2, expand=expand, **kw)
+    return g1_clear_cofactor(g1_add(map_to_curve_g1(u0), map_to_curve_g1(u1)))
+
+
+def encode_to_curve_g1(msg, dst, expand=expand_message_xmd, **kw):
+    (u,) = hash_to_field_fp(msg, dst, 1, expand=expand, **kw)
+    return g1_clear_cofactor(map_to_curve_g1(u))
+
+
+def hash_to_curve_g2(msg, dst, expand=expand_message_xmd, **kw):
+    u0, u1 = hash_to_field_fp2(msg, dst, 2, expand=expand, **kw)
+    return g2_clear_cofactor(g2_add(map_to_curve_g2(u0), map_to_curve_g2(u1)))
+
+
+def encode_to_curve_g2(msg, dst, expand=expand_message_xmd, **kw):
+    (u,) = hash_to_field_fp2(msg, dst, 1, expand=expand, **kw)
+    return g2_clear_cofactor(map_to_curve_g2(u))

@@ -7,6 +7,11 @@ so a build takes seconds).  Libraries are built at first use into `_build/`
 checkout builds everything it runs and a changed source is rebuilt.
 `build_all()` starts one `nvcc` per source, all at once.  The build log holds
 `ptxas -v`'s registers, shared memory and spills for each kernel.
+
+`build_host()` builds the port's host C++ (`utils/csrc/`, no device code)
+the same way with the host compiler: `$CXX`, else `c++`, else `g++`.  Its
+flags leave out `-march=native`, so a library built on one host loads on
+another; its key also names the compiler.
 """
 
 from __future__ import annotations
@@ -14,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import shlex
 import shutil
 import subprocess
 import time
@@ -26,6 +32,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+HOST_CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-Wall")
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 
@@ -41,17 +48,31 @@ def nvcc_path() -> str:
     return found
 
 
-def _key(stem: str) -> str:
+def cxx_command() -> list[str]:
+    """The host C++ compiler: `$CXX` (split as a shell would), else `c++`,
+    else `g++`."""
+    if os.environ.get("CXX"):
+        return shlex.split(os.environ["CXX"])
+    found = shutil.which("c++") or shutil.which("g++")
+    if found is None:
+        raise RuntimeError("no host C++ compiler (set CXX, or put c++ or g++ "
+                           "on PATH)")
+    return [found]
+
+
+def _key(flags, paths) -> str:
     h = hashlib.sha256()
-    h.update(" ".join(NVCC_FLAGS).encode())
-    for path in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{stem}.cu"]:
+    h.update(" ".join(flags).encode())
+    for path in paths:
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 
 def lib_path(stem: str) -> Path:
-    return BUILD_DIR / f"lib{stem}-{_key(stem)}.so"
+    key = _key(NVCC_FLAGS,
+               sorted(CSRC.glob("*.cuh")) + [CSRC / f"{stem}.cu"])
+    return BUILD_DIR / f"lib{stem}-{key}.so"
 
 
 def log_path(stem: str) -> Path:
@@ -86,6 +107,32 @@ def build_all(stems=SOURCES) -> dict[str, float]:
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
     return seconds
+
+
+def build_host(source: Path) -> Path:
+    """The shared library of a host C++ source, compiled first if stale
+    (keyed by the compiler, HOST_CXX_FLAGS and the source).  Raises
+    RuntimeError with the compiler's output when the build fails."""
+    cmd = cxx_command()
+    key = _key([*cmd, *HOST_CXX_FLAGS], [source])
+    out = BUILD_DIR / f"lib{source.stem}-{key}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    try:
+        res = subprocess.run([*cmd, *HOST_CXX_FLAGS, "-o", str(tmp),
+                              str(source)], capture_output=True, text=True)
+    except OSError as exc:
+        raise RuntimeError(f"host build of {source.name} failed: {exc}") \
+            from exc
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"host build of {source.name} failed ({shlex.join(cmd)} exit "
+            f"{res.returncode}):\n{res.stderr}{res.stdout}")
+    os.replace(tmp, out)
+    return out
 
 
 def ptxas_report(stem: str) -> list[str]:

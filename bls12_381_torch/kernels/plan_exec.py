@@ -238,6 +238,33 @@ def _flatten_f2s(f2s):
     return tuple(n for f2 in f2s for n in f2)
 
 
+def eval_plan_host(outputs, values, p: int, r: int):
+    """A plan's DAG evaluated over Python ints in the Montgomery domain
+    (each sop carries the R^-1 of the kernel's reduction): the plan's
+    algebra without its limb arithmetic."""
+    rinv = pow(r, -1, p)
+    cache = {}
+
+    def ev(n):
+        if n not in cache:
+            if n.op == "in":
+                v = values[n.args[0]]
+            elif n.op == "add":
+                v = ev(n.args[0]) + ev(n.args[1])
+            elif n.op == "sub":
+                v = ev(n.args[0]) - ev(n.args[1])
+            elif n.op == "neg":
+                v = -ev(n.args[0])
+            elif n.op == "sop":
+                v = sum(ev(a) * ev(b) for a, b in n.args) * rinv
+            else:
+                raise ValueError(f"unknown plan op {n.op!r}")
+            cache[n] = v % p
+        return cache[n]
+
+    return [ev(o) for o in outputs]
+
+
 # ---------------------------------------------------------------------------
 # The main path's plans (operand layout: 12 Fp rows per Fp12 element,
 # [c0.c0.re, c0.c0.im, c0.c1.re, ..., c1.c2.im])

@@ -39,7 +39,10 @@ Phases (each prints its lines and seconds; any failed check exits non-zero):
      (p-1, p-1), (0, p-1), (p-1, 0);
      exact equality (integers: tolerance none); CUDA events around
      back-to-back calls (the host's issue rate for short kernels) and the
-     plain version's time (CUDA events; no yardstick).
+     plain version's time (CUDA events; no yardstick).  The rows bound by
+     bytes that this phase builds (sop, sqr, the folds, sop_fr, butterfly)
+     are timed over copies of their operands taken in turn, more than
+     twice the L2 in all, so that each launch reads from HBM.
   4. main: the batched pairing at batch 1024 from the repository's test
      vectors ([a]G1, [b]G2, a, b < 1000): lane (1, 1) equals the RELIC
      value, lanes with equal a*b are equal, identity lanes are one, four
@@ -96,7 +99,19 @@ Phases (each prints its lines and seconds; any failed check exits non-zero):
      serialize, parse with the subgroup checks, verify by pairing): every
      honest lane verifies, every tampered lane (another message, a flipped
      bit, a point outside G2) fails; each stage's seconds.
-  11. parallel: the sharded paths of `bls12_381_torch/parallel/` at the
+  11. oracle: the card's paths against the independent host code (in
+     spawned processes while the card works): hash_to_curve and
+     encode_to_curve of phase h2c's messages (G1 on all 256 lanes, G2 on
+     16) against hostmath's, the 8-term multi-pairing (with a G1 and a G2
+     identity) against the host's final_exponentiation(multi_miller_loop),
+     g2.psi on 256 points against g2_psi, fr.sqrt (roots and mask) and
+     fr.inv on 2^10 lanes, the Fr byte codecs with their rejects; the
+     native host runtime (utils/native.py): its Fp codec at 2^16 rows
+     against fp.from_bytes_host on the card, its XMD at 256 lanes against
+     hostmath's and the device XMD; launch counts equal
+     `expected_oracle_launches`; host-clock medians of the three XMDs and
+     of the native decoder beside a hostmath loop.
+  12. parallel: the sharded paths of `bls12_381_torch/parallel/` at the
      widths above (pairing_sharded at batch 1024 on phase 4's inputs,
      element-wise and aggregated with and without the final
      exponentiation; msm_g1_sharded at 2^16 and msm_g2_sharded at 2^12,
@@ -109,24 +124,25 @@ Phases (each prints its lines and seconds; any failed check exits non-zero):
      intt limb for limb), launch counts equal
      `expected_parallel_launches`, own peak memory < 1 GB; host-clock
      medians of 5 runs per row at 1 and 4 ranks beside the local call's.
-  12. kernel times: each kernel's device time per launch at the shapes of
-     phase 3 (torch.profiler); after phases 4-11, because a profiler
+  13. kernel times: each kernel's device time per launch at the shapes of
+     phase 3 (torch.profiler); after phases 4-12, because a profiler
      session may slow the host's launches for the rest of the process.
-  13. fold routes: the operands read in place (`limbs.sop_fold`,
+  14. fold routes: the operands read in place (`limbs.sop_fold`,
      `limbs.sum_of_products`) against the route before the row kernel
      (operands stacked into one tensor, then the same kernel) on the same
      operands: the paths' folds of two and three groups, the line scaling
      in its own layout, T = 7, 8, the pairing's norm and an MSM scan level;
      equal values, device ms of all device work and issue ms per call.
-  14. profiles: one pairing, one NTT, one msm_g1, one msm_g2 and one call
+  15. profiles: one pairing, one NTT, one msm_g1, one msm_g2 and one call
      of each smul, codec and h2c row under
      torch.profiler -- device time by kernel (device-side events only), the
      port kernels' ms per launch, the `CatArrayBatchedCopy` and other copy
      launches, the rows `sop_rows` copied, and the device's busy share: the
      union of kernel intervals over the unprofiled wall time.
-  15. the `kernels` JSON line (each kernel's launches per path, the smul,
-     codec and h2c rows', the round trip's and phase parallel's as
-     `launches_<row>`, the last as `launches_parallel_<row>_r<ranks>`:
+  16. the `kernels` JSON line (each kernel's launches per path, the smul,
+     codec and h2c rows', the round trip's, phase oracle's and phase
+     parallel's as `launches_<row>`, the last two as
+     `launches_oracle_<check>` and `launches_parallel_<row>_r<ranks>`:
      rank 0's), then the device JSON line last.
 
 The script imports nothing of the JAX package.
@@ -137,6 +153,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import gc
+import itertools
 import json
 import math
 import os
@@ -205,6 +222,14 @@ BLS_LOG_N = 8                      # the round trip's lanes
 # the proof-of-possession suite, minimal public-key size (pk in G1)
 BLS_DST = b"BLS_SIG_BLS12381G2_XMD:SHA-256_SSWU_RO_POP_"
 BLS_WRONG_MESSAGE, BLS_FLIPPED_BIT, BLS_OUTSIDE_G2 = 3, 7, 11  # lanes i % 64
+ORACLE_WORKERS = 8                 # spawned processes for the host oracle
+ORACLE_G2_LANES = 16               # host hash_to_curve_g2: ~0.5 s a lane
+ORACLE_TERMS = 8                   # the multi-pairing's terms
+ORACLE_PSI_LOG_N = 8
+ORACLE_FR_LOG_N = 10
+ORACLE_CODEC_LOG_N = 16            # the native Fp codec's rows
+ORACLE_XMD_LENGTHS = (128, 256)    # hash_to_curve's G1 and G2 OKM lengths
+ORACLE_REPS = 5
 # phase parallel: the sharded paths at the widths above on one rank (NCCL,
 # in this process) and on PARALLEL_RANKS ranks sharing the card (gloo,
 # spawned: NCCL refuses two ranks of one communicator on one device)
@@ -294,6 +319,23 @@ def bound(n_bytes: float, n_imads: float):
 
 
 # ---------------------------------------------------------------------------
+
+L2_BYTES = 50 << 20                # the H100's L2
+
+
+def rotating(fn, *operands):
+    """(call, copies): a call of fn that takes the next of `copies` copies
+    of its operands each time, enough copies that they hold more than twice
+    the card's L2.  Launched back to back, each call then reads operands
+    the L2 no longer holds, from HBM, as a path's call on fresh data does;
+    over one set of operands a kernel whose operands fit in the L2 would
+    read them from there and time under its bound by bytes."""
+    size = sum(t.untyped_storage().nbytes() for t in operands)
+    copies = -(-(2 * L2_BYTES + 1) // size)
+    sets = [operands] + [tuple(t.clone() for t in operands)
+                         for _ in range(copies - 1)]
+    turn = itertools.cycle(sets)
+    return (lambda: fn(*next(turn))), copies
 
 
 def time_events(fn, n: int, warm: int = 2) -> float:
@@ -792,19 +834,22 @@ def phase_kernels(device, usage):
             a[:, :, 4], b[:, :, 4] = edges[2], edges[0]
             c = call_of(limbs.FP, list(a) + list(b),
                         [[(t, T + t) for t in range(T)]], (B,))
-            chk.hold(f"sop T={T} B={B}", lambda a=a, b=b: mont.sop(a, b),
+            call, copies = rotating(mont.sop, a, b)
+            chk.hold(f"sop T={T} B={B}", call,
                      lambda a=a, b=b: mont.sop_plain(a, b), "sop_rows",
                      50, 3, 4 * B * 24 * (2 * T + 1), B * sop_imads(T),
-                     **rows_launch(c, n_sm, usage))
+                     operand_copies=copies, **rows_launch(c, n_sm, usage))
 
     # --- sqr: G in {1, 3}, B = 1024
     for G in (1, 3):
         a = rand_fp((G, BATCH), gen, device).transpose(0, 1).contiguous()
         for lane, col in enumerate(edges):
             a[:, :, lane] = col
-        chk.hold(f"sqr G={G} B={BATCH}", lambda a=a: mont.sqr(a),
+        call, copies = rotating(mont.sqr, a)
+        chk.hold(f"sqr G={G} B={BATCH}", call,
                  lambda a=a: mont.sqr_plain(a), "sqr", 200, 5,
-                 4 * G * BATCH * 24 * 2, G * BATCH * sqr_imads())
+                 4 * G * BATCH * 24 * 2, G * BATCH * sqr_imads(),
+                 operand_copies=copies)
 
     # --- plan_exec: every plan at one lane, a ragged last tile and the
     # pairing's batch; the group-law plans also at the MSM's widths: add at
@@ -852,12 +897,14 @@ def phase_kernels(device, usage):
         if T == 6:
             ops[K - 1] = edges[2].unsqueeze(-1)
         ia, ib = fold_tables(groups)
-        chk.hold(f"fold_planned G={G} T={T} B={B}",
-                 lambda ops=ops, ia=ia, ib=ib: mont.fold_planned(ops, ia, ib),
+        call, copies = rotating(
+            lambda ops, ia=ia, ib=ib: mont.fold_planned(ops, ia, ib), ops)
+        chk.hold(f"fold_planned G={G} T={T} B={B}", call,
                  lambda ops=ops, ia=ia, ib=ib: mont.fold_planned_plain(
                      ops, ia, ib),
                  "sop_rows", 50, 3, fold_bytes(B, groups),
                  B * sum(sop_imads(len(g)) for g in groups),
+                 operand_copies=copies,
                  **rows_launch(call_of(limbs.FP, list(ops), groups, (B,)),
                                n_sm, usage))
 
@@ -1045,10 +1092,11 @@ def phase_kernels(device, usage):
         a[:, :, 5], b[:, :, 5] = fr_edges[2], fr_edges[0]
         c = call_of(limbs.FR, list(a) + list(b),
                     [[(t, T + t) for t in range(T)]], (B,))
-        chk.hold(f"sop_fr T={T} B={B}", lambda a=a, b=b: mont.sop_fr(a, b),
+        call, copies = rotating(mont.sop_fr, a, b)
+        chk.hold(f"sop_fr T={T} B={B}", call,
                  lambda a=a, b=b: mont.sop_fr_plain(a, b), "sop_rows_fr",
                  50, 3, 4 * B * 16 * (2 * T + 1), B * sop_imads(T, 8),
-                 **rows_launch(c, n_sm, usage))
+                 operand_copies=copies, **rows_launch(c, n_sm, usage))
     # the twiddle doublings of one ntt as it makes them: T = 1 at the widths
     # 1, 2, ..., N/4, the step constant a [16, 1] row read in place (the
     # kernels line's `sop_fr` row)
@@ -1071,11 +1119,11 @@ def phase_kernels(device, usage):
             for lane, col in enumerate(fr_edges):
                 x[:, 6 + lane] = col
         a, b, w = a.contiguous(), b.contiguous(), w.contiguous()
-        chk.hold(f"butterfly B={B}",
-                 lambda a=a, b=b, w=w: mont.butterfly(a, b, w),
+        call, copies = rotating(mont.butterfly, a, b, w)
+        chk.hold(f"butterfly B={B}", call,
                  lambda a=a, b=b, w=w: mont.butterfly_plain(a, b, w),
                  "butterfly", 50, 3, B * BUTTERFLY_BYTES,
-                 B * BUTTERFLY_IMADS)
+                 B * BUTTERFLY_IMADS, operand_copies=copies)
     if chk.failures:
         fail(f"kernel and plain version disagree: {chk.failures}")
     return chk.results, chk.timed
@@ -2546,6 +2594,335 @@ def phase_bls(device):
     return counts, total
 
 
+# ---------------------------------------------------------------------------
+# The card's paths against the independent host oracle
+# ---------------------------------------------------------------------------
+
+
+def expected_oracle_launches(check: str, n: int) -> dict:
+    """Kernel launches of one device call of phase oracle over n lanes:
+      - "h2c_<group>_<kind>": `expected_h2c_launches`;
+      - "multi_pairing": the aggregate pairing with its final
+        exponentiation on one rank (`expected_parallel_launches`);
+      - "psi": one fold (c_x x^p and c_y y^p as one Fp2 product pair);
+      - "fr_sqrt": the power a^((t-1)/2), then Fr products and squares
+        (each a sop_fr launch): two products for x and a^t, per bit k of
+        the 2^32-order discrete log 31 - k squares and a product (and for
+        k > 0 one for the root's correction), the root's product, and the
+        check's square: 2 + 496 + 32 + 31 + 1 + 1;
+      - "fr_inv": one power; "fr_from_bytes" / "fr_to_bytes": one product
+        (to or from Montgomery form); "fr_from_bytes_wide": none (the
+        reduction runs on the host);
+      - "fp_from_bytes": one product (to Montgomery form)."""
+    if check.startswith("h2c_"):
+        _, group, kind = check.split("_")
+        return expected_h2c_launches(group, kind, n)
+    if check == "multi_pairing":  # by kernel (its plans not by name)
+        return expected_parallel_launches("pairing_agg_fe", n, (1,))
+    zero = {"plan_exec": 0, "sqr": 0, "sop": 0, "fold_planned": 0,
+            "pow_fixed": 0, "pow_fixed_fr": 0, "fp2_pow_fixed": 0,
+            "copied_rows": 0, "sop_fr": 0, "butterfly": 0,
+            "plan_exec_by_plan": {}}
+    S = 32
+    extra = {"psi": {"fold_planned": 1},
+             "fr_sqrt": {"pow_fixed_fr": 1,
+                         "sop_fr": 2 + S * (S - 1) // 2 + S + (S - 1) + 2},
+             "fr_inv": {"pow_fixed_fr": 1},
+             "fr_from_bytes": {"sop_fr": 1}, "fr_to_bytes": {"sop_fr": 1},
+             "fr_from_bytes_wide": {}, "fp_from_bytes": {"sop": 1}}[check]
+    return {**zero, **extra}
+
+
+def host_multi_pairing(terms):
+    """The host oracle's final_exponentiation(multi_miller_loop(terms))."""
+    from bls12_381_torch import hostmath as hm
+
+    return hm.final_exponentiation(hm.multi_miller_loop(terms))
+
+
+def oracle_inputs() -> dict:
+    """Phase oracle's inputs from SEED: the G2 hash lanes (0 and the last
+    among them), the multi-pairing's host terms ([a]G1, [b]G2 with a G1
+    and a G2 identity), the Fr values (0, 1, q - 1, 4 and the non-square 7
+    first), the Fr byte rows ending in the non-canonical q, q + 1,
+    2^256 - 1, the 64-byte wide rows, the 48-byte Fp rows of the native
+    codec (p, p + 1 and 2^381 - 1 first, about a fifth of the rest >= p)
+    and a 300-byte DST."""
+    import random
+
+    import numpy as np
+
+    from bls12_381_torch import hostmath as hm, params
+
+    P, Q = params.P, params.Q
+    rnd = random.Random(SEED)
+    n = 1 << H2C_LOG_N
+    g2_lanes = sorted({0, n - 1} | set(rnd.sample(range(1, n - 1),
+                                                  ORACLE_G2_LANES - 2)))
+    terms = [(hm.g1_mul(params.G1_GEN, rnd.randrange(1, Q)),
+              hm.g2_mul(params.G2_GEN, rnd.randrange(1, Q)))
+             for _ in range(ORACLE_TERMS)]
+    terms[1] = (None, terms[1][1])
+    terms[4] = (terms[4][0], None)
+    n_fr = 1 << ORACLE_FR_LOG_N
+    fr_vals = [0, 1, Q - 1, 4, 7] + [rnd.randrange(Q)
+                                     for _ in range(n_fr - 5)]
+    fr_rows = [v.to_bytes(32, "little") for v in fr_vals[:-3]] + [
+        v.to_bytes(32, "little") for v in (Q, Q + 1, (1 << 256) - 1)]
+    wide = [bytes(64), b"\xff" * 64, Q.to_bytes(64, "little")] + [
+        rnd.randbytes(64) for _ in range(n_fr - 3)]
+    n_fp = 1 << ORACLE_CODEC_LOG_N
+    fp_vals = [P, P + 1, (1 << 381) - 1, 0, 1, P - 1] + [
+        rnd.randrange(P + P // 4) for _ in range(n_fp - 6)]
+    fp_rows = np.frombuffer(b"".join(v.to_bytes(48, "big") for v in fp_vals),
+                            np.uint8).reshape(n_fp, 48)
+    return {"g2_lanes": g2_lanes, "terms": terms, "fr_vals": fr_vals,
+            "fr_rows": fr_rows, "wide": wide, "fp_vals": fp_vals,
+            "fp_rows": fp_rows, "big_dst": rnd.randbytes(300)}
+
+
+def phase_oracle(device):
+    """The card's paths against the independent host code: `hostmath`'s
+    hash to curve, multi-Miller loop, psi and Fr functions (pure Python,
+    run in ORACLE_WORKERS spawned processes while the card works), and the
+    native host runtime (`utils/native.py`).  Each device call is counted
+    against `expected_oracle_launches`; the first mismatch ends the run.
+      - hash_to_curve / encode_to_curve of phase h2c's 256 messages (device
+        expansion): G1 on every lane, G2 on ORACLE_G2_LANES lanes, affine
+        coordinates as integers;
+      - final_exponentiation(multi_miller_loop(p, prepare_g2(q))) over
+        ORACLE_TERMS terms against the host's;
+      - `g2.psi` on 256 of `msm_inputs`' G2 points against `g2_psi`;
+      - `fr.sqrt` on 2^ORACLE_FR_LOG_N lanes (roots, and the mask false
+        exactly where `fr_sqrt` gives None), `fr.inv` on the non-zero
+        lanes, the Fr byte codecs with their rejects;
+      - the native Fp codec at 2^ORACLE_CODEC_LOG_N rows against
+        `fp.from_bytes_host` on the card (limbs on the canonical rows, and
+        the mask) and back to the input bytes; the native XMD at 256 lanes
+        x 128 and 256 bytes (and a 300-byte DST) against hostmath's and
+        the device XMD; len_in_bytes 8161 raises.
+    Host-clock medians of ORACLE_REPS runs: the native, hostmath and
+    device XMD at 256 x 256 bytes, the native Fp decoder against a loop of
+    hostmath.fp_from_bytes.  Returns each device check's launch counts."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+
+    import numpy as np
+    import torch
+
+    from bls12_381_torch import entry, hostmath as hm, params
+    from bls12_381_torch import pairing as pr
+    from bls12_381_torch.curves import g2
+    from bls12_381_torch.fields import fp, fr
+    from bls12_381_torch.kernels import sha256
+    from bls12_381_torch.utils import native
+
+    t_phase = time.perf_counter()
+    n = 1 << H2C_LOG_N
+    msgs = entry.h2c_inputs(H2C_LOG_N)
+    dst = entry.H2C_DST
+    inputs = oracle_inputs()
+    terms, fr_vals, fr_rows, wide, fp_vals, fp_rows = (inputs[k] for k in (
+        "terms", "fr_vals", "fr_rows", "wide", "fp_vals", "fp_rows"))
+    lanes = {"g1": list(range(n)), "g2": inputs["g2_lanes"]}
+    workers = max(1, min(ORACLE_WORKERS, os.cpu_count() or 1))
+    pool = cf.ProcessPoolExecutor(workers, mp_context=mp.get_context("spawn"))
+    launches, compared = {}, {}
+
+    def counted(check, lanes_n, fn):
+        counts, _, _, _, out = counted_call(fn)
+        want = expected_oracle_launches(check, lanes_n)
+        if {k: counts[k] for k in want} != want:
+            fail(f"oracle {check}: launch counts {counts} differ from the "
+                 f"schedule {want}")
+        launches[check] = counts
+        return out
+
+    try:
+        # the host side first (the G2 hashes, the longest, at the head of
+        # the queue); the card works while it runs
+        host = {}
+        for group in ("g2", "g1"):
+            for kind in ("hash", "encode"):
+                fn = getattr(hm, f"{kind}_to_curve_{group}")
+                host[f"h2c_{group}_{kind}"] = [
+                    pool.submit(fn, bytes(msgs[i]), dst)
+                    for i in lanes[group]]
+        host["multi_pairing"] = pool.submit(host_multi_pairing, terms)
+        host["fr_sqrt"] = pool.map(hm.fr_sqrt, fr_vals, chunksize=128)
+
+        # hash to curve
+        device_pts = {}
+        for group in ("g1", "g2"):
+            for kind in ("hash", "encode"):
+                check = f"h2c_{group}_{kind}"
+                fn, args = entry.h2c_entry(H2C_LOG_N, group, kind, device)
+                out = counted(check, n, lambda: fn(*args))
+                device_pts[check] = affine_lanes(group, out, lanes[group])
+
+        # the multi-pairing
+        p_aff, q_aff = encode(
+            [(0, 0, True) if p is None else (p[0], p[1], False)
+             for p, _ in terms],
+            [((0, 0), (0, 0), True) if q is None else (q[0], q[1], False)
+             for _, q in terms], device)
+        f = counted("multi_pairing", ORACLE_TERMS,
+                    lambda: pr.final_exponentiation(pr.multi_miller_loop(
+                        p_aff, pr.prepare_g2(q_aff))))
+        device_gt = fp12_host(f)
+
+        # psi
+        psi_lanes = list(range(1 << ORACLE_PSI_LOG_N))
+        pts, _ = entry.msm_inputs(ORACLE_PSI_LOG_N, "g2", seed=SEED,
+                                  device=device)
+        out = counted("psi", len(psi_lanes), lambda: g2.psi(pts))
+        psi_dev = affine_lanes("g2", out, psi_lanes)
+        psi_host = [hm.g2_psi(pt) for pt in affine_lanes("g2", pts,
+                                                         psi_lanes)]
+        if psi_dev != psi_host:
+            bad = [i for i, (a, b) in enumerate(zip(psi_dev, psi_host))
+                   if a != b]
+            fail(f"oracle psi: lanes {bad[:8]} differ from g2_psi")
+        compared["psi"] = len(psi_lanes)
+
+        # Fr: inversion, the codecs (the square roots are checked below,
+        # against the host pool's)
+        n_fr = len(fr_vals)
+        a = fr.from_ints(fr_vals, device=device)
+        root, ok = counted("fr_sqrt", n_fr, lambda: fr.sqrt(a))
+        roots_dev, ok_dev = fr.to_ints(root), ok.cpu().tolist()
+        nonzero = [v for v in fr_vals if v]
+        a_nz = fr.from_ints(nonzero, device=device)
+        inv = counted("fr_inv", len(nonzero), lambda: fr.inv(a_nz))
+        if list(fr.to_ints(inv)) != [hm.fr_inv(v) for v in nonzero]:
+            fail("oracle fr.inv differs from fr_inv")
+        compared["fr_inv"] = len(nonzero)
+        rows = np.frombuffer(b"".join(fr_rows), np.uint8).reshape(-1, 32)
+        m, valid = counted("fr_from_bytes", len(fr_rows),
+                           lambda: fr.from_bytes_host(rows, device=device))
+        host_fr = [hm.fr_from_bytes(r) for r in fr_rows]
+        if valid.tolist() != [v is not None for v in host_fr] \
+                or valid[-3:].any():
+            fail("oracle fr.from_bytes_host's mask differs from "
+                 "fr_from_bytes")
+        got = fr.to_ints(m)
+        if [int(g) for g, v in zip(got, valid) if v] != [
+                v for v in host_fr if v is not None]:
+            fail("oracle fr.from_bytes_host differs from fr_from_bytes")
+        back = counted("fr_to_bytes", len(fr_rows),
+                       lambda: fr.to_bytes_host(m))
+        if [bytes(r) for r, v in zip(back, valid) if v] != [
+                hm.fr_to_bytes(v) for v in host_fr if v is not None]:
+            fail("oracle fr.to_bytes_host differs from fr_to_bytes")
+        wrows = np.frombuffer(b"".join(wide), np.uint8).reshape(-1, 64)
+        w = counted("fr_from_bytes_wide", len(wide),
+                    lambda: fr.from_bytes_wide_host(wrows, device=device))
+        if list(fr.to_ints(w)) != [hm.fr_from_bytes_wide(r) for r in wide]:
+            fail("oracle fr.from_bytes_wide_host differs from "
+                 "fr_from_bytes_wide")
+        compared["fr_codecs"] = {"from_bytes": len(fr_rows),
+                                 "rejected": 3, "wide": len(wide)}
+
+        # the native runtime: Fp codecs
+        t0 = time.perf_counter()
+        nat, nat_ok = native.fp_from_bytes(fp_rows)
+        build_s = time.perf_counter() - t0
+        dev, dev_ok = counted("fp_from_bytes", len(fp_vals),
+                              lambda: fp.from_bytes_host(fp_rows,
+                                                         device=device))
+        if nat_ok.tolist() != dev_ok.tolist() or nat_ok[:3].any() \
+                or nat_ok.tolist() != [v < params.P for v in fp_vals]:
+            fail("oracle native fp_from_bytes's mask differs")
+        dev = dev.cpu().numpy()
+        if not np.array_equal(nat[:, nat_ok].astype(np.int64),
+                              dev[:, nat_ok].astype(np.int64)) \
+                or nat[:, ~nat_ok].any():
+            fail("oracle native fp_from_bytes differs from "
+                 "fp.from_bytes_host on the card")
+        if not np.array_equal(native.fp_to_bytes(nat)[nat_ok],
+                              fp_rows[nat_ok]):
+            fail("oracle native fp_to_bytes does not give the input bytes")
+        compared["native_fp_codec"] = {"rows": len(fp_vals),
+                                       "canonical": int(nat_ok.sum())}
+
+        # the native runtime: expand_message_xmd
+        big_dst = inputs["big_dst"]
+        for d in (dst, big_dst):
+            for length in ORACLE_XMD_LENGTHS:
+                nat = native.expand_message_xmd_sha256(
+                    [bytes(r) for r in msgs], d, length)
+                want = [hm.expand_message_xmd(bytes(r), d, length)
+                        for r in msgs]
+                dev = sha256.expand_message_xmd_sha256(msgs, d, length,
+                                                       device).cpu().numpy()
+                if [bytes(r) for r in nat] != want or not np.array_equal(
+                        nat, dev):
+                    fail(f"oracle native XMD ({length} bytes, DST of "
+                         f"{len(d)}) differs")
+        try:
+            native.expand_message_xmd_sha256([b""], dst, 8161)
+        except ValueError:
+            pass
+        else:
+            fail("oracle native XMD takes len_in_bytes 8161")
+        compared["native_xmd"] = {"lanes": n, "lengths": ORACLE_XMD_LENGTHS,
+                                  "dst_bytes": (len(dst), len(big_dst))}
+
+        # the host side's answers
+        t0 = time.perf_counter()
+        for check, futs in host.items():
+            if not check.startswith("h2c_"):
+                continue
+            group = check.split("_")[1]
+            want = [fut.result() for fut in futs]
+            got = device_pts[check]
+            if got != want:
+                bad = [lanes[group][i] for i, (x, y) in
+                       enumerate(zip(got, want)) if x != y]
+                fail(f"oracle {check}: lanes {bad[:8]} differ from the "
+                     "host oracle")
+            compared[check] = len(want)
+        if device_gt != host["multi_pairing"].result():
+            fail("oracle multi-pairing differs from the host's "
+                 "final_exponentiation(multi_miller_loop(terms))")
+        compared["multi_pairing_terms"] = ORACLE_TERMS
+        roots_host = list(host["fr_sqrt"])
+        if ok_dev != [r is not None for r in roots_host]:
+            fail("oracle fr.sqrt's mask differs from fr_sqrt")
+        if [int(r) for r, o in zip(roots_dev, ok_dev) if o] != [
+                r for r in roots_host if r is not None]:
+            fail("oracle fr.sqrt's roots differ from fr_sqrt's")
+        compared["fr_sqrt"] = {"lanes": n_fr, "residues": sum(ok_dev)}
+        host_wait = time.perf_counter() - t0
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+    # host-clock medians
+    def median_s(fn):
+        return statistics.median(host_times(fn, reps=ORACLE_REPS)[0])
+
+    host_msgs = [bytes(r) for r in msgs]
+    length = ORACLE_XMD_LENGTHS[-1]
+    timings = {
+        "native_xmd_s": median_s(lambda: native.expand_message_xmd_sha256(
+            host_msgs, dst, length)),
+        "hostmath_xmd_s": median_s(lambda: [
+            hm.expand_message_xmd(m, dst, length) for m in host_msgs]),
+        "device_xmd_s": median_s(lambda: sha256.expand_message_xmd_sha256(
+            msgs, dst, length, device)),
+        "native_fp_from_bytes_s": median_s(
+            lambda: native.fp_from_bytes(fp_rows)),
+        "hostmath_fp_from_bytes_loop_s": median_s(lambda: [
+            hm.fp_from_bytes(r.tobytes()) for r in fp_rows]),
+    }
+    say("oracle", compared=compared, launches=launches,
+        xmd_shape=[n, length], fp_rows=len(fp_vals), workers=workers,
+        native_first_call_seconds=build_s, host_wait_seconds=host_wait,
+        median_seconds=timings, reps=ORACLE_REPS,
+        seconds=time.perf_counter() - t_phase)
+    return launches
+
+
 def expected_parallel_launches(kind: str, n: int, mesh_shape: tuple,
                                 window: int = PARALLEL_WINDOW) -> dict:
     """Kernel launches of one call of a sharded path on one rank of a mesh
@@ -3089,6 +3466,7 @@ def main() -> None:
     codecs = phase("codec", phase_codec, device)
     h2cs = phase("h2c", phase_h2c, device)
     bls_counts, _ = phase("bls", phase_bls, device)
+    oracle_counts = phase("oracle", phase_oracle, device)
     par = phase("parallel", phase_parallel, device)
     phase("kernel_times", phase_kernel_times, results, timed)
     del timed
@@ -3116,6 +3494,9 @@ def main() -> None:
         paths = {label: c for label, (c, *_) in {**smuls, **codecs,
                                                   **h2cs}.items()}
         paths["bls_round_trip"] = bls_counts
+        # phase oracle: each device call it held to the host oracle
+        for check, counts in oracle_counts.items():
+            paths[f"oracle_{check}"] = counts
         # phase parallel: rank 0's launches per sharded call, by row and
         # number of ranks
         for world, rows in par.items():

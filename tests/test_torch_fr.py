@@ -255,3 +255,39 @@ def test_fr_wrappers_validate_inputs():
         mont.butterfly(meta, meta, meta)
     with pytest.raises(ValueError, match="unsupported device"):
         mont.sop_fr(meta[None], meta[None])
+
+
+@pytest.mark.parametrize("check", [
+    "psi", "fr_sqrt", "fr_inv", "fr_from_bytes", "fr_to_bytes",
+    "fr_from_bytes_wide", "fp_from_bytes"])
+def test_phase_oracle_launch_schedules(check):
+    """`chip_smoke.expected_oracle_launches` of phase oracle's device
+    checks outside hash to curve and the multi-pairing (their schedules
+    are `expected_h2c_launches` and `expected_parallel_launches`, held in
+    test_torch_h2c.py and test_torch_parallel.py), by counting the plain
+    versions' calls at 8 lanes."""
+    import chip_smoke
+    from test_torch_smul import count_launches
+
+    from bls12_381_torch import entry
+    from bls12_381_torch.curves import g2
+    from bls12_381_torch.fields import fp
+
+    n = 8
+    vals = rvals(n)
+    pts = entry.msm_inputs(3, "g2", device="cpu")[0]
+    calls = {
+        "psi": lambda: g2.psi(pts),
+        "fr_sqrt": lambda: fr.sqrt(fr.from_ints(vals, device="cpu")),
+        "fr_inv": lambda: fr.inv(fr.from_ints(vals[1:], device="cpu")),
+        "fr_from_bytes": lambda: fr.from_bytes_host(
+            np.zeros((n, 32), np.uint8), device="cpu"),
+        "fr_to_bytes": lambda: fr.to_bytes_host(
+            fr.from_ints(vals, device="cpu")),
+        "fr_from_bytes_wide": lambda: fr.from_bytes_wide_host(
+            np.full((n, 64), 255, np.uint8), device="cpu"),
+        "fp_from_bytes": lambda: fp.from_bytes_host(
+            np.zeros((n, 48), np.uint8), device="cpu"),
+    }
+    counts, _ = count_launches(calls[check])
+    assert counts == chip_smoke.expected_oracle_launches(check, n)

@@ -21,6 +21,9 @@ from bls12_381_torch.kernels import mont, plan_exec as pe
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "bls12_381_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
+# the port's C++ and CUDA sources (the native host runtime's among them)
+PORT_SOURCES = sorted(p for ext in ("*.cpp", "*.cu", "*.cuh")
+                      for p in (ROOT / "bls12_381_torch").rglob(ext))
 FORBIDDEN = ("jax", "jaxlib", "bls12_381_tpu", "__graft_entry__", "bench")
 
 
@@ -41,10 +44,23 @@ def imported_modules(path: pathlib.Path):
 
 def test_port_imports_no_jax_package():
     assert len(PORT_FILES) > 10
+    assert ROOT / "bls12_381_torch" / "utils" / "native.py" in PORT_FILES
     bad = [(p.relative_to(ROOT).as_posix(), m) for p in PORT_FILES
            for m in imported_modules(p)
            if m.split(".")[0] in FORBIDDEN]
     assert bad == []
+
+
+def test_port_sources_include_nothing_of_the_jax_package():
+    """The kernels and the native host runtime build from the port's own
+    sources: no #include reaches outside the port's tree."""
+    names = [p.relative_to(ROOT).as_posix() for p in PORT_SOURCES]
+    assert "bls12_381_torch/utils/csrc/bls_host.cpp" in names
+    for path in PORT_SOURCES:
+        for line in path.read_text().splitlines():
+            if line.startswith("#include"):
+                assert "bls12_381_tpu" not in line and ".." not in line, (
+                    path.name, line)
 
 
 def test_entry_defaults_to_the_card():

@@ -5,8 +5,9 @@ Tolerance: none (integer arithmetic) -- every comparison is exact equality
 of integers or 16-bit limbs.  Each main-path plan is built by the port,
 compiled to its instruction table and run by the table's plain executor;
 the JAX package's own plan of the same name is evaluated lane by lane with
-its pure-Python oracle `eval_plan_host`.  Inputs come from a seeded
-generator plus the edge values 0, 1 and p-1.
+its pure-Python oracle `eval_plan_host`, which the port's copy of it
+equals.  Inputs come from a seeded generator plus the edge values 0, 1 and
+p-1.
 """
 
 import random
@@ -73,6 +74,19 @@ def test_plan_matches_jax_eval_plan_host(name, args):
         got = [int(fp.to_ints(out[o, :, b], from_mont=False))
                for o in range(len(jax_plan))]
         assert got == exp, (name, b)
+
+
+@pytest.mark.parametrize("name,args", MAIN_PATH,
+                         ids=[n + "".join(map(str, a)) for n, a in MAIN_PATH])
+def test_eval_plan_host_matches_jax(name, args):
+    """The port's host plan oracle on its own plan equals the JAX
+    package's on the JAX plan of the same name."""
+    port_plan = getattr(pe, name)(*args)
+    jax_plan = getattr(jpe, name)(*args)
+    lanes = lane_inputs(pe.compile_plan(port_plan).n_in, 4)
+    for lane in lanes:
+        assert pe.eval_plan_host(port_plan, lane, P, R) == \
+            jpe.eval_plan_host(jax_plan, lane, P, R)
 
 
 def sources(n):
