@@ -7,8 +7,9 @@ hash to curve.
 the pairing function and example inputs e([i+1]G1, [2i+1]G2), i < batch, on
 the device (the card unless the caller asks for the CPU).  `ntt_entry()`
 returns the NTT and random coefficients at N = 2^log_n, as `bench.py`'s
-`bench_ntt` times it.  `msm_entry()` returns `msm_g1` or `msm_g2` and
-N = 2^log_n points [i+1]G with random scalars.  `smul_entry()` returns
+`bench_ntt` times it.  `msm_entry()` returns `msm_g1_large` (which is
+`msm_g1` up to 2^21 points) or `msm_g2` and N = 2^log_n points [i+1]G with
+random scalars.  `smul_entry()` returns
 `g1.scalar_mul`, `g2.scalar_mul` or `gt.scalar_mul` and N = 2^log_n bases
 with one random scalar each, as `bench.py`'s `bench_curves` times them.
 `codec_entry()` returns `from_compressed_host` or `from_uncompressed_host`
@@ -138,9 +139,12 @@ def _scalars(log_n: int, seed: int, device):
 
 def msm_entry(log_n: int = 16, group: str = "g1", seed: int = 5,
               device="cuda"):
-    """(fn, example_args): `msm.msm_g1` or `msm.msm_g2` (window
-    `msm.MSM_WINDOW`, GLV/GLS split) and `msm_inputs`."""
-    fn = {"g1": msm.msm_g1, "g2": msm.msm_g2}[group]
+    """(fn, example_args): `msm.msm_g1_large` or `msm.msm_g2` (window
+    `msm.MSM_WINDOW`, GLV/GLS split) and `msm_inputs`.  G1 takes
+    `msm_g1_large`, as `bench.py` times every G1 row: up to 2^21 points
+    (its default chunk) it is `msm_g1` itself, above that `msm_g1` over
+    chunks of 2^21 points folded with single group additions."""
+    fn = {"g1": msm.msm_g1_large, "g2": msm.msm_g2}[group]
     return fn, msm_inputs(log_n, group, seed, device)
 
 

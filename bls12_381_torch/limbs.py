@@ -432,9 +432,10 @@ def barrett_divmod(a: torch.Tensor, d: int, q_limbs: int):
     return select(too_big, q_fix, q), select(too_big, r_fix, r)
 
 
-def digits4_msb(a: torch.Tensor, n_bits: int) -> torch.Tensor:
+def digits4_msb(limbs_tensor: torch.Tensor, n_bits: int) -> torch.Tensor:
     """[n, *batch] 16-bit limbs -> [ceil(n_bits / 4), *batch] int32 4-bit
     digits, MSB first (each limb holds four aligned digits)."""
+    a = limbs_tensor
     n_digits = -(-n_bits // 4)
     x = a[:-(-n_digits // 4)].long()
     shifts = _const_tensor((0, 4, 8, 12), a.device, torch.int64).reshape(
@@ -476,10 +477,11 @@ def signed_digits_lsb(a: torch.Tensor, n_bits: int, window: int = 4):
     return torch.stack(mags).to(DTYPE), torch.stack(negs)
 
 
-def signed_digits_msb(a: torch.Tensor, n_bits: int, window: int = 4):
+def signed_digits_msb(limbs_tensor: torch.Tensor, n_bits: int,
+                      window: int = 4):
     """`signed_digits_lsb` with the digits MSB first, the order the
     scalar multiplications read them in."""
-    mags, negs = signed_digits_lsb(a, n_bits, window)
+    mags, negs = signed_digits_lsb(limbs_tensor, n_bits, window)
     return mags.flip(0), negs.flip(0)
 
 
@@ -520,15 +522,21 @@ def sgn0(a: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def pow_fixed(spec: FieldSpec, a: torch.Tensor, exponent: int) -> torch.Tensor:
+def pow_fixed(spec: FieldSpec, a: torch.Tensor, exponent: int,
+              window: int = 4) -> torch.Tensor:
     """a^exponent for a public exponent (a Python int): the whole fixed-
     window square-and-multiply chain in ONE launch of the field's power
     kernel (`mont.pow_fixed` for Fp, `mont.pow_fixed_fr` for Fr) over the
     flattened batch.  On a CPU tensor its plain version runs the JAX
     package's schedule (limbs.py:693-735); every step is canonical, so the
-    values agree limb for limb."""
+    values agree limb for limb.  The kernel's digits are `window` = 4 bits
+    (`mont.POW_WINDOW`, the JAX default); any other window raises
+    ValueError, on every device."""
     from .kernels import mont
 
+    if window != mont.POW_WINDOW:
+        raise ValueError(f"pow_fixed: window {window!r}; the power kernel "
+                         f"takes {mont.POW_WINDOW}-bit digits only")
     if exponent == 0:
         return one(spec, a.shape[1:], device=a.device)
     flat, batch = _flat_batch(a, 1)

@@ -35,10 +35,10 @@ def sub(a, b):
     return add(a, neg(b))
 
 
-def generator(batch=(), device="cuda"):
+def generator(batch_shape=(), device="cuda"):
     """e(G1, G2), the fixed generator (pairings.rs:359-475), computed once
     on the host and broadcast over a batch shape (expanded views)."""
-    return tw.fp12_from_host(hm.gt_generator(), batch, device)
+    return tw.fp12_from_host(hm.gt_generator(), batch_shape, device)
 
 
 def is_identity(a):
@@ -55,16 +55,17 @@ def _broadcast_to_batch(a, batch):
         (t.shape[0],) + full), a)
 
 
-def scalar_mul(a, scalars_mont):
-    """[k]a for Gt elements and Montgomery Fr scalars [16, *batch] by the
-    4-way GLS split: the Frobenius acts as [z] on the order-q subgroup, as
-    psi does on G2, so k = c0 + c1|z| + c2|z|^2 + c3|z|^3 (three Barrett
-    divisions) gives [k]a = [c0]a + [c1](-frob a) + [c2]frob^2 a
-    + [c3](-frob^3 a): four 64-bit scalars, 64 doublings instead of 255.
+def scalar_mul(gt, scalars_mont):
+    """[k]a for Gt elements a = `gt` and Montgomery Fr scalars [16, *batch]
+    by the 4-way GLS split: the Frobenius acts as [z] on the order-q
+    subgroup, as psi does on G2, so k = c0 + c1|z| + c2|z|^2 + c3|z|^3
+    (three Barrett divisions) gives [k]a = [c0]a + [c1](-frob a)
+    + [c2]frob^2 a + [c3](-frob^3 a): four 64-bit scalars, 64 doublings
+    instead of 255.
     Elements of Gt only; scalar_mul_generic otherwise."""
     canon = limbs.from_mont(limbs.FR, scalars_mont)
     batch = canon.shape[1:]
-    a = _broadcast_to_batch(a, batch)
+    a = _broadcast_to_batch(gt, batch)
     x = params.BLS_X
     q3, r3 = limbs.barrett_divmod(canon, x ** 3, 5)
     q2, r2 = limbs.barrett_divmod(r3, x ** 2, 5)
@@ -81,13 +82,13 @@ def scalar_mul(a, scalars_mont):
         lambda acc: tw.fp12_cyclotomic_sqr_k(acc, WINDOW))
 
 
-def scalar_mul_generic(a, scalars_mont):
-    """[k]a by the reference's ladder (pairings.rs:304-322): from the
-    identity, 255 steps over the canonical scalar's bits, MSB first, each a
-    doubling, an add and a select."""
+def scalar_mul_generic(gt, scalars_mont):
+    """[k]a, a = `gt`, by the reference's ladder (pairings.rs:304-322): from
+    the identity, 255 steps over the canonical scalar's bits, MSB first,
+    each a doubling, an add and a select."""
     canon = limbs.from_mont(limbs.FR, scalars_mont).long()
     batch = canon.shape[1:]
-    a = _broadcast_to_batch(a, batch)
+    a = _broadcast_to_batch(gt, batch)
     acc = identity(batch, canon.device)
     for i in range(254, -1, -1):
         acc = double(acc)

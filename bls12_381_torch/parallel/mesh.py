@@ -53,9 +53,10 @@ def _mesh(shape: tuple[int, ...], names: tuple[str, ...]) -> DeviceMesh:
                       mesh_dim_names=names)
 
 
-def make_mesh(n: int | None = None, axis: str = "x") -> DeviceMesh:
-    """1-D mesh of n ranks (default: the world)."""
-    return _mesh((_world_size() if n is None else n,), (axis,))
+def make_mesh(n_devices: int | None = None, axis: str = "x") -> DeviceMesh:
+    """1-D mesh of n_devices ranks (default: the world)."""
+    n = _world_size() if n_devices is None else n_devices
+    return _mesh((n,), (axis,))
 
 
 def make_mesh_2d(n_hosts: int, chips_per_host: int,
@@ -83,12 +84,32 @@ def shard_size(mesh: DeviceMesh, batch: int) -> int:
     return batch // mesh.size()
 
 
-def shard_batch(mesh: DeviceMesh, tree):
-    """This rank's shard of the last axis of every tensor of a nested tuple
-    (views; the shard index is the rank, host-major)."""
-    b = shard_size(mesh, scans.tree_leaves(tree)[0].shape[-1])
-    start = dist.get_rank() * b
-    return scans.tree_map(lambda t: t[..., start:start + b], tree)
+def shard_batch(mesh: DeviceMesh, arr, axis_name=None):
+    """This rank's shard of the last axis of a tensor, or of every tensor of
+    a nested tuple (views).  The batch shards over all mesh axes (None), or
+    over one axis name or a tuple of them, the first one major, as the JAX
+    package's NamedSharding lays it out: the shard index is the rank's
+    coordinate along those axes, and the ranks along the other axes hold the
+    same shard.  Over all axes of a host-major mesh the index is the rank."""
+    names = batch_axes(mesh) if axis_name is None else (
+        (axis_name,) if isinstance(axis_name, str) else tuple(axis_name))
+    dims = list(mesh.mesh_dim_names)
+    if not names or any(a not in dims for a in names) \
+            or len(set(names)) != len(names):
+        raise ValueError(f"shard_batch: axis_name {axis_name!r} does not "
+                         f"name distinct axes of the mesh {tuple(dims)}")
+    coord = dict(zip(dims, mesh.get_coordinate()))
+    size = dict(zip(dims, mesh.mesh.shape))
+    n_shards, index = 1, 0
+    for a in names:
+        n_shards, index = n_shards * size[a], index * size[a] + coord[a]
+    batch = scans.tree_leaves(arr)[0].shape[-1]
+    if batch % n_shards:
+        raise ValueError(f"a batch of {batch} does not shard evenly over "
+                         f"{n_shards} ranks")
+    b = batch // n_shards
+    start = index * b
+    return scans.tree_map(lambda t: t[..., start:start + b], arr)
 
 
 def replicate(mesh: DeviceMesh, tree):

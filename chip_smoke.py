@@ -67,6 +67,19 @@ Phases (each prints its lines and seconds; any failed check exits non-zero):
      in projective coordinates and glv=False / gls=False agree; host-clock
      median of MSM_REPS runs after the warm-up, host CPU share, the MSM's
      own peak memory.
+  6b. msm_large: bench.py:553-599's G1 rows, msm_g1_large at window 13
+     through `entry.msm_entry` (2^21-point chunks folded by single adds)
+     on 2^20 and 2^24 points (the north star): the inputs' scan seconds
+     and peak; launch counts equal `expected_msm_large_launches`; the
+     affine result equals the host's [sum_i k_i (i+1) mod q]G, summed by
+     numpy dot products over the Montgomery limbs (`msm_host_sum`); 2^24
+     also at chunks of 2^22 and 2^23 points (the same point, each call's
+     own peak), and msm_g1_large = one msm_g1 pipeline at 2^22; 2^20 at
+     window 12 too; host-clock medians of 5 (2^20) and 3 (2^24), points/s,
+     host CPU share; the 2^24 tensors are freed after it.  Phase kernels
+     holds g1_add at 2^21 and 2^22 lanes and a product at 2^21, the
+     chunk's widest launches, against the plain versions on sampled
+     lanes.
   7. smul: bench.py:350-427's rows through the port's entry points:
      g1.scalar_mul (GLV) at 2^10 and 2^12 lanes, g2.scalar_mul (GLS) and
      gt.scalar_mul (GLS) at 2^10, g1/g2.is_torsion_free and
@@ -122,8 +135,10 @@ Phases (each prints its lines and seconds; any failed check exits non-zero):
      multi_miller_loop, its final exponentiation = the host's
      e(G1, G2)^(sum a_i b_i), the MSMs in affine = the host's point, ntt /
      intt limb for limb), launch counts equal
-     `expected_parallel_launches`, own peak memory < 1 GB; host-clock
-     medians of 5 runs per row at 1 and 4 ranks beside the local call's.
+     `expected_parallel_launches`, own peak memory < 1 GB; at 4 ranks
+     `shard_batch`'s lanes on the 2 x 2 mesh for each axis_name equal
+     `expected_shards`; host-clock medians of 5 runs per row at 1 and 4
+     ranks beside the local call's.
   13. kernel times: each kernel's device time per launch at the shapes of
      phase 3 (torch.profiler); after phases 4-12, because a profiler
      session may slow the host's launches for the rest of the process.
@@ -133,17 +148,18 @@ Phases (each prints its lines and seconds; any failed check exits non-zero):
      operands: the paths' folds of two and three groups, the line scaling
      in its own layout, T = 7, 8, the pairing's norm and an MSM scan level;
      equal values, device ms of all device work and issue ms per call.
-  15. profiles: one pairing, one NTT, one msm_g1, one msm_g2 and one call
-     of each smul, codec and h2c row under
-     torch.profiler -- device time by kernel (device-side events only), the
-     port kernels' ms per launch, the `CatArrayBatchedCopy` and other copy
-     launches, the rows `sop_rows` copied, and the device's busy share: the
-     union of kernel intervals over the unprofiled wall time.
+  15. profiles: one pairing, one NTT, one msm_g1, one msm_g2, one
+     msm_g1_large at 2^20 and one call of each smul, codec and h2c row
+     under torch.profiler -- device time by kernel (device-side events
+     only), the port kernels' ms per launch, the `CatArrayBatchedCopy` and
+     other copy launches, the rows `sop_rows` copied, and the device's busy
+     share: the union of kernel intervals over the unprofiled wall time.
   16. the `kernels` JSON line (each kernel's launches per path, the smul,
-     codec and h2c rows', the round trip's, phase oracle's and phase
-     parallel's as `launches_<row>`, the last two as
-     `launches_oracle_<check>` and `launches_parallel_<row>_r<ranks>`:
-     rank 0's), then the device JSON line last.
+     codec and h2c rows', the round trip's, phase msm_large's (2^20 and
+     2^24), phase oracle's and phase parallel's as `launches_<row>`, the
+     last two as `launches_oracle_<check>` and
+     `launches_parallel_<row>_r<ranks>`: rank 0's), then the device JSON
+     line last.
 
 The script imports nothing of the JAX package.
 """
@@ -178,6 +194,23 @@ MSM_LOG_N = {"g1": 16, "g2": 12}   # a 2^16 KZG commitment; 4096 signatures
 MSM_CHECK_LOG_N = 10               # the card = CPU comparison
 MSM_REPS = 5
 PLAN_RAGGED = 1021                 # 255 tiles of 4 lanes and one of 1
+# phase msm_large: bench.py:553-599's G1 rows through msm_g1_large, window
+# 13, at 2^20 and 2^24 points (BASELINE.md's north star); 2^24 also at
+# chunks of 2^22 and 2^23 points beside the default 2^21, and msm_g1_large
+# against one msm_g1 pipeline at 2^22
+MSM_LARGE_C = 13
+MSM_LARGE_LOG_NS = (20, 24)
+MSM_LARGE_CHUNKS = (21, 22, 23)
+MSM_LARGE_EQ_LOG_N = 22
+MSM_LARGE_REPS = {20: 5, 24: 3}
+MSM_LARGE_OTHER_C = 12             # the 2^20 row again at another window
+MSM_HOST_BLOCK = 1 << 20           # lanes per numpy dot of the host oracle
+# the widest launches of one default chunk (2^21 points, 2^22 GLV lanes):
+# the scans' g1_add at 2^21 lanes (2^22 at chunk 22), to_affine's products
+# at 2^21; the plain versions compare on sampled lanes
+MSM_LARGE_PLAN_WIDTHS = (1 << 21, 1 << 22)
+MSM_LARGE_SOP_WIDTH = 1 << 21
+SAMPLED_LANES = 1024               # per sample: first, last, random lanes
 MSM_SOPS = f"sop products of one msm_g1 at 2^{MSM_LOG_N['g1']}"
 # bench.py:350-427's scalar multiplication, subgroup and normalization rows:
 # (group, function, lanes)
@@ -236,6 +269,10 @@ ORACLE_REPS = 5
 PARALLEL_RANKS = 4
 PARALLEL_WINDOW = 12
 PARALLEL_REPS = 5
+# shard_batch's axis_name choices on the 2 x 2 mesh, and the keys of
+# parallel_job's result that are not rows
+SHARD_AXES = (None, "host", "x", ("host", "x"), ("x", "host"))
+NOT_ROWS = ("entry", "shards")
 PEAK_LIMIT_BYTES = 1 << 30         # PERF.md section 2: < 1 GB per row
 
 
@@ -738,13 +775,17 @@ class KernelChecks:
         self.results, self.timed, self.failures = {}, [], []
 
     def hold(self, key, call, plain, kernel, n_events, n_plain, n_bytes,
-             n_imads, launches=1, ref=None, **extra):
+             n_imads, launches=1, ref=None, pick=None, **extra):
         """`launches`: the kernel launches one call makes; n_bytes and
         n_imads are the call's; `ref`: plain()'s value where the caller
-        has it already; n_plain = 0 leaves the plain version untimed."""
+        has it already; n_plain = 0 leaves the plain version untimed;
+        `pick`: compare only these lanes of the call's value (last axis),
+        where plain() computes them alone (`sample_lanes`)."""
         import torch
 
         got = call()
+        if pick is not None:
+            got = got.index_select(-1, pick)
         ref = plain() if ref is None else ref
         torch.cuda.synchronize()
         mism, err = compare(got, ref)
@@ -760,6 +801,20 @@ class KernelChecks:
         say("kernels", kernel=key, **self.results[key])
         if mism:
             self.failures.append(key)
+
+
+def sample_lanes(B: int, gen, device):
+    """Sorted lanes of a batch of B at which a kernel is held to its plain
+    version where that cannot run at the full width (the plain product's
+    int64 [24, 24, B] partial products): the first and the last
+    SAMPLED_LANES and SAMPLED_LANES random ones."""
+    import torch
+
+    rand = torch.randint(0, B, (SAMPLED_LANES,), generator=gen,
+                         device=device)
+    return torch.unique(torch.cat([
+        torch.arange(SAMPLED_LANES, device=device), rand,
+        torch.arange(B - SAMPLED_LANES, B, device=device)]))
 
 
 def phase_kernels(device, usage):
@@ -820,9 +875,15 @@ def phase_kernels(device, usage):
 
     # --- sop: T in {1, 2, 6, 8} at the pairing's batch (its one sop, the
     # norm of fp2_inv, is T = 2 there) and the MSM's widest products (its
-    # scans and to_affine, T = 1 at 2^16); rows are views of [T, 24, B]
-    for B in (BATCH, 1 << MSM_LOG_N["g1"]):
-        for T in (1, 2, 6, 8):
+    # scans and to_affine, T = 1 at 2^16), T = 1 at msm_g1_large's chunk
+    # width (the plain version on sampled lanes); rows are views of
+    # [T, 24, B]
+    for B, terms in ((BATCH, (1, 2, 6, 8)),
+                     (1 << MSM_LOG_N["g1"], (1, 2, 6, 8)),
+                     (MSM_LARGE_SOP_WIDTH, (1,))):
+        lanes = sample_lanes(B, gen, device) \
+            if B == MSM_LARGE_SOP_WIDTH else None
+        for T in terms:
             a = rand_fp((T, B), gen, device).transpose(0, 1).contiguous()
             b = rand_fp((T, B), gen, device).transpose(0, 1).contiguous()
             # lanes 0..2: every operand 0, 1, p-1 (lane 2 with T = 8 is the
@@ -835,10 +896,18 @@ def phase_kernels(device, usage):
             c = call_of(limbs.FP, list(a) + list(b),
                         [[(t, T + t) for t in range(T)]], (B,))
             call, copies = rotating(mont.sop, a, b)
-            chk.hold(f"sop T={T} B={B}", call,
-                     lambda a=a, b=b: mont.sop_plain(a, b), "sop_rows",
-                     50, 3, 4 * B * 24 * (2 * T + 1), B * sop_imads(T),
-                     operand_copies=copies, **rows_launch(c, n_sm, usage))
+            if lanes is None:
+                plain, n_plain, extra = (
+                    lambda a=a, b=b: mont.sop_plain(a, b)), 3, {}
+            else:
+                plain, n_plain, extra = (
+                    lambda a=a, b=b, i=lanes: mont.sop_plain(
+                        a.index_select(-1, i), b.index_select(-1, i))), 0, {
+                    "pick": lanes, "sampled_lanes": len(lanes)}
+            chk.hold(f"sop T={T} B={B}", call, plain, "sop_rows",
+                     50, n_plain, 4 * B * 24 * (2 * T + 1), B * sop_imads(T),
+                     operand_copies=copies, **rows_launch(c, n_sm, usage),
+                     **extra)
 
     # --- sqr: G in {1, 3}, B = 1024
     for G in (1, 3):
@@ -855,22 +924,29 @@ def phase_kernels(device, usage):
     # pairing's batch; the group-law plans also at the MSM's widths: add at
     # the segmented scan's top level (half the GLV / GLS lanes), double at
     # the window loop's single lane
-    def hold_plan(make_plan, B):
+    def hold_plan(make_plan, B, sampled=False):
         plan = pe.compile_plan(make_plan())
         ops = rand_fp((plan.n_in, B), gen, device).transpose(0, 1) \
             .contiguous()
         plan_edge_lanes(ops, P)
         lt, threads, smem = plan.launch_shape(B, n_sm)
+        extra = {}
+        if sampled:
+            lanes = sample_lanes(B, gen, device)
+            extra = {"pick": lanes, "sampled_lanes": len(lanes)}
         chk.hold(f"plan_exec {plan.name} B={B}",
                  lambda ops=ops, plan=plan: pe.plan_exec(ops, plan),
-                 lambda ops=ops, plan=plan: pe.plan_exec_plain(ops, plan),
-                 "plan_exec", 20, 2, 96 * B * (plan.n_in + plan.n_out),
+                 lambda ops=ops, plan=plan: pe.plan_exec_plain(
+                     ops.index_select(-1, extra["pick"]) if sampled
+                     else ops, plan),
+                 "plan_exec", 20, 0 if sampled else 2,
+                 96 * B * (plan.n_in + plan.n_out),
                  B * sum(sop_imads(t) for t in plan.sop_terms()),
                  nodes=len(plan.instr), groups=len(plan.groups),
                  phases=len(plan.phases), slots=plan.n_slots,
                  sop_nodes=len(plan.sop_terms()), lane_tile=lt,
                  blocks=-(-B // lt), threads=threads, smem_bytes=smem,
-                 registers=usage["plan_exec"][0])
+                 registers=usage["plan_exec"][0], **extra)
 
     msm_widths = {}
     for make_plan, B in MSM_PLAN_SHAPES:
@@ -882,6 +958,10 @@ def phase_kernels(device, usage):
         for B in sorted({1, PLAN_RAGGED, BATCH} | msm_widths.get(make_plan,
                                                                  set())):
             hold_plan(make_plan, B)
+    # msm_g1_large's widest group adds: the scans' top level at its chunk
+    # widths (the plain version on sampled lanes)
+    for B in MSM_LARGE_PLAN_WIDTHS:
+        hold_plan(pe.g1_add_plan, B, sampled=True)
 
     # --- fold_planned: the line scaling's shape (G = 4, T = 1 over 68 x
     # 1024 lanes), a fold of Fp2 products (G = 8, T = 2) and uneven groups
@@ -1619,6 +1699,52 @@ def expected_msm_launches(group: str, n: int, c: int, split: bool = True):
                                   f"{group}_double_plan": windows * c}}
 
 
+def expected_msm_large_launches(n: int, c: int, chunk_log2: int = 21):
+    """Kernel launches of one msm_g1_large over n >= 16 points with window
+    c: msm_g1's schedule (`expected_msm_launches`) per chunk of
+    2^chunk_log2 points, the last one as long as what is left, and one
+    g1_add at one lane per chunk after the first (the fold)."""
+    cs = 1 << chunk_log2
+    parts = [expected_msm_launches("g1", min(cs, n - i), c)
+             for i in range(0, n, cs)]
+    out = {k: sum(p[k] for p in parts) for k in parts[0]
+           if k != "plan_exec_by_plan"}
+    by_plan = collections.Counter()
+    for p in parts:
+        by_plan.update(p["plan_exec_by_plan"])
+    out["plan_exec"] += len(parts) - 1
+    by_plan["g1_add_plan"] += len(parts) - 1
+    out["plan_exec_by_plan"] = dict(by_plan)
+    return out
+
+
+def msm_host_sum(sc, skip) -> int:
+    """sum_i k_i (i+1) mod q over the lanes where `skip` (numpy bool [N])
+    is false, for Montgomery Fr scalars sc [16, N] on any device, without a
+    Python int per lane: the Montgomery values are linear in the canonical
+    ones, so S = sum_k 2^(16 k) sum_i limb_k[i] w_i (w_i = i + 1, 0 where
+    skipped) as numpy uint64 dot products over blocks of MSM_HOST_BLOCK
+    lanes (each below 2^16 2^25 2^20 = 2^61 up to N = 2^24), summed as
+    Python ints, then S R^-1 mod q."""
+    import numpy as np
+
+    from bls12_381_torch import params
+
+    lim = sc.cpu().numpy()
+    n = lim.shape[-1]
+    if n > 1 << 24 or lim.min() < 0 or lim.max() >= 1 << 16:
+        fail("msm_host_sum: expected 16-bit limbs over at most 2^24 lanes")
+    total = 0
+    for b0 in range(0, n, MSM_HOST_BLOCK):
+        b1 = min(n, b0 + MSM_HOST_BLOCK)
+        w = np.arange(b0 + 1, b1 + 1, dtype=np.uint64)
+        w[skip[b0:b1]] = 0
+        for k in range(lim.shape[0]):
+            total += int(np.dot(lim[k, b0:b1].astype(np.uint64), w)) \
+                << (16 * k)
+    return total * pow(1 << 256, -1, params.Q) % params.Q
+
+
 def affine_ints(group: str, point):
     """A projective point with an empty batch shape -> host affine ints
     (None for the identity), through the port's to_affine."""
@@ -1705,6 +1831,132 @@ def phase_msm(device):
         say("msm", group=group, seconds=wall, median_seconds=med,
             points_per_s=n / med, host_cpu_share=sum(cpu) / sum(wall))
         out[group] = (counts, med, fn, pts, sc)
+    return out
+
+
+def phase_msm_large(device):
+    """bench.py:553-599's G1 rows through `entry.msm_entry` (msm_g1_large)
+    at window MSM_LARGE_C: at 2^20 points a counted call against
+    `expected_msm_launches` (one chunk), the host's [sum k_i (i+1) mod q]G
+    (`msm_host_sum`), the same point at window MSM_LARGE_OTHER_C; at 2^24
+    the inputs' seconds and own peak, a counted call per chunk size of
+    MSM_LARGE_CHUNKS against `expected_msm_large_launches` with its own
+    peak, the host's point, one affine point over the three, and at
+    2^MSM_LARGE_EQ_LOG_N msm_g1_large = one msm_g1 pipeline; then
+    host-clock medians (MSM_LARGE_REPS) after the counted calls.  No
+    failure is caught.  The 2^24 tensors are freed before the return.
+    Returns {"2^20": (counts, median, fn, (points, scalars)),
+    "2^24": counts of the default chunk's call}."""
+    import numpy as np
+    import torch
+
+    from bls12_381_torch import entry, hostmath as hm, params
+    from bls12_381_torch.curves import g1
+    from bls12_381_torch.ops import msm
+
+    c = MSM_LARGE_C
+    out = {}
+    for log_n in MSM_LARGE_LOG_NS:
+        n = 1 << log_n
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        fn, (pts, sc) = entry.msm_entry(log_n, "g1", seed=SEED,
+                                        device=device)
+        torch.cuda.synchronize()
+        inputs_s = time.perf_counter() - t0
+        inputs_peak = torch.cuda.max_memory_allocated() - held0
+        if fn is not msm.msm_g1_large:
+            fail("entry.msm_entry(..., 'g1') is not msm_g1_large")
+
+        # the inputs: identity exactly at the lanes i % 64 == 5, zero
+        # scalars at i % 64 == 9
+        lane = np.arange(n) % entry.MSM_LANE_CYCLE
+        skip = lane == entry.MSM_IDENTITY_LANE
+        if not np.array_equal(g1.is_identity(pts).cpu().numpy(), skip):
+            fail(f"msm_inputs at 2^{log_n}: the identity lanes are not "
+                 "i % 64 == 5")
+        zero = (sc == 0).all(0).cpu().numpy()
+        if not zero[lane == entry.MSM_ZERO_LANE].all():
+            fail(f"msm_inputs at 2^{log_n}: a scalar at i % 64 == 9 is "
+                 "not 0")
+        t1 = time.perf_counter()
+        want_pt = hm.g1_mul(params.G1_GEN, msm_host_sum(sc, skip))
+        host_s = time.perf_counter() - t1
+        say("msm_large", n=n, c=c, inputs_seconds=inputs_s,
+            inputs_peak_bytes=inputs_peak,
+            inputs_bytes=torch.cuda.memory_allocated() - held0,
+            host_oracle_seconds=host_s, identity_lanes=int(skip.sum()),
+            zero_scalars=int(zero.sum()))
+
+        # the slice's path, counted, at each chunk size (one at 2^20)
+        chunks = MSM_LARGE_CHUNKS if log_n > MSM_LARGE_CHUNKS[0] \
+            else MSM_LARGE_CHUNKS[:1]
+        points = {}
+        for chunk in chunks:
+            counts, first_s, peak, held, res = counted_call(
+                lambda: fn(pts, sc, c, chunk_log2=chunk))
+            want = expected_msm_large_launches(n, c, chunk)
+            say("msm_large", n=n, c=c, chunk_log2=chunk,
+                first_seconds=first_s, launches=counts, expected=want,
+                peak_bytes=peak, held_bytes=held)
+            if counts != want:
+                fail(f"msm_g1_large at 2^{log_n}, chunk 2^{chunk}: launch "
+                     f"counts {counts} differ from the schedule {want}")
+            points[chunk] = affine_ints("g1", res)
+            if chunk == chunks[0]:
+                first = (counts, peak, held)
+            del res
+        if points[chunks[0]] != want_pt:
+            fail(f"msm_g1_large at 2^{log_n} differs from the host's "
+                 "[sum k_i (i+1)]G")
+        if len(set(points.values())) != 1:
+            fail(f"msm_g1_large at 2^{log_n}: the chunk sizes {chunks} give "
+                 "different points")
+
+        checks = {}
+        if log_n == MSM_LARGE_LOG_NS[0]:
+            # another window: other digits, the same point
+            other = affine_ints("g1", fn(pts, sc, MSM_LARGE_OTHER_C))
+            if other != want_pt:
+                fail(f"msm_g1_large at 2^{log_n}: window "
+                     f"{MSM_LARGE_OTHER_C} differs from window {c}")
+            checks["other_window"] = MSM_LARGE_OTHER_C
+        else:
+            # chunked = one pipeline, on the first 2^MSM_LARGE_EQ_LOG_N
+            m = 1 << MSM_LARGE_EQ_LOG_N
+            part = (tuple(t[..., :m] for t in pts), sc[..., :m])
+            eq = {}
+            for name, call in (
+                    ("msm_g1_large", lambda: msm.msm_g1_large(*part, c)),
+                    ("msm_g1", lambda: msm.msm_g1(*part, c))):
+                _, s_, peak, _, res = counted_call(call)
+                eq[name] = (affine_ints("g1", res), s_, peak)
+                del res
+            if eq["msm_g1_large"][0] != eq["msm_g1"][0]:
+                fail(f"at 2^{MSM_LARGE_EQ_LOG_N} points msm_g1_large "
+                     "differs from msm_g1")
+            checks["eq_log_n"] = MSM_LARGE_EQ_LOG_N
+            checks["eq_seconds_peak"] = {k: v[1:] for k, v in eq.items()}
+            del part
+
+        # host clock around synchronized work, after the counted calls
+        wall, cpu = host_times(lambda: fn(pts, sc, c),
+                               reps=MSM_LARGE_REPS[log_n])
+        med = statistics.median(wall)
+        counts, peak, held = first
+        say("msm_large", n=n, c=c, checks="passed", **checks,
+            chunk_log2=chunks[0], seconds=wall, median_seconds=med,
+            points_per_s=n / med, host_cpu_share=sum(cpu) / sum(wall),
+            peak_bytes=peak, held_bytes=held)
+        if log_n == MSM_LARGE_LOG_NS[0]:
+            out[f"2^{log_n}"] = (counts, med, fn, (pts, sc))
+        else:
+            out[f"2^{log_n}"] = counts
+            del pts, sc
+            gc.collect()
+            torch.cuda.empty_cache()
     return out
 
 
@@ -3088,13 +3340,17 @@ def parallel_job(spec: dict, inputs_path: str) -> dict:
     together on every rank (a barrier) and ended in a synchronize; then
     `multichip_entry` once.  Returns row -> {"value": the compared value (its
     `digest` unless spec["values"]), "launches", "first_seconds",
-    "seconds", "cpu_seconds", "peak_bytes", "held_bytes"}, and "entry" ->
-    the entry's (results, inputs) on the CPU."""
+    "seconds", "cpu_seconds", "peak_bytes", "held_bytes"}, "entry" ->
+    the entry's (results, inputs) on the CPU, and in a world of
+    PARALLEL_RANKS "shards" -> {`shard_label(a)`: the lanes of a batch of
+    2 PARALLEL_RANKS that `shard_batch` gives this rank on the 2-D mesh
+    with axis_name a, for a in SHARD_AXES}."""
     import torch
     import torch.distributed as dist
 
     from bls12_381_torch import entry
     from bls12_381_torch.kernels import LAUNCHES
+    from bls12_381_torch.parallel import mesh as mesh_mod
 
     device = torch.device(spec["device"])
     cuda = device.type == "cuda"
@@ -3139,6 +3395,39 @@ def parallel_job(spec: dict, inputs_path: str) -> dict:
                     "held_bytes": held}
     results, ins = entry.multichip_entry(dist.get_world_size(), device)
     out["entry"] = to_cpu((results, ins))
+    if dist.get_world_size() == PARALLEL_RANKS:
+        mesh2 = mesh_mod.make_mesh_2d(2, PARALLEL_RANKS // 2)
+        lanes = torch.arange(2 * PARALLEL_RANKS, device=device)
+        out["shards"] = {shard_label(a): mesh_mod.shard_batch(
+            mesh2, lanes, axis_name=a).tolist() for a in SHARD_AXES}
+    return out
+
+
+def shard_label(axis_name) -> str:
+    """"all" for axis_name None, else the axis names joined by commas."""
+    if axis_name is None:
+        return "all"
+    return axis_name if isinstance(axis_name, str) else ",".join(axis_name)
+
+
+def expected_shards(rank: int, world: int) -> dict:
+    """The lanes of a batch of 2 world that rank holds on the 2 x world/2
+    mesh (ranks host-major) for each axis_name of SHARD_AXES: the batch in
+    as many blocks as the named axes have ranks, block index the rank's
+    coordinates along them, the first axis major (the JAX package's
+    NamedSharding)."""
+    coord = dict(zip(("host", "x"), divmod(rank, world // 2)))
+    size = {"host": 2, "x": world // 2}
+    out = {}
+    for a in SHARD_AXES:
+        names = ("host", "x") if a is None else (a,) if isinstance(a, str) \
+            else a
+        n_blocks = math.prod(size[k] for k in names)
+        index = 0
+        for k in names:
+            index = index * size[k] + coord[k]
+        b = 2 * world // n_blocks
+        out[shard_label(a)] = list(range(index * b, index * b + b))
     return out
 
 
@@ -3212,13 +3501,19 @@ def msm_host(group: str, pts, sc):
 
 def check_parallel(world: int, ranks: list, want: dict) -> None:
     """Every rank of a run holds every row's local value (digests) with the
-    schedule's launch counts and an own peak below PEAK_LIMIT_BYTES."""
+    schedule's launch counts and an own peak below PEAK_LIMIT_BYTES, and
+    in a world of PARALLEL_RANKS the shards of `expected_shards`."""
     rows = set(want) if world == PARALLEL_RANKS else \
         {r for r in want if "_2x" not in r}
     for rank, res in enumerate(ranks):
-        if set(res) - {"entry"} != rows:
+        if set(res) - set(NOT_ROWS) != rows:
             fail(f"parallel: rank {rank} of {world} ran the rows "
                  f"{sorted(res)}, not {sorted(rows)}")
+        if world == PARALLEL_RANKS and \
+                res["shards"] != expected_shards(rank, world):
+            fail(f"parallel: shard_batch gave rank {rank} of {world} the "
+                 f"lanes {res['shards']}, not "
+                 f"{expected_shards(rank, world)}")
         for row in sorted(rows):
             got = res[row]
             if got["value"] != want[row]:
@@ -3356,7 +3651,7 @@ def phase_parallel(device):
             "max_rank_peak_bytes": max(res[row]["peak_bytes"]
                                        for res in ranks),
             "launches": r["launches"]}
-            for row, r in ranks[0].items() if row != "entry"}
+            for row, r in ranks[0].items() if row not in NOT_ROWS}
         say("parallel", ranks=world,
             backend="nccl" if world == 1 else "gloo (CUDA tensors, no "
             "host staging)", wall_seconds=seconds[world], rows=rows,
@@ -3462,6 +3757,7 @@ def main() -> None:
     counts, med, (p_aff, q_aff) = phase("main", phase_main, device)
     counts_ntt, med_ntt, x = phase("ntt", phase_ntt, device)
     msms = phase("msm", phase_msm, device)
+    larges = phase("msm_large", phase_msm_large, device)
     smuls = phase("smul", phase_smul, device)
     codecs = phase("codec", phase_codec, device)
     h2cs = phase("h2c", phase_h2c, device)
@@ -3481,6 +3777,11 @@ def main() -> None:
     for group, (_, med_msm, fn, pts, sc) in msms.items():
         phase(f"profile_msm_{group}", phase_profile, f"msm_{group}",
               lambda fn=fn, pts=pts, sc=sc: fn(pts, sc), med_msm)
+    large_label = f"msm_g1_2^{MSM_LARGE_LOG_NS[0]}"
+    large_counts, med_large, fn, args = larges.pop(
+        f"2^{MSM_LARGE_LOG_NS[0]}")
+    phase(f"profile_{large_label}", phase_profile, large_label,
+          lambda: fn(*args, MSM_LARGE_C), med_large)
     for label, (_, med_row, fn, args) in {**smuls, **codecs,
                                           **h2cs}.items():
         phase(f"profile_{label}", phase_profile, label,
@@ -3490,10 +3791,15 @@ def main() -> None:
 
     def smul_launches(counter, plan=None):
         """A kernel's launches in one call of each phase smul, codec and
-        h2c row, and in the bls round trip."""
+        h2c row, in the bls round trip, in phase msm_large's rows and in
+        phases oracle and parallel."""
         paths = {label: c for label, (c, *_) in {**smuls, **codecs,
                                                   **h2cs}.items()}
         paths["bls_round_trip"] = bls_counts
+        # phase msm_large: msm_g1_large at 2^20 and 2^24 (default chunk)
+        paths[large_label] = large_counts
+        paths[f"msm_g1_large_2^{MSM_LARGE_LOG_NS[1]}"] = larges[
+            f"2^{MSM_LARGE_LOG_NS[1]}"]
         # phase oracle: each device call it held to the host oracle
         for check, counts in oracle_counts.items():
             paths[f"oracle_{check}"] = counts
@@ -3501,7 +3807,7 @@ def main() -> None:
         # number of ranks
         for world, rows in par.items():
             for row, r in rows.items():
-                if row != "entry":
+                if row not in NOT_ROWS:
                     paths[f"parallel_{row}_r{world}"] = r["launches"]
         return {f"launches_{label}": (
             c["plan_exec_by_plan"].get(plan, 0) if plan else c[counter])
@@ -3557,6 +3863,7 @@ def main() -> None:
               launches_msm_g1=msm_counts["g1"]["sop"],
               launches_msm_g2=msm_counts["g2"]["sop"], **launch(PAIRING_NORM),
               **beside("msm_g1", MSM_SOPS), **smul_beside("sop"),
+              **beside("msm_large", f"sop T=1 B={MSM_LARGE_SOP_WIDTH}"),
               **beside("stacked", f"sop T=2 B={BATCH}")),
         entry("sqr", src + "mont.cu", f"{pallas}:711", counts["sqr"],
               f"sqr G=1 B={BATCH}",
@@ -3592,15 +3899,19 @@ def main() -> None:
             counts["plan_exec_by_plan"].get(plan.name, 0),
             f"plan_exec {plan.name} B={BATCH}"))
     # the group-law plans: launches per msm of their group, phase smul's
-    # widest launches beside them
+    # widest launches beside them (and g1_add at msm_g1_large's widths)
     for make_plan, B in msm_plan_shapes()[:4]:
         plan = pe.compile_plan(make_plan())
+        wide = {}
+        if make_plan is pe.g1_add_plan:
+            for w in MSM_LARGE_PLAN_WIDTHS:
+                wide.update(beside(f"b{w}", f"plan_exec {plan.name} B={w}"))
         kernels.append(entry(
             f"plan_exec:{plan.name}", src + "plan_exec.cu", plan_src,
             msm_counts[plan.name[:2]]["plan_exec_by_plan"][plan.name],
             f"plan_exec {plan.name} B={B}",
             **beside(f"b{SMUL_PLAN_WIDTH}",
-                     f"plan_exec {plan.name} B={SMUL_PLAN_WIDTH}")))
+                     f"plan_exec {plan.name} B={SMUL_PLAN_WIDTH}"), **wide))
     # the NTT's kernels: launches per ntt at 2^20; ms, plain ms and bound
     # per launch at the shapes the ntt launches (its twiddle doublings, a
     # stage)

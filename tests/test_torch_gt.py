@@ -88,6 +88,13 @@ def test_generator_and_group_law():
     assert gt.is_identity(picked).tolist() == [False, True, False]
 
 
+def test_generator_takes_the_jax_keyword():
+    """`generator(batch_shape=...)`, the JAX package's keyword."""
+    g = gt.generator(batch_shape=(2,), device="cpu")
+    assert g[0][0][0].shape == (24, 2)
+    assert host_lanes(g, 2) == [jhm.pairing(G1_GEN, G2_GEN)] * 2
+
+
 @pytest.mark.parametrize("name", ["scalar_mul", "scalar_mul_generic"])
 def test_scalar_mul_matches_host(name):
     """A batchless generator broadcast over the scalars' lanes (the

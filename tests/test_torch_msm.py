@@ -120,6 +120,72 @@ def test_msm_g1_large_folds_chunks():
     assert dec_g1(got) == serial(jhm.g1_mul, jhm.g1_add, pts, ks)
 
 
+@pytest.fixture(scope="module")
+def large64():
+    """msm_g1_large over `entry.msm_inputs`' 2^6 points (an identity point,
+    a zero scalar) in two chunks of 2^5 at c = 4, run once on the plain
+    path with its calls counted: (points, scalars, counts, value)."""
+    from test_torch_smul import count_launches
+
+    pts, sc = entry.msm_inputs(6, "g1", seed=7, device="cpu")
+    counts, got = count_launches(msm.msm_g1_large, pts, sc, 4, True, 5)
+    return pts, sc, counts, got
+
+
+def host_msm_g1(pts, sc):
+    """[sum_i k_i (i+1) mod q]G of `entry.msm_inputs`' points, by the JAX
+    package's host oracle."""
+    ks = [int(k) for k in jfr.to_ints(convert.fr_from_torch(sc))]
+    inf = g1.is_identity(pts).tolist()
+    total = sum(k * (i + 1) for i, (k, o) in enumerate(zip(ks, inf))
+                if not o) % Q
+    return jhm.g1_mul(G1_GEN, total)
+
+
+def test_msm_g1_large_matches_jax_projective(large64):
+    """msm_g1_large over two chunks of 2^5 points at c = 4 against the JAX
+    package's msm_g1_large on the same inputs, limb for limb in projective
+    coordinates (its chunks are msm_g1 at 32 points and c = 4, compiled
+    once in this file), and against the host oracle."""
+    pts, sc, _, got = large64
+    jp = tuple(jnp.asarray(c) for c in convert.g1_proj_from_torch(pts))
+    want = jmsm.msm_g1_large(jp, jnp.asarray(convert.fr_from_torch(sc)),
+                             c=4, chunk_log2=5)
+    for a, b in zip(convert.g1_proj_from_torch(got), want):
+        assert np.array_equal(a, np.asarray(b))
+    assert dec_g1(got) == host_msm_g1(pts, sc)
+
+
+def test_msm_entry_gives_msm_g1_large(large64, monkeypatch):
+    """`entry.msm_entry(..., "g1")` returns msm_g1_large, which up to
+    2^chunk_log2 points is one call of msm_g1 with the caller's arguments
+    (so the rows up to 2^21 points launch what they did), and over chunks
+    gives the point msm_g1 gives, the host oracle's."""
+    fn, (pts, sc) = entry.msm_entry(4, "g1", seed=7, device="cpu")
+    assert fn is msm.msm_g1_large
+    calls = []
+    monkeypatch.setattr(msm, "msm_g1", lambda *a, **k: calls.append(
+        (a, k)) or "msm_g1's value")
+    assert fn(pts, sc, 5, False, chunk_log2=4) == "msm_g1's value"
+    assert calls == [((pts, sc), {"c": 5, "glv": False})]
+    pts, sc, _, got = large64
+    assert dec_g1(got) == host_msm_g1(pts, sc)
+
+
+def test_msm_large_launch_schedule(large64):
+    """The plain path's calls of msm_g1_large over two chunks of 2^5
+    points against `chip_smoke.expected_msm_large_launches` (two msm_g1
+    schedules and the fold's one add); over one chunk the formula is
+    `expected_msm_launches`."""
+    import chip_smoke
+
+    assert large64[2] == chip_smoke.expected_msm_large_launches(64, 4, 5)
+    assert chip_smoke.expected_msm_large_launches(64, 4, 6) == \
+        chip_smoke.expected_msm_launches("g1", 64, 4)
+    two = chip_smoke.expected_msm_launches("g1", 32, 4)
+    assert large64[2]["plan_exec"] == 2 * two["plan_exec"] + 1
+
+
 def test_msm_g2_matches_serial():
     n = 8
     ks = [rng.randrange(Q) for _ in range(n - 1)] + [Q - 1]

@@ -100,7 +100,8 @@ def same(a, b) -> bool:
 
 @pytest.mark.parametrize("row", ROWS_1D + ROWS_2D + ["entry"])
 def test_every_rank_holds_the_same_value(ranks, row):
-    assert {r for r in ranks[0]} == set(ROWS_1D + ROWS_2D + ["entry"])
+    assert {r for r in ranks[0]} == set(ROWS_1D + ROWS_2D + ["entry",
+                                                            "shards"])
     first = ranks[0][row] if row == "entry" else ranks[0][row]["value"]
     for res in ranks[1:]:
         got = res[row] if row == "entry" else res[row]["value"]
@@ -148,6 +149,30 @@ def test_ntt_sharded_equals_the_jax_ntt_sharded(ranks):
         jlb.set_pallas(None)
     got = convert.fr_from_torch(ranks[0][f"ntt_{log_n}"]["value"])
     assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("axis_name", chip_smoke.SHARD_AXES,
+                         ids=chip_smoke.shard_label)
+def test_shard_batch_matches_jax_named_sharding(ranks, axis_name):
+    """`shard_batch(mesh, lanes, axis_name=...)` on the 2 x 2 gloo mesh
+    gives every rank the lanes that the JAX package's `shard_batch` (a
+    NamedSharding) places on the device at the rank's mesh position, the
+    2 x 2 mesh of four virtual CPU devices; and `chip_smoke`'s
+    `expected_shards`, which phase parallel holds the card to."""
+    from bls12_381_tpu.parallel import mesh as jmesh
+
+    label = chip_smoke.shard_label(axis_name)
+    mesh = jmesh.make_mesh_2d(2, RANKS // 2)
+    arr = jmesh.shard_batch(mesh, np.arange(2 * RANKS), axis_name=axis_name)
+    seen = set()
+    for shard in arr.addressable_shards:
+        h, x = np.argwhere(mesh.devices == shard.device)[0]
+        rank = int(h) * (RANKS // 2) + int(x)
+        seen.add(rank)
+        want = np.asarray(shard.data).tolist()
+        assert ranks[rank]["shards"][label] == want
+        assert chip_smoke.expected_shards(rank, RANKS)[label] == want
+    assert seen == set(range(RANKS))
 
 
 def jax_tree(tree):
@@ -291,6 +316,16 @@ def test_uneven_batches_and_sizes_raise(world_of_one):
     assert split(1 << 7, 4) == (8, 16)
     assert split(1 << 20, 4) == (1024, 1024)
     assert split(1 << 6, 8) == (8, 8)
+
+
+def test_shard_batch_refuses_unknown_axes(world_of_one):
+    mesh = mesh_mod.make_mesh()
+    t = torch.arange(4)
+    assert torch.equal(mesh_mod.shard_batch(mesh, t, axis_name="x"), t)
+    assert torch.equal(mesh_mod.shard_batch(mesh, t, axis_name=("x",)), t)
+    for bad in ("host", ("x", "x"), ()):
+        with pytest.raises(ValueError, match="does not name"):
+            mesh_mod.shard_batch(mesh, t, axis_name=bad)
 
 
 def test_replicate_and_gather_at_one_rank(world_of_one):

@@ -91,3 +91,101 @@ def test_every_name_has_a_counterpart(rel):
         theirs = {n for n in theirs if not n.startswith("_")}
     missing = theirs - top_level_names(port, True) - NO_NAME.get(rel, set())
     assert missing == set()
+
+
+# ---------------------------------------------------------------------------
+# Signatures: the parameter names in order, and their defaults
+# ---------------------------------------------------------------------------
+
+# The port's functions take the device their tensors are made on where the
+# JAX package puts arrays on its default device, so a parameter named
+# `device` in the port has no JAX counterpart.
+PORT_ONLY_PARAMS = {"device"}
+# JAX parameters with no counterpart in the port, by design.
+NO_PARAM = {
+    # config.smul_lookup's "select" and "onehot" lookups: the port has the
+    # default "tree" lookup only, done as one gather per table
+    ("curves/weierstrass.py", "Weierstrass.multi_scalar_mul_signed"):
+        {"lookup"},
+    # Pallas interpret mode and the scalar / vector evaluators of the plan
+    # kernels (config.plan_variant): the port has one kernel per device
+    ("kernels/plan_exec.py", "run_plan"): {"interpret", "variant"},
+}
+# Parameters whose default differs, by design: the JAX MSMs' c=None reads
+# config.msm_window (12 by default); the port's default is
+# ops.msm.MSM_WINDOW = 12, the same window.
+OTHER_DEFAULT = {("ops/msm.py", name): {"c"}
+                 for name in ("msm_g1", "msm_g1_large", "msm_g2")}
+
+
+def signatures(path: pathlib.Path) -> dict:
+    """Public functions and public methods of public classes at a module's
+    top level -> [(parameter name, its default's source or None)] in
+    order, with * and ** marking the variadic ones."""
+    out = {}
+
+    def params(a: ast.arguments) -> list:
+        pos = a.posonlyargs + a.args
+        pos_defaults = [None] * (len(pos) - len(a.defaults)) + a.defaults
+        got = [(x.arg, d) for x, d in zip(pos, pos_defaults)]
+        if a.vararg:
+            got.append(("*" + a.vararg.arg, None))
+        got += list(zip((x.arg for x in a.kwonlyargs), a.kw_defaults))
+        if a.kwarg:
+            got.append(("**" + a.kwarg.arg, None))
+        return [(n, None if d is None else ast.unparse(d)) for n, d in got]
+
+    for node in ast.parse(path.read_text(), filename=str(path)).body:
+        if not isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                 ast.ClassDef)) or node.name.startswith("_"):
+            continue
+        if not isinstance(node, ast.ClassDef):
+            out[node.name] = params(node.args)
+        else:
+            for m in node.body:
+                if isinstance(m, (ast.FunctionDef, ast.AsyncFunctionDef)) \
+                        and not m.name.startswith("_"):
+                    out[f"{node.name}.{m.name}"] = params(m.args)
+    return out
+
+
+def signature_pairs(rel: str):
+    """(name, JAX parameters, port parameters) of each public function and
+    method of a JAX module that has a counterpart in the port."""
+    if rel in NO_MODULE:
+        return []
+    theirs = signatures(JAX / rel)
+    ours = signatures(PORT / RENAMED.get(rel, rel))
+    return [(name, theirs[name], ours[name]) for name in sorted(theirs)
+            if name in ours]
+
+
+def test_signature_exceptions_are_exact():
+    """Each entry of NO_PARAM and OTHER_DEFAULT names a JAX parameter that
+    exists and that the port really leaves out, or whose default it really
+    changes."""
+    for (rel, name), missing in NO_PARAM.items():
+        pairs = {n: (j, p) for n, j, p in signature_pairs(rel)}
+        jax_params, port_params = (dict(x) for x in pairs[name])
+        assert missing <= set(jax_params) and not missing & set(port_params)
+    for (rel, name), names in OTHER_DEFAULT.items():
+        pairs = {n: (j, p) for n, j, p in signature_pairs(rel)}
+        jax_params, port_params = (dict(x) for x in pairs[name])
+        for n in names:
+            assert jax_params[n] != port_params[n], (rel, name, n)
+
+
+@pytest.mark.parametrize("rel", JAX_MODULES)
+def test_every_signature_matches(rel):
+    """The port's public functions and methods take the JAX package's
+    parameters, by name and in order, with the same defaults (source
+    text), save the lists above: a keyword call that works on one package
+    works on the other."""
+    for name, theirs, ours in signature_pairs(rel):
+        skip = NO_PARAM.get((rel, name), set())
+        other = OTHER_DEFAULT.get((rel, name), set())
+        theirs = [(n, None if n in other else d) for n, d in theirs
+                  if n not in skip]
+        ours = [(n, None if n in other else d) for n, d in ours
+                if n not in PORT_ONLY_PARAMS]
+        assert ours == theirs, f"{rel} {name}"

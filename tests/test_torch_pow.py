@@ -158,6 +158,24 @@ def test_pow_fixed_plain_matches_jax(field):
                           np.zeros(-(-f.spec.modulus.bit_length() // 4)))
 
 
+@pytest.mark.parametrize("field", list(FIELDS))
+def test_pow_fixed_window_argument(field):
+    """`window=4`, the JAX package's default, is the kernel's digit width:
+    the call equals the one without it and the JAX package's value; any
+    other window raises ValueError (a tensor on any device: the check comes
+    before the kernel and its plain version)."""
+    f, e = FIELDS[field], EXPONENTS["0x1234567"]
+    got = limbs.pow_fixed(f.spec, f.port, e, window=4)
+    assert torch.equal(got, limbs.pow_fixed(f.spec, f.port, e))
+    assert np.array_equal(f.from_torch(got), jax_pow(field, e)[0])
+    for window in (3, 5):
+        for x in (f.port, f.port.to("meta")):
+            with pytest.raises(ValueError, match="window"):
+                limbs.pow_fixed(f.spec, x, e, window=window)
+    with pytest.raises(ValueError, match="window"):
+        limbs.pow_fixed(f.spec, f.port, 0, window=3)
+
+
 def test_digit_encoder_widths():
     """The encoder pads to the modulus's width in whole digits, widens for
     a wider exponent, and reaches the kernel's cap at 1024 bits."""
