@@ -22,8 +22,9 @@ Layers:
   limbs            — batched 16-bit-limb Montgomery arithmetic
   kernels          — CUDA kernels (sop_rows as sop / fold_planned / sop_fr,
                      sqr, plan_exec, butterfly, pow_fixed, pow_fixed_fr,
-                     fp2_pow_fixed) and plain versions; the device SHA-256
-                     and Keccak expanders (sha256.py, keccak.py: plain torch)
+                     fp2_pow_fixed; the device SHA-256 / XMD and SHAKE /
+                     XOF expanders of sha256.py and keccak.py) and plain
+                     versions
   fields           — Fp, the Fp2/Fp6/Fp12 tower, Fr; square roots and signs
   utils            — power-of-two scans and reductions, table lookups;
                      tracing, timing and the H100 roofline (profiling.py);

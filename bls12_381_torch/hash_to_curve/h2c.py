@@ -2,9 +2,11 @@
 
 Counterpart of `bls12_381_tpu/hash_to_curve/h2c.py`, with its split:
 message expansion by hashlib on the host (`hostmath`), or with
-`expand="device"` by the batched SHA-256 of `kernels/sha256.py` (equal-
-length messages); from hash_to_field's reduction onward (simplified SWU,
-the isogeny, cofactor clearing) everything is batched on the device.
+`expand="device"` by `kernels/sha256.py`'s expand_message_xmd (equal-
+length messages: one launch of the XMD kernel, `csrc/sha256.cu`, on the
+card; its plain version on the CPU); from hash_to_field's reduction
+onward (simplified SWU, the isogeny, cofactor clearing) everything is
+batched on the device.
 Host inputs go to `device` (the card by default).
 
 One departure keeps every lane's value: `hash_to_curve_*` maps u0 and u1

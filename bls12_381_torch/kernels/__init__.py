@@ -1,6 +1,8 @@
-"""Hand-written Hopper kernels of the port and their launch counts (and
-the device SHA-256 / Keccak expanders, `sha256.py` and `keccak.py`: plain
-PyTorch ops, as the JAX package's are plain jnp).
+"""Hand-written Hopper kernels of the port and their launch counts: the
+Montgomery row, square, power and butterfly kernels (`mont.py`), the plan
+kernel (`plan_exec.py`) and the device hash expanders (`sha256.py`:
+SHA-256 and expand_message_xmd; `keccak.py`: the SHAKE sponge and
+expand_message_xof), each beside its plain PyTorch version.
 
 Each wrapper adds one to its count in `LAUNCHES` where it launches its CUDA
 kernel, and nowhere else (a CPU tensor takes the plain PyTorch version and
@@ -27,6 +29,9 @@ class LaunchCounts:
     pow_fixed: int = 0
     pow_fixed_fr: int = 0
     fp2_pow_fixed: int = 0
+    sha256: int = 0
+    xmd_sha256: int = 0
+    shake: int = 0
     copied_rows: int = 0
     plan_exec_by_plan: collections.Counter = dataclasses.field(
         default_factory=collections.Counter)
@@ -35,6 +40,7 @@ class LaunchCounts:
         self.sop = self.sqr = self.plan_exec = 0
         self.sop_fr = self.butterfly = self.fold_planned = 0
         self.pow_fixed = self.pow_fixed_fr = self.fp2_pow_fixed = 0
+        self.sha256 = self.xmd_sha256 = self.shake = 0
         self.copied_rows = 0
         self.plan_exec_by_plan.clear()
 
@@ -44,6 +50,8 @@ class LaunchCounts:
                 "fold_planned": self.fold_planned,
                 "pow_fixed": self.pow_fixed, "pow_fixed_fr": self.pow_fixed_fr,
                 "fp2_pow_fixed": self.fp2_pow_fixed,
+                "sha256": self.sha256, "xmd_sha256": self.xmd_sha256,
+                "shake": self.shake,
                 "copied_rows": self.copied_rows,
                 "plan_exec_by_plan": dict(self.plan_exec_by_plan)}
 

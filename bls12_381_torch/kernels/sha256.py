@@ -1,29 +1,50 @@
-"""Batched SHA-256 and expand_message_xmd in plain PyTorch ops.
+"""Batched SHA-256 and expand_message_xmd: the Hopper kernels of
+`csrc/sha256.cu` and their plain PyTorch versions.
 
 Counterpart of `bls12_381_tpu/kernels/sha256_jax.py` (plain jnp there, not
-a Pallas kernel): one compression schedule vectorized over a batch of
-equal-length messages, so that hash_to_curve's message expansion
-(expand_msg.rs:230-328, draft-16 §5.3.1) runs on the device beside the
-field arithmetic.  Layouts as in the JAX package: messages and output
-uint8 [B, n_bytes], the hash state 8 words of [B].
+a Pallas kernel, fused by XLA into the jitted hash-to-curve graph): one
+compression schedule over a batch of equal-length messages, so that
+hash_to_curve's message expansion (expand_msg.rs:230-328, draft-16
+§5.3.1) runs on the device beside the field arithmetic.  Layouts as in
+the JAX package: messages and output uint8 [B, n_bytes].
 
-PyTorch on the CPU has no add, shift or compare for uint32, so a word is
-an int64 tensor holding a value below 2^32, masked with 0xFFFFFFFF after
-every add and left shift (a left shift by < 32 of such a value cannot
-overflow int64); NOT is `x ^ 0xFFFFFFFF`.  A compression is about 4000
-elementwise launches on the card.
+`sha256` and `expand_message_xmd_sha256` launch `sha256_kernel` and
+`xmd_sha256_kernel` on a CUDA tensor (one thread per message, the whole
+expansion in registers; the source's note says what bounds them) and count
+one launch each in `LAUNCHES.sha256` / `LAUNCHES.xmd_sha256`; on a CPU
+tensor they run `sha256_plain` / `expand_message_xmd_sha256_plain` and
+count nothing.  A uint8 tensor that is not 2-D, another dtype, another
+device, or a non-contiguous CUDA tensor raises ValueError; a failed build
+or launch raises, and nothing falls back.  `xmd_params` packs what the
+XMD kernel takes by value: DST' (after the host's reduction of an
+oversize DST), ell, and the state after the Z_pad block, which is the
+same for every message (the plain compression of 64 zero bytes).
+`xmd_ell` holds draft-16's bounds for both paths.
+
+The plain versions: PyTorch on the CPU has no add, shift or compare for
+uint32, so a word is an int64 tensor holding a value below 2^32, masked
+with 0xFFFFFFFF after every add and left shift (a left shift by < 32 of
+such a value cannot overflow int64); NOT is `x ^ 0xFFFFFFFF`.  A
+compression is about 4000 elementwise launches on the card, which is why
+the card takes the kernels.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import hashlib
+import struct
 
 import numpy as np
 import torch
 
 from .. import limbs
+from . import LAUNCHES, build
+from .mont import check_launch, device_kind
 
 M32 = 0xFFFFFFFF
+MAX_DST_PRIME = 256  # a DST of at most 255 bytes and its length byte
 
 _K = (
     0x428A2F98, 0x71374491, 0xB5C0FBCF, 0xE9B5DBA5, 0x3956C25B, 0x59F111F1,
@@ -41,6 +62,39 @@ _K = (
 
 _H0 = (0x6A09E667, 0xBB67AE85, 0x3C6EF372, 0xA54FF53A,
        0x510E527F, 0x9B05688C, 0x1F83D9AB, 0x5BE0CD19)
+
+# csrc/sha256.cu's XmdParams: midstate, msg_len, len_in_bytes, ell,
+# len(DST'), DST' (zero-padded)
+_XMD_PARAMS = struct.Struct(f"<8I4I{MAX_DST_PRIME}s")
+
+_P = ctypes.c_void_p
+_SIGNATURES = {
+    # (msg, out, msg_len, B, stream)
+    "bls_sha256": (_P, _P, ctypes.c_int, ctypes.c_int, _P),
+    # (msg, out, params [host XmdParams], B, stream)
+    "bls_expand_xmd_sha256": (_P, _P, _P, ctypes.c_int, _P),
+}
+
+
+def _lib():
+    return build.load("sha256", _SIGNATURES)
+
+
+def byte_rows_device(x: torch.Tensor, name: str) -> str:
+    """'cpu' (plain version) or 'cuda' (kernel) for messages uint8
+    [B, n]; raises ValueError for another dtype, shape or device, and for
+    a CUDA tensor that is not contiguous."""
+    if x.dtype != torch.uint8 or x.dim() != 2:
+        raise ValueError(f"{name}: expected uint8 [B, n], got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    if device_kind(x) == "cuda" and not x.is_contiguous():
+        raise ValueError(f"{name}: the kernel takes a contiguous tensor")
+    return x.device.type
+
+
+# ---------------------------------------------------------------------------
+# Plain versions (int64 words)
+# ---------------------------------------------------------------------------
 
 
 def _rotr(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -96,9 +150,8 @@ def _const_bytes(bs: bytes, batch: int, device) -> torch.Tensor:
     return row.to(device).expand(batch, len(bs))
 
 
-def sha256(data: torch.Tensor) -> torch.Tensor:
-    """Batched SHA-256: uint8 [B, msg_len] -> uint8 [B, 32] (every message
-    of the batch has the same length)."""
+def _digest(data: torch.Tensor) -> torch.Tensor:
+    """The plain SHA-256 of each row, on the tensor's own device."""
     bsz, msg_len = data.shape
     padded = torch.cat([data, _const_bytes(_pad_suffix(msg_len), bsz,
                                            data.device)], 1)
@@ -108,6 +161,11 @@ def sha256(data: torch.Tensor) -> torch.Tensor:
         state = _compress(state, _bytes_to_words(
             padded[:, 64 * blk:64 * (blk + 1)]))
     return _words_to_bytes(state)
+
+
+# The plain version of `sha256`.  The plain XMD calls `_digest`, so that
+# counting the calls of `sha256_plain` never counts the XMD's digests.
+sha256_plain = _digest
 
 
 def as_messages(msgs, device) -> torch.Tensor:
@@ -124,27 +182,111 @@ def as_messages(msgs, device) -> torch.Tensor:
         limbs.resolve_device(device))
 
 
+def reduce_dst(dst: bytes) -> bytes:
+    """The DST expand_message_xmd uses: a DST over 255 bytes is replaced by
+    SHA-256("H2C-OVERSIZE-DST-" || DST) (draft-16 §5.3.3,
+    expand_msg.rs:19-105)."""
+    if len(dst) > 255:
+        return hashlib.sha256(b"H2C-OVERSIZE-DST-" + dst).digest()
+    return dst
+
+
+def xmd_ell(len_in_bytes: int) -> int:
+    """ceil(len_in_bytes / 32); raises ValueError where draft-16 does
+    (ell > 255, len_in_bytes > 65535) and for a negative length."""
+    ell = -(-len_in_bytes // 32)
+    if ell > 255 or len_in_bytes > 65535:
+        raise ValueError("expand_message_xmd bounds exceeded")
+    if len_in_bytes < 0:
+        raise ValueError(f"expand_message_xmd: len_in_bytes {len_in_bytes}")
+    return ell
+
+
+def expand_message_xmd_sha256_plain(msgs, dst: bytes, len_in_bytes: int,
+                                    device="cuda") -> torch.Tensor:
+    """The plain version of `expand_message_xmd_sha256`, on the messages'
+    own device (a tensor) or `device`."""
+    dst = reduce_dst(dst)
+    ell = xmd_ell(len_in_bytes)
+    msgs = as_messages(msgs, device)
+    bsz, dev = msgs.shape[0], msgs.device
+    dst_prime = _const_bytes(dst + bytes([len(dst)]), bsz, dev)
+    b0 = _digest(torch.cat([_const_bytes(bytes(64), bsz, dev), msgs,
+                            _const_bytes(len_in_bytes.to_bytes(2, "big")
+                                         + b"\x00", bsz, dev), dst_prime], 1))
+    out = [_digest(torch.cat([b0, _const_bytes(b"\x01", bsz, dev),
+                              dst_prime], 1))]
+    for i in range(2, ell + 1):
+        out.append(_digest(torch.cat([b0 ^ out[-1],
+                                      _const_bytes(bytes([i]), bsz, dev),
+                                      dst_prime], 1)))
+    return torch.cat(out, 1)[:, :len_in_bytes]
+
+
+# ---------------------------------------------------------------------------
+# The kernels' wrappers
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def zpad_midstate() -> tuple:
+    """The SHA-256 state after b0's first block, Z_pad = 64 zero bytes:
+    the plain compression of H0 with a zero block, 8 ints."""
+    zero = torch.zeros(1, dtype=torch.int64)
+    state = [torch.full((1,), h, dtype=torch.int64) for h in _H0]
+    return tuple(int(w) for w in _compress(state, [zero] * 16))
+
+
+def xmd_params(dst: bytes, len_in_bytes: int, msg_len: int) -> bytes:
+    """csrc/sha256.cu's XmdParams for one call, packed: the Z_pad
+    midstate, msg_len, len_in_bytes, ell, len(DST') and DST' = DST ||
+    I2OSP(len(DST), 1), the DST reduced first (`xmd_ell` raises on the
+    bounds)."""
+    ell = xmd_ell(len_in_bytes)
+    dst = reduce_dst(dst)
+    return _XMD_PARAMS.pack(*zpad_midstate(), msg_len, len_in_bytes, ell,
+                            len(dst) + 1, dst + bytes([len(dst)]))
+
+
+def sha256(data: torch.Tensor) -> torch.Tensor:
+    """Batched SHA-256: uint8 [B, msg_len] -> uint8 [B, 32] (every message
+    of the batch has the same length); one `sha256_kernel` launch on a
+    CUDA tensor."""
+    if byte_rows_device(data, "sha256") == "cpu":
+        return sha256_plain(data)
+    bsz, msg_len = data.shape
+    out = torch.empty((bsz, 32), dtype=torch.uint8, device=data.device)
+    if bsz == 0:
+        return out
+    with torch.cuda.device(data.device):
+        rc = _lib().bls_sha256(data.data_ptr(), out.data_ptr(), msg_len, bsz,
+                               torch.cuda.current_stream().cuda_stream)
+        LAUNCHES.sha256 += 1
+    check_launch(rc, "sha256")
+    return out
+
+
 def expand_message_xmd_sha256(msgs, dst: bytes, len_in_bytes: int,
                               device="cuda") -> torch.Tensor:
     """Batched expand_message_xmd with SHA-256 (draft-16 §5.3.1):
     messages [B, msg_len] uint8 (see `as_messages`) -> uint8
     [B, len_in_bytes].  A DST over 255 bytes is first reduced on the host
-    (§5.3.3, expand_msg.rs:19-105)."""
-    if len(dst) > 255:
-        dst = hashlib.sha256(b"H2C-OVERSIZE-DST-" + dst).digest()
-    ell = -(-len_in_bytes // 32)
-    if ell > 255 or len_in_bytes > 65535:
-        raise ValueError("expand_message_xmd bounds exceeded")
+    (§5.3.3, expand_msg.rs:19-105).  One `xmd_sha256_kernel` launch on a
+    CUDA tensor."""
     msgs = as_messages(msgs, device)
-    bsz, dev = msgs.shape[0], msgs.device
-    dst_prime = _const_bytes(dst + bytes([len(dst)]), bsz, dev)
-    b0 = sha256(torch.cat([_const_bytes(bytes(64), bsz, dev), msgs,
-                           _const_bytes(len_in_bytes.to_bytes(2, "big")
-                                        + b"\x00", bsz, dev), dst_prime], 1))
-    out = [sha256(torch.cat([b0, _const_bytes(b"\x01", bsz, dev),
-                             dst_prime], 1))]
-    for i in range(2, ell + 1):
-        out.append(sha256(torch.cat([b0 ^ out[-1],
-                                     _const_bytes(bytes([i]), bsz, dev),
-                                     dst_prime], 1)))
-    return torch.cat(out, 1)[:, :len_in_bytes]
+    kind = byte_rows_device(msgs, "expand_message_xmd_sha256")
+    if kind == "cpu":
+        return expand_message_xmd_sha256_plain(msgs, dst, len_in_bytes)
+    bsz, msg_len = msgs.shape
+    params = xmd_params(dst, len_in_bytes, msg_len)
+    out = torch.empty((bsz, len_in_bytes), dtype=torch.uint8,
+                      device=msgs.device)
+    if bsz == 0 or len_in_bytes == 0:
+        return out
+    with torch.cuda.device(msgs.device):
+        rc = _lib().bls_expand_xmd_sha256(
+            msgs.data_ptr(), out.data_ptr(), params, bsz,
+            torch.cuda.current_stream().cuda_stream)
+        LAUNCHES.xmd_sha256 += 1
+    check_launch(rc, "expand_message_xmd_sha256")
+    return out

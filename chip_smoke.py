@@ -43,6 +43,17 @@ Phases (each prints its lines and seconds; any failed check exits non-zero):
      bytes that this phase builds (sop, sqr, the folds, sop_fr, butterfly)
      are timed over copies of their operands taken in turn, more than
      twice the L2 in all, so that each launch reads from HBM.
+  3b. hashes: the hash kernels (csrc/sha256.cu: expand_message_xmd and
+     the digest; csrc/keccak.cu: the SHAKE sponge, behind shake and
+     expand_message_xof) against their plain versions on the card and
+     against hashlib / hostmath, byte for byte on every lane: XMD message
+     lengths 0 to 200 (b0 over one, two and three blocks), outputs of 32
+     to 8160 bytes (ell = 255), DSTs of 1 to 300 bytes (300 reduced on the
+     host); SHAKE messages of 0, r-1, r, r+1 and 2r bytes to 1, r, r+1 and
+     512 bytes at r = 136 and 168, the XOF at both levels; B = 1, 33, 256
+     and 2^16; then timed at 256 and 2^16 lanes and at one lane (the
+     chain), each beside its bounds by operations and by bytes and the
+     plain version's time.
   4. main: the batched pairing at batch 1024 from the repository's test
      vectors ([a]G1, [b]G2, a, b < 1000): lane (1, 1) equals the RELIC
      value, lanes with equal a*b are equal, identity lanes are one, four
@@ -104,14 +115,15 @@ Phases (each prints its lines and seconds; any failed check exits non-zero):
   9. h2c: bench.py:465-490's rows at 256 through `entry.h2c_entry`
      (hash_to_curve and encode_to_curve of G1 and G2, device expansion):
      the device XMD equals hashlib's on every lane (and is timed alone in
-     turns with each row),
+     turns with each row, beside its plain version on the card),
      the 20 draft-16 KATs, launch counts equal `expected_h2c_launches`,
      torsion-free outputs, 16 lanes on the card equal the CPU path,
      host-clock medians, the host expander beside hash_to_curve_g2.
   10. bls: the proof-of-possession round trip at 256 lanes (keygen, sign,
      serialize, parse with the subgroup checks, verify by pairing): every
      honest lane verifies, every tampered lane (another message, a flipped
-     bit, a point outside G2) fails; each stage's seconds.
+     bit, a point outside G2) fails; launch counts equal
+     `expected_bls_launches`; each stage's seconds.
   11. oracle: the card's paths against the independent host code (in
      spawned processes while the card works): hash_to_curve and
      encode_to_curve of phase h2c's messages (G1 on all 256 lanes, G2 on
@@ -158,8 +170,9 @@ Phases (each prints its lines and seconds; any failed check exits non-zero):
      codec and h2c rows', the round trip's, phase msm_large's (2^20 and
      2^24), phase oracle's and phase parallel's as `launches_<row>`, the
      last two as `launches_oracle_<check>` and
-     `launches_parallel_<row>_r<ranks>`: rank 0's), then the device JSON
-     line last.
+     `launches_parallel_<row>_r<ranks>`: rank 0's; the hash kernels' rows
+     also at 2^16 lanes, with one lane's device time as `chain_ms`), then
+     the device JSON line last.
 
 The script imports nothing of the JAX package.
 """
@@ -305,6 +318,51 @@ def sqr_imads(words: int = 12) -> int:
 
 BUTTERFLY_IMADS = sop_imads(1, 8)  # one Fr product; the add/sub are IADDs
 BUTTERFLY_BYTES = 4 * 16 * 5       # a, b, w read; lo, hi written (int32)
+
+# 32-bit instructions the hash kernels need at least, counted from
+# csrc/sha256.cu and csrc/keccak.cu as sm_90 issues them: one LOP3 for any
+# boolean function of up to three inputs, one IADD3 for an add of up to
+# three, one funnel shift (SHF) for a 32-bit rotation or shift and two for
+# a 64-bit rotation.  A SHA-256 compression: 48 schedule words (each sigma
+# two rotations, a shift and a LOP3; the four-term add two IADD3) and 64
+# rounds (S1 and S0 three rotations and a LOP3 each; ch and maj a LOP3
+# each; t1's five terms two IADD3, e one add, a one IADD3), then eight
+# adds.  A Keccak-f[1600] permutation: 24 rounds of 180 on the two 32-bit
+# halves of each lane (theta: the five-way column xors 2 x 2 x 5, the
+# rotations of D 2 x 5, a ^= C[x-1] ^ rot(C[x+1]) one LOP3 a half, 50;
+# rho 24 rotations, 48; chi one LOP3 a half, 50; iota 2).
+SHA256_COMPRESSION_OPS = (48 * (4 + 4 + 2) + 64 * (4 + 1 + 2 + 4 + 1 + 1 + 1)
+                          + 8)
+KECCAK_F_OPS = 24 * (20 + 10 + 50 + 48 + 50 + 2)
+
+
+def sha256_blocks(n_bytes: int) -> int:
+    """Compressions of the SHA-256 of n_bytes (the padding adds 9 bytes
+    at least)."""
+    return -(-(n_bytes + 9) // 64)
+
+
+def xmd_work(B: int, msg_len: int, len_in_bytes: int, dst_len: int):
+    """(bytes, 32-bit operations) of one expand_message_xmd launch over B
+    lanes: each message read once and each output written once; b0's
+    blocks after the Z_pad midstate (the host's, once per call) and ell
+    b_i of (b0 ^ b_(i-1)) || i || DST' each."""
+    dst_prime = (32 if dst_len > 255 else dst_len) + 1
+    ell = -(-len_in_bytes // 32)
+    blocks = (sha256_blocks(64 + msg_len + 3 + dst_prime) - 1
+              + ell * sha256_blocks(33 + dst_prime))
+    return (B * (msg_len + len_in_bytes),
+            B * blocks * SHA256_COMPRESSION_OPS)
+
+
+def shake_work(B: int, n_absorbed: int, msg_len: int, out_len: int,
+               rate: int):
+    """(bytes, 32-bit operations) of one SHAKE launch over B lanes whose
+    sponge absorbs n_absorbed bytes a lane (the message and any suffix)
+    and squeezes out_len: the permutations after each absorbed block and
+    between squeezed ones."""
+    perms = n_absorbed // rate + 1 + (-(-out_len // rate) - 1)
+    return B * (msg_len + out_len), B * perms * KECCAK_F_OPS
 
 
 def pow_chain(exponent: int, modulus: int):
@@ -494,7 +552,10 @@ def phase_build():
     usage = {"plan_exec": ptxas_usage("plan_exec", "plan_kernel"),
              "pow_fixed": ptxas_usage("mont", "pow_kernel", "6FpElem"),
              "pow_fixed_fr": ptxas_usage("fr", "pow_kernel", "6FpElem"),
-             "fp2_pow_fixed": ptxas_usage("mont", "pow_kernel", "7Fp2Elem")}
+             "fp2_pow_fixed": ptxas_usage("mont", "pow_kernel", "7Fp2Elem"),
+             "xmd_sha256": ptxas_usage("sha256", "17xmd_sha256_kernel"),
+             "sha256": ptxas_usage("sha256", "13sha256_kernel"),
+             "shake": ptxas_usage("keccak", "12shake_kernel")}
     for suffix, stem in (("", "mont"), ("_fr", "fr")):
         for r, e in ROW_CAPS:
             usage[f"sop_rows{suffix} {r}x{e}"] = ptxas_usage(
@@ -617,7 +678,10 @@ KERNEL_NAMES = {"sop_rows": ("sop_rows_kernel", "fp384"),
                 "butterfly": ("butterfly_kernel",),
                 "pow_fixed": ("pow_kernel<montgomery::FpElem", "fp384"),
                 "pow_fixed_fr": ("pow_kernel<montgomery::FpElem", "fr256"),
-                "fp2_pow_fixed": ("pow_kernel<montgomery::Fp2Elem",)}
+                "fp2_pow_fixed": ("pow_kernel<montgomery::Fp2Elem",),
+                "xmd_sha256": ("xmd_sha256_kernel",),
+                "sha256": ("::sha256_kernel",),
+                "shake": ("shake_kernel",)}
 ROW_CAPS = ((16, 16), (64, 128), (1024, 512))  # montgomery.cuh SOP_ROWS_CAPS
 
 
@@ -637,7 +701,9 @@ def profiled_launches(counts: dict) -> collections.Counter:
         "plan_exec": counts["plan_exec"], "butterfly": counts["butterfly"],
         "pow_fixed": counts["pow_fixed"],
         "pow_fixed_fr": counts["pow_fixed_fr"],
-        "fp2_pow_fixed": counts["fp2_pow_fixed"]})
+        "fp2_pow_fixed": counts["fp2_pow_fixed"],
+        "xmd_sha256": counts["xmd_sha256"], "sha256": counts["sha256"],
+        "shake": counts["shake"]})
 
 
 FOLD_CASES = (
@@ -763,6 +829,16 @@ def msm_plan_shapes():
 
 
 SMUL_PLAN_WIDTH = 1 << 12  # the widest group-law launches of phase smul
+# phase hashes (PERF.md section 6): the expanders' widths, XMD message
+# lengths that put b0 across one, two and three blocks, output lengths to
+# ell = 255, DSTs to one over 255 bytes (reduced on the host)
+HASH_WIDTHS = (1, 33, 256, 1 << 16)
+HASH_TIMED_WIDTHS = (256, 1 << 16)  # hash to curve's rows; the card full
+HASH_DST = b"BENCH-DST_"            # entry.H2C_DST
+XMD_MSG_LENS = (0, 1, 32, 55, 56, 63, 64, 119, 120, 200)
+XMD_OUT_LENS = (32, 48, 64, 128, 256, 8160)
+XMD_DST_LENS = (1, 10, 43, 255, 300)
+SHAKE_RATES = (136, 168)
 
 
 class KernelChecks:
@@ -1210,6 +1286,169 @@ def phase_kernels(device, usage):
 
 
 # ---------------------------------------------------------------------------
+# The device hash expanders
+# ---------------------------------------------------------------------------
+
+
+def xmd_cases():
+    """(msg_len, len_in_bytes, dst_len) of phase hashes: every message
+    length at hash_to_curve_g2's 256 bytes under the bench DST (b0 over one,
+    two and three blocks), every output length under BLS_DST and every DST
+    length at 256 bytes (300: reduced on the host), these with 32-byte
+    messages, and the other hash to curve rows' 32 bytes to 128 and to 64
+    under the bench DST."""
+    d10 = len(HASH_DST)
+    cases = [(m, 256, d10) for m in XMD_MSG_LENS]
+    cases += [(32, n, len(BLS_DST)) for n in XMD_OUT_LENS]
+    cases += [(32, 256, d) for d in XMD_DST_LENS]
+    cases += [(32, 128, d10), (32, 64, d10)]
+    return list(dict.fromkeys(cases))
+
+
+def shake_cases():
+    """(rate, msg_len, out_len) of phase hashes: messages of 0, r-1, r,
+    r+1 and 2r bytes and outputs of 1, r, r+1 and 512 bytes at both
+    rates."""
+    return [(r, m, o) for r in SHAKE_RATES
+            for m in (0, r - 1, r, r + 1, 2 * r) for o in (1, r, r + 1, 512)]
+
+
+def phase_hashes(device, usage, results, timed) -> None:
+    """The hash kernels (csrc/sha256.cu, csrc/keccak.cu) against their
+    plain versions on the card and against hashlib / hostmath, byte for
+    byte on every lane, then timed (`KernelChecks`; their device times
+    come from phase kernel_times).
+
+    Every case of `xmd_cases` (`expand_message_xmd_sha256`), every message
+    length of XMD_MSG_LENS (`sha256`), every case of `shake_cases`
+    (`shake`), and expand_message_xof_shake at both security levels with
+    DSTs of 10 and 300 bytes and 128 and 256 bytes out run at B = 1, 33
+    and 256 (the plain version at 256, the narrower launches against its
+    first lanes); at 2^16 too (the plain version at 2^16): the XMD cases
+    of 32-byte messages with up to 256 bytes out, every digest, SHAKE of
+    r + 1 bytes to 512 and the XOF with the bench DST to 256 bytes.  Timed
+    at HASH_TIMED_WIDTHS and at one lane (one thread's chain): the G2
+    hash's XMD (32 bytes to 256 under the bench DST), the digest of 32
+    bytes and the SHAKE-128 XOF of the XMD's shape."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from bls12_381_torch import hostmath as hm
+    from bls12_381_torch.kernels import keccak, sha256
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    big = max(HASH_WIDTHS)
+    narrow = [w for w in HASH_WIDTHS if w < big]
+    msgs = {}
+
+    def messages(length):
+        """uint8 [2^16, length] on the card, and its host copy."""
+        if length not in msgs:
+            m = rng.integers(0, 256, (big, length), dtype=np.uint8)
+            msgs[length] = (torch.from_numpy(m).to(device), m)
+        return msgs[length]
+
+    dsts = {len(HASH_DST): HASH_DST, len(BLS_DST): BLS_DST}
+    for d in XMD_DST_LENS:
+        dsts.setdefault(d, bytes(rng.integers(0, 256, d, dtype=np.uint8)))
+    failures, checked = [], collections.Counter()
+
+    def check(label, kernel, plain, host, at_big):
+        """kernel(B) at each width against plain(widest)'s first lanes and
+        host(i) on every lane; at_big: 2^16 as well."""
+        for widths in [narrow] + ([[big]] if at_big else []):
+            ref = plain(max(widths)).cpu().numpy()
+            for B in widths:
+                got = kernel(B).cpu().numpy()
+                bad = int((got != ref[:B]).any(1).sum())
+                bad += sum(bytes(got[i]) != host(i) for i in range(B))
+                checked[label.split()[0]] += B
+                if bad:
+                    failures.append(f"{label} B={B}: {bad} lanes")
+
+    for m_len, n, d in xmd_cases():
+        t, m = messages(m_len)
+        dst = dsts[d]
+        check(f"xmd_sha256 msg={m_len} out={n} dst={d}",
+              lambda B: sha256.expand_message_xmd_sha256(t[:B], dst, n),
+              lambda B: sha256.expand_message_xmd_sha256_plain(t[:B], dst,
+                                                               n),
+              lambda i: hm.expand_message_xmd(bytes(m[i]), dst, n),
+              m_len == 32 and n <= 256)
+    for m_len in XMD_MSG_LENS:
+        t, m = messages(m_len)
+        check(f"sha256 msg={m_len}", lambda B: sha256.sha256(t[:B]),
+              lambda B: sha256.sha256_plain(t[:B]),
+              lambda i: hashlib.sha256(bytes(m[i])).digest(), True)
+    for rate, m_len, out in shake_cases():
+        t, m = messages(m_len)
+        name = {168: "shake_128", 136: "shake_256"}[rate]
+        check(f"shake rate={rate} msg={m_len} out={out}",
+              lambda B: keccak.shake(t[:B], out, rate),
+              lambda B: keccak.shake_plain(t[:B], out, rate),
+              lambda i: hashlib.new(name, bytes(m[i])).digest(out),
+              (m_len, out) == (rate + 1, 512))
+    t, m = messages(32)
+    for bits, name in ((128, "shake_128"), (256, "shake_256")):
+        for d in (len(HASH_DST), 300):
+            for n in (128, 256):
+                dst = dsts[d]
+                check(f"shake xof{bits} dst={d} out={n}",
+                      lambda B: keccak.expand_message_xof_shake(
+                          t[:B], dst, n, bits),
+                      lambda B: keccak.expand_message_xof_shake_plain(
+                          t[:B], dst, n, bits),
+                      lambda i: hm.expand_message_xof(
+                          bytes(m[i]), dst, n, hash_name=name),
+                      (d, n) == (len(HASH_DST), 256))
+    say("hashes", lanes_checked=dict(checked), xmd_cases=len(xmd_cases()),
+        shake_cases=len(shake_cases()), mismatches=failures,
+        seconds=time.perf_counter() - t_phase)
+    if failures:
+        fail(f"hash kernels differ from their plain versions or the host: "
+             f"{failures}")
+
+    # timed: the main path's shapes at HASH_TIMED_WIDTHS and one lane (the
+    # plain versions up to 256 lanes)
+    chk = KernelChecks()
+    d10 = len(HASH_DST)
+    for B in (1,) + HASH_TIMED_WIDTHS:
+        x = t[:B]
+        n_plain = 1 if B < big else 0
+        launch = {"threads": 128, "blocks": -(-B // 128)}
+        chk.hold(f"xmd_sha256 msg=32 out=256 dst={d10} B={B}",
+                 lambda x=x: sha256.expand_message_xmd_sha256(
+                     x, HASH_DST, 256).T,
+                 lambda x=x: sha256.expand_message_xmd_sha256_plain(
+                     x, HASH_DST, 256).T,
+                 "xmd_sha256", 20, n_plain, *xmd_work(B, 32, 256, d10),
+                 registers=usage["xmd_sha256"][0],
+                 spill_bytes=usage["xmd_sha256"][1], **launch)
+        chk.hold(f"sha256 msg=32 B={B}", lambda x=x: sha256.sha256(x).T,
+                 lambda x=x: sha256.sha256_plain(x).T, "sha256", 20,
+                 n_plain, B * (32 + 32),
+                 B * sha256_blocks(32) * SHA256_COMPRESSION_OPS,
+                 registers=usage["sha256"][0],
+                 spill_bytes=usage["sha256"][1], **launch)
+        chk.hold(f"shake xof128 msg=32 out=256 dst={d10} B={B}",
+                 lambda x=x: keccak.expand_message_xof_shake(
+                     x, HASH_DST, 256).T,
+                 lambda x=x: keccak.expand_message_xof_shake_plain(
+                     x, HASH_DST, 256).T,
+                 "shake", 20, n_plain,
+                 *shake_work(B, 32 + 2 + d10 + 1, 32, 256, 168),
+                 registers=usage["shake"][0],
+                 spill_bytes=usage["shake"][1], **launch)
+    if chk.failures:
+        fail(f"hash kernel and plain version disagree: {chk.failures}")
+    results.update(chk.results)
+    timed.extend(chk.timed)
+
+
+# ---------------------------------------------------------------------------
 # Main path
 # ---------------------------------------------------------------------------
 
@@ -1270,9 +1509,17 @@ def take_lanes(aff, lanes, device):
     return (t(x), t(y), t(inf))
 
 
+def zero_launches() -> dict:
+    """Every key of `LAUNCHES.snapshot()` at 0: the base of each schedule
+    below, so that a schedule names every counter a run reads."""
+    from bls12_381_torch.kernels import LaunchCounts
+
+    return LaunchCounts().snapshot()
+
+
 def expected_launches():
-    """plan_exec, sqr, sop, fold_planned and pow_fixed launches of one
-    pairing, from the static schedules."""
+    """The launches of one pairing by kernel, from the static schedules
+    (its plans are not counted by name)."""
     import importlib
 
     from bls12_381_torch.fields import tower as tw
@@ -1289,9 +1536,10 @@ def expected_launches():
     folds = 1 + 5 + 1 + 3 * 8
     # fp2_inv in fp12_inv: the norm (one sop) and its fp.inv, one
     # pow_fixed (no sqr chain)
-    return {"plan_exec": plans, "sqr": 0, "sop": 1, "fold_planned": folds,
-            "pow_fixed": 1, "pow_fixed_fr": 0, "fp2_pow_fixed": 0,
-            "copied_rows": 0}
+    out = zero_launches()
+    del out["plan_exec_by_plan"]
+    return {**out, "plan_exec": plans, "sop": 1, "fold_planned": folds,
+            "pow_fixed": 1}
 
 
 def pairing_inputs(device):
@@ -1576,10 +1824,8 @@ def expected_ntt_launches(n: int, inverse: bool) -> dict:
     table doubles from 1 to N/2 columns, one `sop_fr` per doubling
     (log2 N - 1); the inverse adds one `sop_fr` for the 1/N scaling."""
     log_n = n.bit_length() - 1
-    return {"sop": 0, "sqr": 0, "plan_exec": 0, "butterfly": log_n,
-            "sop_fr": log_n - 1 + int(inverse), "fold_planned": 0,
-            "pow_fixed": 0, "pow_fixed_fr": 0, "fp2_pow_fixed": 0,
-            "copied_rows": 0, "plan_exec_by_plan": {}}
+    return {**zero_launches(), "butterfly": log_n,
+            "sop_fr": log_n - 1 + int(inverse)}
 
 
 def phase_ntt(device):
@@ -1691,10 +1937,8 @@ def expected_msm_launches(group: str, n: int, c: int, split: bool = True):
         sops, folds = inv + int(split), 1
     else:
         sops, folds = 1 + inv, 2 + (3 if split else 0)
-    return {"sop": sops, "sqr": 0, "plan_exec": adds + windows * c,
-            "sop_fr": 1, "butterfly": 0, "fold_planned": folds,
-            "pow_fixed": 1, "pow_fixed_fr": 0, "fp2_pow_fixed": 0,
-            "copied_rows": 0,
+    return {**zero_launches(), "sop": sops, "plan_exec": adds + windows * c,
+            "sop_fr": 1, "fold_planned": folds, "pow_fixed": 1,
             "plan_exec_by_plan": {f"{group}_add_plan": adds,
                                   f"{group}_double_plan": windows * c}}
 
@@ -1984,9 +2228,7 @@ def expected_smul_launches(group: str, name: str, n: int) -> dict:
         return (m - 1).bit_length()
 
     x = params.BLS_X
-    out = {"sop": 0, "sqr": 0, "plan_exec": 0, "sop_fr": 0, "butterfly": 0,
-           "fold_planned": 0, "pow_fixed": 0, "pow_fixed_fr": 0,
-           "fp2_pow_fixed": 0, "copied_rows": 0}
+    out = zero_launches()
     plans = {}
 
     def plan(what, k):
@@ -2347,9 +2589,7 @@ def expected_codec_launches(group: str, form: str, n: int) -> dict:
         sop); to_uncompressed: from_mont of x and y (one sop)."""
     from bls12_381_torch import params
 
-    out = {k: 0 for k in ("sop", "sqr", "plan_exec", "sop_fr", "butterfly",
-                          "fold_planned", "pow_fixed", "pow_fixed_fr",
-                          "fp2_pow_fixed", "copied_rows")}
+    out = zero_launches()
     plans = {}
     g1 = group == "g1"
     if form.startswith("to_"):
@@ -2380,8 +2620,9 @@ def expected_codec_launches(group: str, form: str, n: int) -> dict:
 def expected_h2c_launches(group: str, kind: str, n: int) -> dict:
     """Kernel launches of one call of hash_to_curve_* (kind "hash") or
     encode_to_curve_* (kind "encode") with device expansion over n >= 16
-    lanes (the SHA-256 expansion is plain torch ops: no port kernel):
-      - hash_to_field: from_okm, one fold (lo R^2 and hi R^3);
+    lanes:
+      - hash_to_field: the message expansion (one xmd_sha256), from_okm,
+        one fold (lo R^2 and hi R^3);
       - the map, u0 and u1 as one batch for "hash": the SSWU map (G1: 7
         sqr, 16 sop and 4 pow_fixed for two inversions and two square
         roots; G2: 5 + 14 folds for its squares and products, two fp2_inv
@@ -2400,6 +2641,7 @@ def expected_h2c_launches(group: str, kind: str, n: int) -> dict:
     products = 4 + sum(len(params.ISO_CONSTS[f"{iso}_{part}"]) - 1
                        for part in ("xnum", "xden", "ynum", "yden"))
     out["fold_planned"] += 1
+    out["xmd_sha256"] += 1
     if group == "g1":
         out["sqr"] += 7
         out["sop"] += 16 + products
@@ -2710,19 +2952,27 @@ def phase_h2c(device):
         if not same_tree(fn(*sub), cpu_out):
             fail(f"{label}: the card differs from the CPU path on "
                  f"{H2C_CPU_LANES} lanes")
-        # the row and its device XMD alone (the row's OKM length), in
-        # turns, so that both medians come from the same stretch of the
-        # host's time: the XMD's share of the row
+        # the row, its device XMD alone (the row's OKM length) and the
+        # plain XMD on the card (the route before the kernel), in turns, so
+        # that the medians come from the same stretch of the host's time:
+        # the XMD's share of the row, and the share the plain XMD would
+        # take of the row with it in the kernel's place
         okm_len = (2 if kind == "hash" else 1) * (64 if group == "g1"
                                                    else 128)
-        wall, cpu, xmd = [], [], []
+        wall, cpu, xmd, plain_xmd = [], [], [], []
         for _ in range(H2C_REPS):
             w, c = host_times(lambda: fn(*args), reps=1)
             x, _ = host_times(
                 lambda: sha256.expand_message_xmd_sha256(
                     args[0], args[1], okm_len, device), reps=1)
+            px, _ = host_times(
+                lambda: sha256.expand_message_xmd_sha256_plain(
+                    args[0], args[1], okm_len, device), reps=1)
             wall, cpu, xmd = wall + w, cpu + c, xmd + x
+            plain_xmd += px
         med = statistics.median(wall)
+        med_xmd, med_plain = (statistics.median(v) for v in (xmd,
+                                                             plain_xmd))
         extra = {}
         if (group, kind) == ("g2", "hash"):
             host_msgs = [bytes(m) for m in args[0]]
@@ -2738,9 +2988,33 @@ def phase_h2c(device):
             cpu_lanes=H2C_CPU_LANES, cpu_path_seconds=cpu_s, seconds=wall,
             median_seconds=med, per_s=n / med,
             host_cpu_share=sum(cpu) / sum(wall), xmd_seconds=xmd,
-            xmd_share=statistics.median(xmd) / med, **extra)
+            xmd_share=med_xmd / med, plain_xmd_seconds=plain_xmd,
+            plain_xmd_share=med_plain / (med - med_xmd + med_plain),
+            **extra)
         rows[label] = (counts, med, fn, args)
     return rows
+
+
+def expected_bls_launches(n: int) -> dict:
+    """Kernel launches of phase bls's round trip over n >= 16 lanes, by
+    kernel (the pairing's plans are not counted by name): keygen
+    (g1.scalar_mul, to_affine), sign (hash_to_curve_g2 with its one
+    xmd_sha256, g2.scalar_mul, to_affine), serialize (both compressed
+    encoders), parse (both compressed decoders with the subgroup checks),
+    verify (hash_to_curve_g2, to_affine, one pairing over 2n lanes)."""
+    parts = [expected_smul_launches("g1", "scalar_mul", n),
+             expected_smul_launches("g1", "batch_normalize", n),
+             expected_h2c_launches("g2", "hash", n),
+             expected_smul_launches("g2", "scalar_mul", n),
+             expected_smul_launches("g2", "batch_normalize", n),
+             expected_codec_launches("g1", "to_compressed_host", n),
+             expected_codec_launches("g2", "to_compressed_host", n),
+             expected_codec_launches("g1", "from_compressed_host", n),
+             expected_codec_launches("g2", "from_compressed_host", n),
+             expected_h2c_launches("g2", "hash", n),
+             expected_smul_launches("g2", "batch_normalize", n),
+             expected_launches()]
+    return {k: sum(p[k] for p in parts) for k in parts[-1]}
 
 
 def phase_bls(device):
@@ -2822,6 +3096,9 @@ def phase_bls(device):
     stage("verify_pairing")
     total = time.perf_counter() - t_all
     counts = LAUNCHES.snapshot()
+    want = expected_bls_launches(n)
+    if {k: counts[k] for k in want} != want:
+        fail(f"bls: launch counts {counts} differ from the schedule {want}")
 
     honest = ~np.isin(lane, (BLS_WRONG_MESSAGE, BLS_FLIPPED_BIT,
                              BLS_OUTSIDE_G2))
@@ -2842,7 +3119,8 @@ def phase_bls(device):
         flipped_rejected_by_parse=int((flipped & ~sig_ok).sum()),
         flipped_rejected_by_pairing=int((flipped & sig_ok).sum()),
         outside_g2_rejected_by_parse=int((lane == BLS_OUTSIDE_G2).sum()),
-        stage_seconds=stages, total_seconds=total, launches=counts)
+        stage_seconds=stages, total_seconds=total, launches=counts,
+        expected=want)
     return counts, total
 
 
@@ -2871,10 +3149,7 @@ def expected_oracle_launches(check: str, n: int) -> dict:
         return expected_h2c_launches(group, kind, n)
     if check == "multi_pairing":  # by kernel (its plans not by name)
         return expected_parallel_launches("pairing_agg_fe", n, (1,))
-    zero = {"plan_exec": 0, "sqr": 0, "sop": 0, "fold_planned": 0,
-            "pow_fixed": 0, "pow_fixed_fr": 0, "fp2_pow_fixed": 0,
-            "copied_rows": 0, "sop_fr": 0, "butterfly": 0,
-            "plan_exec_by_plan": {}}
+    zero = zero_launches()
     S = 32
     extra = {"psi": {"fold_planned": 1},
              "fr_sqrt": {"pow_fixed_fr": 1,
@@ -3214,10 +3489,9 @@ def expected_parallel_launches(kind: str, n: int, mesh_shape: tuple,
     if kind == "pairing":
         return whole
     tree = lg(n // ranks) + sum(lg(size) for size in mesh_shape)
-    want = {"plan_exec": 2 * pm.N_COEFFS + tree, "sqr": 0, "sop": 0,
-            "fold_planned": 1, "pow_fixed": 0, "pow_fixed_fr": 0,
-            "fp2_pow_fixed": 0, "copied_rows": 0, "sop_fr": 0,
-            "butterfly": 0}
+    want = {**zero_launches(), "plan_exec": 2 * pm.N_COEFFS + tree,
+            "fold_planned": 1}
+    del want["plan_exec_by_plan"]
     if kind == "pairing_agg_fe":  # the pairing's schedule less its Miller part
         want["plan_exec"] += whole["plan_exec"] - 2 * pm.N_COEFFS
         want["fold_planned"] += whole["fold_planned"] - 1
@@ -3754,6 +4028,7 @@ def main() -> None:
     smi_line = phase("device", phase_device)
     usage = phase("build", phase_build)
     results, timed = phase("kernels", phase_kernels, device, usage)
+    phase("hashes", phase_hashes, device, usage, results, timed)
     counts, med, (p_aff, q_aff) = phase("main", phase_main, device)
     counts_ntt, med_ntt, x = phase("ntt", phase_ntt, device)
     msms = phase("msm", phase_msm, device)
@@ -3932,6 +4207,30 @@ def main() -> None:
         spill_bytes=usage["fp2_pow_fixed"][1],
         **beside("b1", "fp2_pow_fixed (p-1)/2 B=1"),
         **beside("p34", f"fp2_pow_fixed (p-3)/4 B={BATCH}")))
+    # the hash kernels: launches per round trip (and per h2c row); ms,
+    # bound and plain ms per launch at hash to curve's 256 lanes, the full
+    # card's 2^16 beside them, and one lane's time (the chain)
+    hashes_jax = "bls12_381_tpu/kernels/"
+    d = len(HASH_DST)
+    for name, key, replaces, source in (
+            ("xmd_sha256", f"xmd_sha256 msg=32 out=256 dst={d}",
+             "sha256_jax.py:113", "sha256.cu"),
+            ("sha256", "sha256 msg=32", "sha256_jax.py:96", "sha256.cu"),
+            ("shake", f"shake xof128 msg=32 out=256 dst={d}",
+             "keccak_jax.py:122", "keccak.cu")):
+        small, full = (f"{key} B={B}" for B in HASH_TIMED_WIDTHS)
+        kernels.append(entry(
+            name, src + source, hashes_jax + replaces,
+            bls_counts[name], small,
+            note="the JAX version is jnp fused by XLA, not Pallas"
+                 + ("; also replaces keccak_jax.py:164 "
+                    "(expand_message_xof_shake, one launch with its "
+                    "suffix)" if name == "shake" else ""),
+            chain_ms=results[f"{key} B=1"]["ms"],
+            threads=results[small]["threads"],
+            blocks=results[small]["blocks"],
+            registers=usage[name][0], spill_bytes=usage[name][1],
+            **beside(f"b{HASH_TIMED_WIDTHS[1]}", full)))
     say("phase", name="total", seconds=time.perf_counter() - t_all)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)

@@ -1,0 +1,242 @@
+"""The device hash expanders' plain versions and wrappers
+(`kernels/sha256.py`, `kernels/keccak.py`), on the CPU.
+
+The plain SHA-256, expand_message_xmd, SHAKE and expand_message_xof are
+held to hashlib (through `hostmath`) at the lengths phase hashes of
+`chip_smoke.py` runs the kernels at, and to the JAX package's
+`sha256_jax` / `keccak_jax` (jnp on the CPU) at the edge lengths; the XMD
+kernel's host-side parameters (`sha256.xmd_params`) to the JAX package's
+compression and hostmath; the wrappers' ValueErrors, and that a CPU call
+counts no launch.  The kernels themselves run on the card only
+(`tests/test_torch_kernels_gpu.py`).  Inputs from a numpy seed.
+Tolerance: none -- bytes compare exactly.
+"""
+
+import hashlib
+import struct
+
+import numpy as np
+import pytest
+import torch
+
+import conftest  # noqa: F401
+import jax.numpy as jnp
+from bls12_381_tpu.kernels import keccak_jax, sha256_jax
+
+import chip_smoke
+from bls12_381_torch import entry, hostmath as hm
+from bls12_381_torch.kernels import LAUNCHES, keccak, sha256
+
+torch.set_num_threads(1)
+SEED = 20261017
+LANES = 3
+DST = chip_smoke.HASH_DST
+
+
+def messages(length: int, lanes: int = LANES) -> np.ndarray:
+    rng = np.random.default_rng(SEED + length)
+    return rng.integers(0, 256, (lanes, length), dtype=np.uint8)
+
+
+def dst_of(length: int) -> bytes:
+    if length == len(DST):
+        return DST
+    return bytes(np.random.default_rng(length).integers(0, 256, length,
+                                                        dtype=np.uint8))
+
+
+def rows(t) -> list:
+    return [bytes(r) for r in np.asarray(t)]
+
+
+# --- SHA-256 and expand_message_xmd ----------------------------------------
+
+
+# the JAX comparisons (eager jnp: ~0.15 s a compression) at the edges: the
+# padding's length field in the same block (55) or the next (56), two
+# blocks and three
+JAX_MSG_LENS = (0, 55, 56, 119, 120)
+
+
+@pytest.mark.parametrize("msg_len", chip_smoke.XMD_MSG_LENS)
+def test_plain_sha256_matches_hashlib_and_jax(msg_len):
+    m = messages(msg_len)
+    got = rows(sha256.sha256(torch.from_numpy(m)))
+    assert got == [hashlib.sha256(bytes(r)).digest() for r in m]
+    if msg_len in JAX_MSG_LENS:
+        assert got == rows(sha256_jax.sha256(jnp.asarray(m)))
+
+
+@pytest.mark.parametrize("msg_len,out_len,dst_len", chip_smoke.xmd_cases())
+def test_plain_xmd_matches_hashlib(msg_len, out_len, dst_len):
+    """Phase hashes' cases: b0 over one to three blocks, ell up to 255,
+    DSTs up to one reduced on the host."""
+    m, dst = messages(msg_len), dst_of(dst_len)
+    got = sha256.expand_message_xmd_sha256(torch.from_numpy(m), dst,
+                                           out_len)
+    assert rows(got) == [hm.expand_message_xmd(bytes(r), dst, out_len)
+                         for r in m]
+
+
+@pytest.mark.parametrize("msg_len,out_len,dst_len", [
+    (m, 32, len(DST)) for m in JAX_MSG_LENS] + [
+    (32, 48, 43), (32, 32, 255), (32, 32, 300)])
+def test_plain_xmd_matches_jax(msg_len, out_len, dst_len):
+    m, dst = messages(msg_len), dst_of(dst_len)
+    got = sha256.expand_message_xmd_sha256(torch.from_numpy(m), dst,
+                                           out_len)
+    assert rows(got) == rows(sha256_jax.expand_message_xmd_sha256(
+        jnp.asarray(m), dst, out_len))
+
+
+def test_phase_hashes_times_the_h2c_rows_dst():
+    assert DST == entry.H2C_DST
+
+
+def xmd_fields(dst: bytes, len_in_bytes: int, msg_len: int):
+    """`sha256.xmd_params` unpacked: (midstate, msg_len, len_in_bytes, ell,
+    len(DST'), DST' as packed)."""
+    f = struct.unpack("<8I4I256s", sha256.xmd_params(dst, len_in_bytes,
+                                                     msg_len))
+    return (f[:8],) + f[8:]
+
+
+def test_xmd_params_midstate_is_the_compression_of_zpad():
+    """The midstate the kernel starts b0 from: the plain compression of
+    64 zero bytes from H0, as the JAX package's compression gives it."""
+    state = [jnp.uint32(h) for h in sha256_jax._H0]
+    want = tuple(int(w) for w in sha256_jax._compress(
+        state, [jnp.uint32(0)] * 16))
+    midstate, msg_len, len_in_bytes, ell, n, dst_prime = xmd_fields(DST, 256,
+                                                                     32)
+    assert midstate == want == sha256.zpad_midstate()
+    assert (dst_prime[:n], ell, msg_len, len_in_bytes) == (
+        DST + bytes([len(DST)]), 8, 32, 256)
+
+
+@pytest.mark.parametrize("out_len,ell", [(1, 1), (32, 1), (33, 2),
+                                         (48, 2), (256, 8), (8160, 255)])
+def test_xmd_params_ell(out_len, ell):
+    assert xmd_fields(DST, out_len, 0)[3] == ell == sha256.xmd_ell(out_len)
+
+
+def test_xmd_params_reduce_an_oversize_dst_as_hostmath_does():
+    dst = dst_of(300)
+    *_, n, dst_prime = xmd_fields(dst, 64, 5)
+    reduced = hashlib.sha256(b"H2C-OVERSIZE-DST-" + dst).digest()
+    assert dst_prime[:n] == reduced + bytes([32])
+    m = messages(5)
+    assert rows(sha256.expand_message_xmd_sha256(torch.from_numpy(m),
+                                                 reduced, 64)) == [
+        hm.expand_message_xmd(bytes(r), dst, 64) for r in m]
+    *_, n, dst_prime = xmd_fields(dst_of(255), 64, 5)
+    assert dst_prime[:n] == dst_of(255) + bytes([255])
+
+
+def test_xmd_params_pack_layout():
+    """csrc/sha256.cu's XmdParams: 8 midstate words, msg_len,
+    len_in_bytes, ell, len(DST'), DST' zero-padded to 256 bytes."""
+    blob = sha256.xmd_params(DST, 200, 7)
+    assert len(blob) == 304
+    fields = struct.unpack("<8I4I256s", blob)
+    assert fields[:8] == sha256.zpad_midstate()
+    assert fields[8:12] == (7, 200, 7, len(DST) + 1)
+    assert fields[12] == (DST + bytes([len(DST)])).ljust(256, b"\0")
+
+
+@pytest.mark.parametrize("out_len", [8161, 65536, -1])
+def test_xmd_bounds_raise(out_len):
+    with pytest.raises(ValueError):
+        sha256.xmd_params(DST, out_len, 0)
+    with pytest.raises(ValueError):
+        sha256.expand_message_xmd_sha256(messages(4), DST, out_len,
+                                         device="cpu")
+
+
+# --- SHAKE and expand_message_xof -------------------------------------------
+
+
+@pytest.mark.parametrize("rate,msg_len,out_len", chip_smoke.shake_cases())
+def test_plain_shake_matches_hashlib(rate, msg_len, out_len):
+    m = messages(msg_len)
+    name = {168: "shake_128", 136: "shake_256"}[rate]
+    got = keccak.shake(torch.from_numpy(m), out_len, rate)
+    assert rows(got) == [hashlib.new(name, bytes(r)).digest(out_len)
+                         for r in m]
+
+
+@pytest.mark.parametrize("rate,msg_len", [
+    (r, m) for r in chip_smoke.SHAKE_RATES
+    for m in (r - 1, r, r + 1)])
+def test_plain_shake_matches_jax(rate, msg_len):
+    """The padding's edges (the domain byte and 0x80 in one byte, a block
+    of padding alone, one byte over), squeezing past one block (r + 1
+    bytes out)."""
+    m = messages(msg_len)
+    got = keccak.shake(torch.from_numpy(m), rate + 1, rate)
+    assert rows(got) == rows(keccak_jax.shake(jnp.asarray(m), rate + 1,
+                                              rate))
+
+
+@pytest.mark.parametrize("bits", [128, 256])
+@pytest.mark.parametrize("dst_len", [len(DST), 300])
+def test_plain_xof_matches_hostmath_and_jax(bits, dst_len):
+    m, dst = messages(32), dst_of(dst_len)
+    got = rows(keccak.expand_message_xof_shake(torch.from_numpy(m), dst, 128,
+                                               bits=bits))
+    assert got == [hm.expand_message_xof(bytes(r), dst, 128,
+                                         hash_name=f"shake_{bits}")
+                   for r in m]
+    assert got == rows(keccak_jax.expand_message_xof_shake(
+        jnp.asarray(m), dst, 128, bits=bits))
+
+
+@pytest.mark.parametrize("out_len,rate,domain", [
+    (0, 168, 0x1F), (16, 100, 0x1F), (16, 176, 0x1F), (16, 0, 0x1F),
+    (16, 136, 256)])
+def test_shake_arguments_raise(out_len, rate, domain):
+    with pytest.raises(ValueError):
+        keccak.shake(torch.from_numpy(messages(4)), out_len, rate, domain)
+
+
+# --- the wrappers' routing --------------------------------------------------
+
+
+WRAPPERS = {
+    "sha256": lambda x: sha256.sha256(x),
+    "expand_message_xmd_sha256":
+        lambda x: sha256.expand_message_xmd_sha256(x, DST, 64),
+    "shake": lambda x: keccak.shake(x, 64, 168),
+    "shake128": lambda x: keccak.shake128(x, 64),
+    "shake256": lambda x: keccak.shake256(x, 64),
+    "expand_message_xof_shake":
+        lambda x: keccak.expand_message_xof_shake(x, DST, 64),
+}
+BAD_INPUTS = {
+    "int32": lambda: torch.zeros((2, 8), dtype=torch.int32),
+    "1-D": lambda: torch.zeros(8, dtype=torch.uint8),
+    "meta": lambda: torch.zeros((2, 8), dtype=torch.uint8, device="meta"),
+}
+
+
+@pytest.mark.parametrize("bad", list(BAD_INPUTS))
+@pytest.mark.parametrize("name", list(WRAPPERS))
+def test_wrappers_raise_on_what_the_kernels_do_not_take(name, bad):
+    with pytest.raises(ValueError):
+        WRAPPERS[name](BAD_INPUTS[bad]())
+
+
+@pytest.mark.parametrize("name", list(WRAPPERS))
+def test_a_cpu_call_counts_no_launch(name):
+    """A CPU tensor takes the plain version (its value is hashlib's) and
+    counts nothing; a non-contiguous CPU tensor is taken as it is."""
+    m = messages(40)
+    x = torch.from_numpy(np.ascontiguousarray(m[:, :32]))
+    strided = torch.from_numpy(m)[:, :32]
+    assert not strided.is_contiguous()
+    LAUNCHES.reset()
+    got = WRAPPERS[name](x)
+    assert rows(WRAPPERS[name](strided)) == rows(got)
+    snap = LAUNCHES.snapshot()
+    assert {k: v for k, v in snap.items() if v} == {}
+    assert {"sha256", "xmd_sha256", "shake"} <= set(snap)

@@ -11,6 +11,8 @@ On a machine with a card, from the repository root:
 machine need not have.)
 """
 
+import hashlib
+
 import numpy as np
 import pytest
 import torch
@@ -19,7 +21,8 @@ from bls12_381_torch import entry, hostmath as hm, limbs, params
 from bls12_381_torch.curves import g1, g2
 from bls12_381_torch.fields import fr, tower as tw
 from bls12_381_torch.pairing import gt
-from bls12_381_torch.kernels import LAUNCHES, mont, plan_exec as pe
+from bls12_381_torch.kernels import (LAUNCHES, keccak, mont,
+                                     plan_exec as pe, sha256)
 from bls12_381_torch.ops import ntt
 from bls12_381_torch.utils import scans
 
@@ -477,5 +480,94 @@ def test_h2c_on_card_matches_cpu(cuda, group, kind):
     ref = getattr(h2c, f"{kind}_to_curve_{group}")(msgs, dst,
                                                    expand="device",
                                                    device="cpu")
+    assert all(torch.equal(a.cpu(), b) for a, b in
+               zip(scans.tree_leaves(got), scans.tree_leaves(ref)))
+
+
+# --- the hash kernels (csrc/sha256.cu, csrc/keccak.cu) ----------------------
+
+HASH_CASES = {
+    "sha256 msg=0": (0, lambda x: sha256.sha256(x),
+                     lambda x: sha256.sha256_plain(x),
+                     lambda m: hashlib.sha256(m).digest(), "sha256"),
+    "sha256 msg=119": (119, lambda x: sha256.sha256(x),
+                       lambda x: sha256.sha256_plain(x),
+                       lambda m: hashlib.sha256(m).digest(), "sha256"),
+    "xmd msg=32 out=256": (
+        32, lambda x: sha256.expand_message_xmd_sha256(x, b"BENCH-DST_", 256),
+        lambda x: sha256.expand_message_xmd_sha256_plain(x, b"BENCH-DST_",
+                                                         256),
+        lambda m: hm.expand_message_xmd(m, b"BENCH-DST_", 256),
+        "xmd_sha256"),
+    "xmd msg=0 out=48 dst=300": (
+        0, lambda x: sha256.expand_message_xmd_sha256(x, b"D" * 300, 48),
+        lambda x: sha256.expand_message_xmd_sha256_plain(x, b"D" * 300, 48),
+        lambda m: hm.expand_message_xmd(m, b"D" * 300, 48), "xmd_sha256"),
+    "shake128 msg=168 out=169": (
+        168, lambda x: keccak.shake128(x, 169),
+        lambda x: keccak.shake_plain(x, 169, 168),
+        lambda m: hashlib.shake_128(m).digest(169), "shake"),
+    "shake256 msg=135 out=512": (
+        135, lambda x: keccak.shake256(x, 512),
+        lambda x: keccak.shake_plain(x, 512, 136),
+        lambda m: hashlib.shake_256(m).digest(512), "shake"),
+    "xof256 msg=32 out=256": (
+        32, lambda x: keccak.expand_message_xof_shake(x, b"BENCH-DST_", 256,
+                                                      bits=256),
+        lambda x: keccak.expand_message_xof_shake_plain(x, b"BENCH-DST_",
+                                                        256, bits=256),
+        lambda m: hm.expand_message_xof(m, b"BENCH-DST_", 256,
+                                        hash_name="shake_256"), "shake"),
+}
+
+
+@pytest.mark.parametrize("B", [1, 33, 1024])
+@pytest.mark.parametrize("case", list(HASH_CASES))
+def test_hash_kernel_matches_plain_and_hashlib(cuda, case, B):
+    """One launch; kernel = plain version on the card = hashlib on every
+    lane, byte for byte."""
+    msg_len, kernel, plain, host, counter = HASH_CASES[case]
+    m = np.random.default_rng(B + msg_len).integers(0, 256, (B, msg_len),
+                                                    dtype=np.uint8)
+    x = torch.from_numpy(m).to(cuda)
+    LAUNCHES.reset()
+    got = kernel(x)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in LAUNCHES.snapshot().items() if v} == {
+        counter: 1}
+    assert torch.equal(got, plain(x))
+    assert [bytes(r) for r in got.cpu().numpy()] == [host(bytes(r))
+                                                     for r in m]
+
+
+def test_hash_wrappers_take_no_strided_cuda_tensor(cuda):
+    x = torch.zeros((4, 64), dtype=torch.uint8, device=cuda)[:, :32]
+    with pytest.raises(ValueError, match="contiguous"):
+        sha256.expand_message_xmd_sha256(x, b"BENCH-DST_", 64)
+    with pytest.raises(ValueError, match="contiguous"):
+        keccak.shake128(x, 64)
+
+
+def test_h2c_on_card_never_runs_the_plain_expanders(cuda, monkeypatch):
+    """The routing: with every plain hash version patched to raise,
+    hash_to_curve_g2 with device expansion runs on the card (its XMD one
+    kernel launch) and equals the CPU path."""
+    from bls12_381_torch.hash_to_curve import h2c
+
+    fn, (msgs, dst) = entry.h2c_entry(2, "g2", "hash")
+    ref = h2c.hash_to_curve_g2(msgs, dst, expand="device", device="cpu")
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain hash version ran on the card's path")
+
+    for mod, name in ((sha256, "sha256_plain"), (sha256, "_digest"),
+                      (sha256, "expand_message_xmd_sha256_plain"),
+                      (keccak, "shake_plain"),
+                      (keccak, "expand_message_xof_shake_plain")):
+        monkeypatch.setattr(mod, name, refuse)
+    LAUNCHES.reset()
+    got = fn(msgs, dst)
+    torch.cuda.synchronize()
+    assert LAUNCHES.xmd_sha256 == 1
     assert all(torch.equal(a.cpu(), b) for a, b in
                zip(scans.tree_leaves(got), scans.tree_leaves(ref)))

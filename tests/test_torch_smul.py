@@ -30,7 +30,7 @@ import chip_smoke
 from bls12_381_torch import convert, entry, limbs, params
 from bls12_381_torch.curves import g1, g2
 from bls12_381_torch.fields import fp, tower as tw
-from bls12_381_torch.kernels import LAUNCHES, mont, plan_exec as pe
+from bls12_381_torch.kernels import LAUNCHES, keccak, mont, plan_exec as pe, sha256
 from bls12_381_torch.pairing import gt
 from bls12_381_torch.params import BLS_X, G1_GEN, G2_GEN, P, Q
 
@@ -267,13 +267,19 @@ def count_launches(fn, *args):
     way its wrapper counts the kernel's launches on the card; returns
     (counts, fn's value)."""
     LAUNCHES.reset()
-    real = (mont.sop_rows_plain, pe.plan_exec_plain, mont.pow_fixed_plain,
-            mont.sqr_plain, mont.fp2_pow_plain)
+    names = [(mont, "sop_rows_plain"), (pe, "plan_exec_plain"),
+             (mont, "pow_fixed_plain"), (mont, "sqr_plain"),
+             (mont, "fp2_pow_plain"), (sha256, "sha256_plain"),
+             (sha256, "expand_message_xmd_sha256_plain"),
+             (keccak, "shake_plain")]
+    real = [getattr(mod, name) for mod, name in names]
+
+    def count(counter):
+        setattr(LAUNCHES, counter, getattr(LAUNCHES, counter) + 1)
 
     def rows(spec, *a):
-        counter = "sop_fr" if spec.n_limbs == 16 else \
-            "sop" if len(a[3]) == 1 else "fold_planned"
-        setattr(LAUNCHES, counter, getattr(LAUNCHES, counter) + 1)
+        count("sop_fr" if spec.n_limbs == 16 else
+              "sop" if len(a[3]) == 1 else "fold_planned")
         return real[0](spec, *a)
 
     def plan(ops, p):
@@ -282,25 +288,25 @@ def count_launches(fn, *args):
         return real[1](ops, p)
 
     def power(spec, a, e):
-        name = "pow_fixed_fr" if spec.n_limbs == 16 else "pow_fixed"
-        setattr(LAUNCHES, name, getattr(LAUNCHES, name) + 1)
+        count("pow_fixed_fr" if spec.n_limbs == 16 else "pow_fixed")
         return real[2](spec, a, e)
 
-    def sqr(a):
-        LAUNCHES.sqr += 1
-        return real[3](a)
+    def counted(i, counter):
+        def call(*a, **k):
+            count(counter)
+            return real[i](*a, **k)
+        return call
 
-    def fp2_power(a0, a1, e):
-        LAUNCHES.fp2_pow_fixed += 1
-        return real[4](a0, a1, e)
-
-    (mont.sop_rows_plain, pe.plan_exec_plain, mont.pow_fixed_plain,
-     mont.sqr_plain, mont.fp2_pow_plain) = rows, plan, power, sqr, fp2_power
+    fakes = [rows, plan, power, counted(3, "sqr"),
+             counted(4, "fp2_pow_fixed"), counted(5, "sha256"),
+             counted(6, "xmd_sha256"), counted(7, "shake")]
+    for (mod, name), fake in zip(names, fakes):
+        setattr(mod, name, fake)
     try:
         out = fn(*args)
     finally:
-        (mont.sop_rows_plain, pe.plan_exec_plain, mont.pow_fixed_plain,
-         mont.sqr_plain, mont.fp2_pow_plain) = real
+        for (mod, name), fn_real in zip(names, real):
+            setattr(mod, name, fn_real)
     return LAUNCHES.snapshot(), out
 
 
