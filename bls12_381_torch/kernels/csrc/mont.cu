@@ -19,9 +19,11 @@
 //   bls_fp2_pow_fixed:
 //            (out0 + out1 u)[:, b] = (a0 + a1 u)[:, b]^e in Fp2 = Fp[u]/(u^2+1),
 //            Montgomery form, a0, a1, out0, out1 int32 [24, B]; e as for
-//            bls_pow_fixed (montgomery.cuh's pow_kernel for Fp2)
+//            bls_pow_fixed (fp2_pow.cuh's fp2_pow_kernel: two threads per
+//            lane, fp2pow::kLanes lanes per block)
 //
 // The C functions launch on the given stream and return cudaGetLastError().
+#include "fp2_pow.cuh"
 #include "fp384.cuh"
 
 using namespace montgomery;
@@ -76,7 +78,6 @@ extern "C" int bls_pow_fixed(const void* a, void* out, const uint8_t* digits,
 extern "C" int bls_fp2_pow_fixed(const void* a0, const void* a1, void* out0,
                                  void* out1, const uint8_t* digits,
                                  int n_digits, int B, void* stream) {
-  const void* a[2] = {a0, a1};
-  void* out[2] = {out0, out1};
-  return launch_pow<Fp2Elem<Field>>(a, out, digits, n_digits, B, stream);
+  return fp2pow::launch_fp2_pow(a0, a1, out0, out1, digits, n_digits, B,
+                                stream);
 }

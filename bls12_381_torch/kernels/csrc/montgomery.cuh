@@ -14,7 +14,8 @@
 //   __device__ static uint32_t one(int j);  word j of R mod p
 // Every function returns a canonical result (< p) from canonical inputs.
 // The sum-of-products kernel at the end is instantiated once per field, the
-// fixed-exponent power kernel once per element type (Fp, Fr, Fp2).
+// fixed-exponent power kernel once per element type (Fp, Fr); the Fp2 power
+// is fp2_pow.cuh's.
 #pragma once
 
 #include <cstdint>
@@ -443,76 +444,23 @@ int launch_sop_rows(const SopRow* rows, int n_rows, const uint16_t* ia,
   return (int)cudaErrorInvalidValue;
 }
 
-// (c0, c1) = (a0 + a1 u)(b0 + b1 u) in Fp2 = Fp[u]/(u^2 + 1), as two 2-term
-// sums with one Montgomery reduction each, c0 = a0 b0 + (p - a1) b1 and
-// c1 = a0 b1 + a1 b0: each sum is < 2 p^2 < p R, so one conditional
-// subtraction makes it canonical, and p - a1 = p for a1 = 0 stays inside
-// that bound.  c may alias a or b.
-template <class F>
-__device__ __forceinline__ void fp2_mul(const uint32_t (&a0)[F::W],
-                                        const uint32_t (&a1)[F::W],
-                                        const uint32_t (&b0)[F::W],
-                                        const uint32_t (&b1)[F::W],
-                                        uint32_t (&c0)[F::W],
-                                        uint32_t (&c1)[F::W]) {
-  constexpr int W = F::W;
-  uint32_t na1[W], r0[W];
-  uint32_t br = 0;
-#pragma unroll
-  for (int j = 0; j < W; ++j) {  // p - a1 in [1, p]: no borrow out
-    u64 x = (u64)F::p(j) - a1[j] - br;
-    na1[j] = (uint32_t)x;
-    br = (uint32_t)(x >> 63);
-  }
-  uint32_t t[2 * W + 1];
-  zero_wide(t);
-  mul_acc(t, a0, b0);
-  mul_acc(t, na1, b1);
-  mont_reduce<F>(t, r0);
-  zero_wide(t);
-  mul_acc(t, a0, b1);
-  mul_acc(t, a1, b0);
-  mont_reduce<F>(t, c1);  // every input is read before c1 is written
-#pragma unroll
-  for (int j = 0; j < W; ++j) c0[j] = r0[j];
-}
-
-// (c0, c1) = (a0 + a1 u)^2 = ((a0 + a1)(a0 - a1), 2 a0 a1); c may alias a.
-template <class F>
-__device__ __forceinline__ void fp2_sqr(const uint32_t (&a0)[F::W],
-                                        const uint32_t (&a1)[F::W],
-                                        uint32_t (&c0)[F::W],
-                                        uint32_t (&c1)[F::W]) {
-  constexpr int W = F::W;
-  uint32_t s[W], d[W], m[W];
-  mod_add<F>(a0, a1, s);
-  mod_sub<F>(a0, a1, d);
-  mont_mul<F>(a0, a1, m);
-  mont_mul<F>(s, d, c0);
-  mod_add<F>(m, m, c1);
-}
-
 // ---------------------------------------------------------------------------
 // Fixed-exponent power: the JAX package's `limbs.pow_fixed` chain (a scan of
-// sqr_pallas and sop_pallas launches, limbs.py:693) and `tower.fp2_pow`
-// (tower.py:287, a lax.scan over the exponent's bits of an fp2_sqr, an
-// fp2_mul and a select, whose Fp products are sop_pallas launches), each in
-// one launch.  The exponent's 4-bit digits, most significant first, travel
-// by value in the launch's parameter block (every thread reads the same
-// digit: a broadcast from the constant cache).  One thread per lane runs
-// the whole chain with the accumulator in registers; its 16-entry window
-// table (one, a, a^2 .. a^15) lives in shared memory, word-major with the
-// lane innermost, so a warp's reads of one word fall in 32 banks.  Every
-// step returns the canonical value, so skipping the leading zero digits and
-// the products by entry 0 keeps the JAX schedules' result.  Bound: the chain
-// of dependent products per lane (latency), not the words it moves.
+// sqr_pallas and sop_pallas launches, limbs.py:693) in one launch.  The
+// exponent's 4-bit digits, most significant first, travel by value in the
+// launch's parameter block (every thread reads the same digit: a broadcast
+// from the constant cache).  One thread per lane runs the whole chain with
+// the accumulator in registers; its 16-entry window table (one, a, a^2 ..
+// a^15) lives in shared memory, word-major with the lane innermost, so a
+// warp's reads of one word fall in 32 banks.  Every step returns the
+// canonical value, so skipping the leading zero digits and the products by
+// entry 0 keeps the JAX schedules' result.  Bound: the chain of dependent
+// products per lane (latency), not the words it moves.
 //
 // The element type E is FpElem<F> (Fp or Fr: 16 x W words of table per
-// lane) or Fp2Elem<F> (16 x 2 x W).  A block holds kPowLanes lanes: 96 KB of
-// table for Fp, 64 KB for Fr, 192 KB for Fp2 (one block per SM).  At
-// B = 1024 the Fp2 power at (p-1)/2 took 1.513 ms with 128 lanes per block,
-// 1.698 with 64 and 1.912 with 32 (chip_smoke.py, NVIDIA H100 80GB HBM3 at
-// 700 W; PERF.md).
+// lane).  A block holds kPowLanes lanes: 96 KB of table for Fp, 64 KB for
+// Fr.  The Fp2 power (`tower.fp2_pow`) is a kernel of its own, two threads
+// per lane: fp2_pow.cuh.
 // ---------------------------------------------------------------------------
 constexpr int kPowDigits = 256;  // 1024-bit exponents
 constexpr int kPowLanes = 128;   // lanes (threads) per block
@@ -524,7 +472,7 @@ struct PowDigits {
 // Elements of the power kernel: C coordinates of W words, held as
 // uint32_t[C][W]; one, mul and sqr return canonical values from canonical
 // inputs, and their output may alias an input.  kSqrUnroll: how far the
-// digit's four squares are unrolled (an Fp2 square is large).
+// digit's four squares are unrolled.
 template <class F>
 struct FpElem {
   static constexpr int C = 1, W = F::W, kSqrUnroll = 4;
@@ -540,24 +488,6 @@ struct FpElem {
   __device__ __forceinline__ static void sqr(const uint32_t (&a)[C][W],
                                              uint32_t (&c)[C][W]) {
     mont_sqr<F>(a[0], c[0]);
-  }
-};
-
-template <class F>
-struct Fp2Elem {
-  static constexpr int C = 2, W = F::W, kSqrUnroll = 1;
-  __device__ __forceinline__ static void one(uint32_t (&x)[C][W]) {
-#pragma unroll
-    for (int j = 0; j < W; ++j) x[0][j] = F::one(j), x[1][j] = 0;
-  }
-  __device__ __forceinline__ static void mul(const uint32_t (&a)[C][W],
-                                             const uint32_t (&b)[C][W],
-                                             uint32_t (&c)[C][W]) {
-    fp2_mul<F>(a[0], a[1], b[0], b[1], c[0], c[1]);
-  }
-  __device__ __forceinline__ static void sqr(const uint32_t (&a)[C][W],
-                                             uint32_t (&c)[C][W]) {
-    fp2_sqr<F>(a[0], a[1], c[0], c[1]);
   }
 };
 

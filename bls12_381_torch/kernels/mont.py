@@ -19,10 +19,11 @@ fixed-exponent power template: the JAX package's `limbs.pow_fixed`
 (limbs.py:693, a scan of `sqr_pallas` and `sop_pallas` launches: 14 table
 products, then 4 squares and a product per 4-bit digit) in one launch, so
 `sqr_pallas`'s body (`sqr_wide`) reaches the paths through it.
-`fp2_pow_fixed` (`csrc/mont.cu`, the same template over Fp2 elements) does
-the same for the JAX package's `tower.fp2_pow` (tower.py:287, a scan over the
-exponent's bits of fp2_sqr, fp2_mul and a select, whose Fp products are
-`sop_pallas` launches): the Fp2 square roots' powers, one launch each.
+`fp2_pow_fixed` (`csrc/mont.cu`, `csrc/fp2_pow.cuh`'s `fp2_pow_kernel`)
+does the same for the JAX package's `tower.fp2_pow` (tower.py:287, a scan
+over the exponent's bits of fp2_sqr, fp2_mul and a select, whose Fp products
+are `sop_pallas` launches): the Fp2 square roots' powers, one launch each,
+on the same digit schedule with two threads per lane.
 
 Design.  The 16-bit limbs of each operand are packed into 32-bit words in
 registers (12 for Fp, 8 for Fr), a group's products are summed into a
@@ -67,13 +68,16 @@ as the JAX schedule has it.  A block holds 128 lanes (`kPowLanes`, fixed at
 compile time): at B = 1024 a launch at p - 2 took 0.560 ms with 128 lanes
 per block, 0.635 with 64 and 0.708 with 32, and 0.556 at B = 1
 (`chip_smoke.py`, NVIDIA H100 80GB HBM3 at 700 W; PERF.md).  Why the
-smaller blocks are slower has not been traced.  The Fp2 instance runs
-that plan with the accumulator's two halves in registers (140-150 of them,
-no spill) and a 16-entry table of Fp2 values (192 KB per 128-lane
-block, one block per SM): a product is two 2-term sums with one reduction
-each, a square two products.  At (p-1)/2 it took 1.513 ms at B = 1024
-with 128 lanes per block, 1.698 with 64, 1.912 with 32, and 1.443 at
-B = 1 (same card and script).
+smaller blocks are slower has not been traced.  The Fp2 power is a
+kernel of its own (`csrc/fp2_pow.cuh`, whose note gives its design): one
+thread per coordinate, the two of a lane neighbours in a warp that swap
+their coordinates by shuffles after each step, a Montgomery product whose
+carries ride the hardware carry flag, reductions left lazy below 2p, and
+FP2_POW_LANES lanes per block (the fastest of 32, 64 and 128 in
+`scripts/fp2_pow_variants.py`; PERF.md): 0.5226 ms at (p-1)/2 at B = 1024
+and 0.5223 at B = 1, where the Fp power template's own Fp2 instance, one
+thread per lane, took 1.5185 (`chip_smoke.py`, NVIDIA H100 80GB HBM3,
+700 W).
 
 Bound on the card.  A T = 1 Fp product reads 2 x 24 and writes 24 int32
 words per lane (288 bytes) and does 2 x 12 x 12 word products plus the
@@ -90,8 +94,9 @@ power moves 2 L words per lane but runs ~480 dependent products (p - 2):
 at B = 1024 its multiplies are ~14 us of the card's rate, spread over only
 32 warps, so its time is the chain's latency; the Fp2 power's
 multiplies, its products counted at Karatsuba's three word products (~2.5
-times as many per lane), are ~0.036 ms at B = 1024, and it runs at about 40
-times that for the same reason.  The kernels keep every
+times as many per lane), are ~0.036 ms at B = 1024, and it runs at about 14
+times that for the same reason, a pair of threads' chain (0.5226 ms; 1.38
+times its bound at 2^16 lanes).  The kernels keep every
 intermediate in registers or shared memory (nothing but the operands and
 the result touches device memory); packing the boundary to 32-bit words
 would halve their bytes and is left to a later change.
@@ -131,6 +136,8 @@ POW_WINDOW = 4            # bits per digit of pow_fixed (the JAX default)
 POW_DIGITS = 256          # digits the pow kernel takes by value (1024 bits)
 POW_LANES = 128           # lanes (threads) per block of the pow kernel
                           # (montgomery.cuh's kPowLanes)
+FP2_POW_LANES = 64        # lanes per block of fp2_pow_fixed, two threads
+                          # each (fp2_pow.cuh's kLanes)
 
 _POW_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_int, ctypes.c_void_p)
@@ -656,7 +663,7 @@ def pow_fixed(a: torch.Tensor, exponent: int) -> torch.Tensor:
 def fp2_pow_fixed(a0: torch.Tensor, a1: torch.Tensor, exponent: int):
     """(a0 + a1 u)^exponent in Fp2, Montgomery form, for a public exponent
     < 2^1024: int32 [24, B] x2 -> (c0, c1), the whole chain in one launch
-    of the pow kernel's Fp2 instance (the JAX package's `tower.fp2_pow`, a scan of
+    of `fp2_pow_kernel` (the JAX package's `tower.fp2_pow`, a scan of
     sop_pallas launches, tower.py:287)."""
     out = _pow_launch(lambda: _lib().bls_fp2_pow_fixed, limbs.FP, [a0, a1],
                       exponent, "fp2_pow_fixed")

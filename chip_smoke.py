@@ -34,9 +34,12 @@ Phases (each prints its lines and seconds; any failed check exits non-zero):
      lane tile, blocks, threads, shared memory, phases, registers;
      `pow_fixed` at p - 2 and (p+1)/4, B = 1 and 1024, and `pow_fixed_fr`
      at q - 2, B = 1024, over the edge lanes 0, 1, 2, m-1, m-2, R mod m;
-     `fp2_pow_fixed` at (p-3)/4, (p-1)/2, 0, 1, 2 and B = 1, 256, 512,
-     1021, 1024 over the Fp2 edge lanes (0, 0), (1, 0), (0, 1),
-     (p-1, p-1), (0, p-1), (p-1, 0);
+     `fp2_pow_fixed` (csrc/fp2_pow.cuh, two threads per lane) at (p-3)/4,
+     (p-1)/2, 0, 1, 2 and B = 1, 33, 256, 512, 1021, 1024 and 2^16 (held on
+     sampled lanes) over the Fp2 edge lanes (0, 0), (1, 0), (0, 1),
+     (p-1, p-1), (0, p-1), (p-1, 0), (p-1, 1), (1, p-1), (R mod p, 0),
+     timed at B = 1, 256, 512, 1024 and 2^16, with its lanes, threads per
+     lane, blocks, shared bytes, registers, spills and both bounds;
      exact equality (integers: tolerance none); CUDA events around
      back-to-back calls (the host's issue rate for short kernels) and the
      plain version's time (CUDA events; no yardstick).  The rows bound by
@@ -244,10 +247,14 @@ BAD_LANE = 17                      # lanes i % 64 == 17: a point outside G1 / G2
 FP2_POW_EXPONENTS = ("(p-3)/4", "(p-1)/2", "0", "1", "2")
 FP2_POW_TIMED = ("(p-3)/4", "(p-1)/2")
 # phase codec's 2^10 lanes, a partial block, h2c's 2 x 256 and 256 lanes
-# (the round trip's too), one lane
-FP2_POW_WIDTHS = (1024, 1021, 512, 256, 1)
+# (the round trip's too), a pair of warps of which one lane is live, one
+# lane; and the card full, held on sampled lanes
+FP2_POW_WIDTHS = (1024, 1021, 512, 256, 33, 1)
+FP2_POW_WIDE = 1 << 16
+FP2_POW_TIMED_WIDTHS = (1, 256, 512, 1024, FP2_POW_WIDE)
+FP2_POW_LANE_BYTES = 16 * 2 * 12 * 4  # window table per lane (fp2_pow.cuh)
 FP2_EDGE_LANES = ("0", "0"), ("1", "0"), ("0", "1"), ("p-1", "p-1"), \
-    ("0", "p-1"), ("p-1", "0")
+    ("0", "p-1"), ("p-1", "0"), ("p-1", "1"), ("1", "p-1"), ("R", "0")
 CODEC_LOG_N = 10                   # bench.py:429-462's decoding rows at 2^10
 CODEC_FORMS = ("compressed", "uncompressed")
 CODEC_REPS = 5
@@ -552,7 +559,7 @@ def phase_build():
     usage = {"plan_exec": ptxas_usage("plan_exec", "plan_kernel"),
              "pow_fixed": ptxas_usage("mont", "pow_kernel", "6FpElem"),
              "pow_fixed_fr": ptxas_usage("fr", "pow_kernel", "6FpElem"),
-             "fp2_pow_fixed": ptxas_usage("mont", "pow_kernel", "7Fp2Elem"),
+             "fp2_pow_fixed": ptxas_usage("mont", "fp2_pow_kernel"),
              "xmd_sha256": ptxas_usage("sha256", "17xmd_sha256_kernel"),
              "sha256": ptxas_usage("sha256", "13sha256_kernel"),
              "shake": ptxas_usage("keccak", "12shake_kernel")}
@@ -635,11 +642,11 @@ def fp2_exponent(label: str) -> int:
 
 
 def fp2_pow_operand(B: int, gen, device):
-    """Random canonical (a0, a1) [24, B]; lanes 0..5 hold FP2_EDGE_LANES
-    (0 as 0, 1 as 1, p-1 as p - 1)."""
+    """Random canonical (a0, a1) [24, B]; lanes 0..8 hold FP2_EDGE_LANES
+    (0 as 0, 1 as 1, p-1 as p - 1, R as R mod p), as many as B holds."""
     from bls12_381_torch.params import P
 
-    value = {"0": 0, "1": 1, "p-1": P - 1}
+    value = {"0": 0, "1": 1, "p-1": P - 1, "R": (1 << 384) % P}
     a0, a1 = rand_fp((B,), gen, device), rand_fp((B,), gen, device)
     for lane, (x, y) in enumerate(FP2_EDGE_LANES[:B]):
         a0[:, lane] = edge_col(value[x], device)
@@ -678,7 +685,7 @@ KERNEL_NAMES = {"sop_rows": ("sop_rows_kernel", "fp384"),
                 "butterfly": ("butterfly_kernel",),
                 "pow_fixed": ("pow_kernel<montgomery::FpElem", "fp384"),
                 "pow_fixed_fr": ("pow_kernel<montgomery::FpElem", "fr256"),
-                "fp2_pow_fixed": ("pow_kernel<montgomery::Fp2Elem",),
+                "fp2_pow_fixed": ("fp2_pow_kernel",),
                 "xmd_sha256": ("xmd_sha256_kernel",),
                 "sha256": ("::sha256_kernel",),
                 "shake": ("shake_kernel",)}
@@ -891,6 +898,53 @@ def sample_lanes(B: int, gen, device):
     return torch.unique(torch.cat([
         torch.arange(SAMPLED_LANES, device=device), rand,
         torch.arange(B - SAMPLED_LANES, B, device=device)]))
+
+
+def fp2_pow_rows(chk, usage, gen, device) -> None:
+    """Phase kernels' rows of `fp2_pow_fixed` into `chk` (KernelChecks;
+    `usage`: ptxas registers and spill bytes by kernel): FP2_POW_EXPONENTS
+    at FP2_POW_WIDTHS over the Fp2 edge lanes, one plain call per exponent
+    at 1024 lanes whose first lanes (lane 9, random, for B = 1) hold the
+    narrower launches, and at FP2_POW_WIDE lanes held on sampled lanes;
+    the plain version timed once, at (p-1)/2 (2.4-3 s a call on the card).
+    The square roots' exponents timed at FP2_POW_TIMED_WIDTHS."""
+    import torch
+
+    from bls12_381_torch.kernels import mont
+
+    a0, a1 = fp2_pow_operand(BATCH, gen, device)
+    w0, w1 = fp2_pow_operand(FP2_POW_WIDE, gen, device)
+    pick = sample_lanes(FP2_POW_WIDE, gen, device)
+    n = mont.FP2_POW_LANES
+    regs, spills = usage["fp2_pow_fixed"]
+    for label in FP2_POW_EXPONENTS:
+        e = fp2_exponent(label)
+        ref = torch.stack(mont.fp2_pow_plain(a0, a1, e))
+        ref_wide = torch.stack(mont.fp2_pow_plain(
+            w0.index_select(1, pick), w1.index_select(1, pick), e))
+        for B in FP2_POW_WIDTHS + (FP2_POW_WIDE,):
+            if B == FP2_POW_WIDE:
+                x0, x1, want, lanes_held = w0, w1, ref_wide, pick
+            else:
+                held = slice(0, B) if B > 1 else slice(9, 10)
+                x0, x1 = a0[:, held].contiguous(), a1[:, held].contiguous()
+                want, lanes_held = ref[..., held], None
+            key = f"fp2_pow_fixed {label} B={B}"
+            timed = label in FP2_POW_TIMED and B in FP2_POW_TIMED_WIDTHS
+            n_bytes, n_imads = fp2_pow_work(e, B)
+            chk.hold(key, lambda x0=x0, x1=x1, e=e: torch.stack(
+                         mont.fp2_pow_fixed(x0, x1, e)),
+                     lambda x0=x0, x1=x1, e=e: torch.stack(
+                         mont.fp2_pow_plain(x0, x1, e)),
+                     "fp2_pow_fixed", 20 if timed else 2,
+                     1 if key == f"fp2_pow_fixed (p-1)/2 B={BATCH}" else 0,
+                     n_bytes, n_imads, ref=want, pick=lanes_held, lanes=n,
+                     threads_per_lane=2, blocks=-(-B // n),
+                     shared_bytes=FP2_POW_LANE_BYTES * n, registers=regs,
+                     spill_bytes=spills, bytes_ms=bound(n_bytes, 0)[0],
+                     ops_ms=bound(0, n_imads)[0])
+        del ref, ref_wide
+    del a0, a1, w0, w1, pick
 
 
 def phase_kernels(device, usage):
@@ -1206,32 +1260,7 @@ def phase_kernels(device, usage):
                  spill_bytes=spills)
         del a, ref
 
-    # --- fp2_pow_fixed: FP2_POW_EXPONENTS at FP2_POW_WIDTHS, over the Fp2
-    # edge lanes; one plain call per exponent at 1024 lanes, whose first
-    # lanes (lane 7, random, for B = 1) hold the narrower launches; the
-    # plain version timed once, at (p-1)/2 (2.4-3 s a call on the card)
-    a0, a1 = fp2_pow_operand(BATCH, gen, device)
-    regs, spills = usage["fp2_pow_fixed"]
-    for label in FP2_POW_EXPONENTS:
-        e = fp2_exponent(label)
-        ref = torch.stack(mont.fp2_pow_plain(a0, a1, e))
-        for B in FP2_POW_WIDTHS:
-            lanes = slice(0, B) if B > 1 else slice(7, 8)
-            x0, x1 = a0[:, lanes].contiguous(), a1[:, lanes].contiguous()
-            key = f"fp2_pow_fixed {label} B={B}"
-            timed = label in FP2_POW_TIMED and B in (BATCH, 1)
-            chk.hold(key, lambda x0=x0, x1=x1, e=e: torch.stack(
-                         mont.fp2_pow_fixed(x0, x1, e)),
-                     lambda x0=x0, x1=x1, e=e: torch.stack(
-                         mont.fp2_pow_plain(x0, x1, e)),
-                     "fp2_pow_fixed", 20 if timed else 2,
-                     1 if key == f"fp2_pow_fixed (p-1)/2 B={BATCH}" else 0,
-                     *fp2_pow_work(e, B), ref=ref[..., lanes],
-                     lanes=mont.POW_LANES,
-                     blocks=-(-B // mont.POW_LANES), registers=regs,
-                     spill_bytes=spills)
-        del ref
-    del a0, a1
+    fp2_pow_rows(chk, usage, gen, device)
 
     # --- Fr: sop_fr (T = 1, 2) and butterfly at B = 2^16 with edge rows,
     # and at the NTT's shapes: the 1/N scaling (T = 1, B = N) and a stage
@@ -4196,16 +4225,21 @@ def main() -> None:
     kernels.append(entry("butterfly", src + "fr.cu", f"{pallas}:414",
                          counts_ntt["butterfly"], f"butterfly B={NTT_N // 2}"))
     # the Fp2 power: launches per round trip (and per codec and h2c row);
-    # ms and bound per launch at B = 1024, (p-1)/2
+    # ms and bound per launch at B = 1024, (p-1)/2, the other timed widths
+    # and (p-3)/4 beside it
+    fp2_key = "fp2_pow_fixed (p-1)/2 B={}"
     kernels.append(entry(
-        "fp2_pow_fixed", src + "mont.cu",
+        "fp2_pow_fixed", src + "fp2_pow.cuh",
         "bls12_381_tpu/fields/tower.py:287", bls_counts["fp2_pow_fixed"],
-        f"fp2_pow_fixed (p-1)/2 B={BATCH}",
+        fp2_key.format(BATCH),
         note="the JAX fp2_pow is a lax.scan of fp2_sqr / fp2_mul / select "
-             f"over sop_pallas ({pallas}:620); one launch here",
-        lanes=mont.POW_LANES, registers=usage["fp2_pow_fixed"][0],
-        spill_bytes=usage["fp2_pow_fixed"][1],
-        **beside("b1", "fp2_pow_fixed (p-1)/2 B=1"),
+             f"over sop_pallas ({pallas}:620); one launch here, two threads "
+             "per lane (built into csrc/mont.cu)",
+        **{k: v for k, v in results[fp2_key.format(BATCH)].items() if k in (
+            "lanes", "threads_per_lane", "blocks", "shared_bytes",
+            "registers", "spill_bytes", "bytes_ms", "ops_ms")},
+        **{k: v for B in FP2_POW_TIMED_WIDTHS if B != BATCH
+           for k, v in beside(f"b{B}", fp2_key.format(B)).items()},
         **beside("p34", f"fp2_pow_fixed (p-3)/4 B={BATCH}")))
     # the hash kernels: launches per round trip (and per h2c row); ms,
     # bound and plain ms per launch at hash to curve's 256 lanes, the full

@@ -3,19 +3,26 @@
 
 Run from the root of a checkout on a machine with a CUDA device:
 
-    python3 scripts/profile_paths.py [--reps N]
+    python3 scripts/profile_paths.py [--reps N] [--rows ROW ...]
 
 It imports the `bls12_381_torch` of the tree it sits in and calls only the
-entry points (`entry.entry`, `entry.ntt_entry`, `entry.msm_entry`), so a copy
-of this file placed in an older tree takes the same measurement there.  For
-the pairing at batch 1024, one `ntt` at 2^20, one `msm_g1` at 2^16 points
-and one `msm_g2` at 2^12 it prints one JSON line each: the host-clock wall
+entry points (`entry.entry`, `entry.ntt_entry`, `entry.msm_entry`,
+`entry.codec_entry`, `entry.h2c_entry`) and `kernels.mont.fp2_pow_fixed`,
+so a copy of this file placed in an older tree takes the same measurement
+there.  For the pairing at batch 1024, one `ntt` at 2^20, one `msm_g1` at
+2^16 points, one `msm_g2` at 2^12, the G2 decompression of 2^10 points
+(subgroup check on) and `hash_to_curve_g2` of 256 messages (the two paths
+that launch the Fp2 power) it prints one JSON line each: the host-clock wall
 of one run (median of N after a warm-up, ending in a synchronize), the
 device time of one run under torch.profiler (device-side events only), the
 device's busy share of the wall, the launches and device ms of the
 `CatArrayBatchedCopy` kernels (torch.cat / torch.stack) and of the other
 copy kernels, those of the port's kernels by name, and the run's own peak
-of allocated device memory above what was held before it.  It imports
+of allocated device memory above what was held before it.  Row `fp2_pow`
+prints the Fp2 power kernel's device ms per launch (the mean of
+FP2_POW_LAUNCHES launches in one profiled window) at (p-1)/2 and (p-3)/4
+over random canonical operands at FP2_POW_WIDTHS lanes.  `--rows` picks
+rows, so that two trees can be compared row by row in one call.  It imports
 nothing of JAX.
 """
 
@@ -32,7 +39,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 # substrings of the port's kernel names, in every tree of the port so far
 PORT_KERNELS = ("sop_rows_kernel", "sop_kernel", "fold_kernel", "sqr_kernel",
-                "plan_kernel", "butterfly_kernel", "pow_kernel")
+                "plan_kernel", "butterfly_kernel", "fp2_pow_kernel",
+                "pow_kernel")
+ROWS = ("pairing", "ntt", "msm_g1", "msm_g2", "g2_decompress", "h2c_g2",
+        "fp2_pow")
+FP2_POW_WIDTHS = (1, 256, 512, 1024, 1 << 16)
+FP2_POW_LAUNCHES = 20
 
 
 def device_events(fn):
@@ -106,9 +118,40 @@ def measure(label: str, fn, reps: int) -> dict:
                              for k, (n, us) in sorted(port.items())}}
 
 
+def fp2_pow_rows() -> None:
+    """The Fp2 power kernel's device ms per launch, one JSON line per
+    exponent and width."""
+    import torch
+
+    from bls12_381_torch import limbs, params
+    from bls12_381_torch.kernels import mont
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    for label, e in (("(p-1)/2", (params.P - 1) // 2),
+                     ("(p-3)/4", (params.P - 3) // 4)):
+        for B in FP2_POW_WIDTHS:
+            a = torch.randint(0, 1 << 16, (2, 24, B), generator=gen,
+                              device="cuda", dtype=torch.int32)
+            a[:, 23] %= limbs.FP.p_limbs[23]  # canonical: below p
+
+            def run():
+                for _ in range(FP2_POW_LAUNCHES):
+                    mont.fp2_pow_fixed(a[0], a[1], e)
+
+            mont.fp2_pow_fixed(a[0], a[1], e)  # builds, warms
+            mine = [end - start for name, start, end in device_events(run)
+                    if "pow_kernel" in name]
+            print(json.dumps({
+                "path": f"fp2_pow_fixed {label} B={B}",
+                "launches": len(mine),
+                "ms": sum(mine) / len(mine) / 1e3}), flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--rows", nargs="+", choices=ROWS, default=ROWS)
     args = ap.parse_args()
     import torch
 
@@ -117,17 +160,24 @@ def main() -> None:
     sys.path.insert(0, str(ROOT))
     from bls12_381_torch import entry
 
-    fn, (p, q) = entry.entry(batch=1024)
-    print(json.dumps(measure("pairing B=1024", lambda: fn(p, q),
-                             args.reps)), flush=True)
-    fn, (x,) = entry.ntt_entry(20)
-    print(json.dumps(measure("ntt 2^20", lambda: fn(x), args.reps)),
-          flush=True)
-    for group, log_n in (("g1", 16), ("g2", 12)):
-        fn, (pts, sc) = entry.msm_entry(log_n, group)
-        print(json.dumps(measure(f"msm_{group} 2^{log_n}",
-                                 lambda: fn(pts, sc), args.reps)),
+    def row(label, fn, fn_args):
+        print(json.dumps(measure(label, lambda: fn(*fn_args), args.reps)),
               flush=True)
+
+    if "pairing" in args.rows:
+        row("pairing B=1024", *entry.entry(batch=1024))
+    if "ntt" in args.rows:
+        row("ntt 2^20", *entry.ntt_entry(20))
+    for group, log_n in (("g1", 16), ("g2", 12)):
+        if f"msm_{group}" in args.rows:
+            row(f"msm_{group} 2^{log_n}", *entry.msm_entry(log_n, group))
+    if "g2_decompress" in args.rows:
+        row("g2.from_compressed_host 2^10",
+            *entry.codec_entry(10, "g2", "compressed"))
+    if "h2c_g2" in args.rows:
+        row("hash_to_curve_g2 256", *entry.h2c_entry(8, "g2", "hash"))
+    if "fp2_pow" in args.rows:
+        fp2_pow_rows()
 
 
 if __name__ == "__main__":

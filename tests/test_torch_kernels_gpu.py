@@ -313,11 +313,12 @@ def test_pow_kernel_matches_plain(cuda, wrapper, B, name):
 # the Fp2 square root's two exponents beside 0 (one), 1 (a) and 2
 FP2_POW_EXPONENTS = {"(p-3)/4": (P - 3) // 4, "(p-1)/2": (P - 1) // 2,
                      "0": 0, "1": 1, "2": 2}
-FP2_EDGES = ((0, 0), (1, 0), (0, 1), (P - 1, P - 1), (0, P - 1), (P - 1, 0))
+FP2_EDGES = ((0, 0), (1, 0), (0, 1), (P - 1, P - 1), (0, P - 1), (P - 1, 0),
+             (P - 1, 1), (1, P - 1), ((1 << 384) % P, 0))
 
 
 def fp2_pow_operand(B: int, device, seed: int):
-    """Random canonical (a0, a1) [24, B]; lanes 0..5 hold FP2_EDGES, as
+    """Random canonical (a0, a1) [24, B]; lanes 0..8 hold FP2_EDGES, as
     many as B has room for."""
     a0 = pow_operand(limbs.FP, B, "cpu", seed)
     a1 = pow_operand(limbs.FP, B, "cpu", seed + 1)
@@ -328,9 +329,10 @@ def fp2_pow_operand(B: int, device, seed: int):
 
 
 @pytest.mark.parametrize("name", list(FP2_POW_EXPONENTS))
-@pytest.mark.parametrize("B", [1, 1021, 1024])
+@pytest.mark.parametrize("B", [1, 33, 256, 512, 1021, 1024])
 def test_fp2_pow_kernel_matches_plain(cuda, B, name):
-    """One launch; B = 1021 a ragged block."""
+    """One launch; B = 33 one live lane in a second block, 1021 a ragged
+    block."""
     a0, a1 = fp2_pow_operand(B, cuda, seed=B)
     e = FP2_POW_EXPONENTS[name]
     LAUNCHES.reset()
@@ -339,6 +341,23 @@ def test_fp2_pow_kernel_matches_plain(cuda, B, name):
     assert LAUNCHES.snapshot()["fp2_pow_fixed"] == 1
     want = mont.fp2_pow_plain(a0, a1, e)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("name", ["(p-3)/4", "(p-1)/2"])
+def test_fp2_pow_kernel_full_card_matches_plain_on_sampled_lanes(cuda, name):
+    """2^16 lanes in one launch, held on the first, the last and 1024
+    random lanes (the plain version at that width would take minutes)."""
+    B = 1 << 16
+    a0, a1 = fp2_pow_operand(B, cuda, seed=16)
+    e = FP2_POW_EXPONENTS[name]
+    got = torch.stack(mont.fp2_pow_fixed(a0, a1, e))
+    torch.cuda.synchronize()
+    pick = torch.unique(torch.cat([
+        torch.arange(64), torch.arange(B - 64, B),
+        torch.randint(0, B, (1024,), generator=torch.Generator().manual_seed(
+            16))])).to(cuda)
+    want = torch.stack(mont.fp2_pow_plain(a0[:, pick], a1[:, pick], e))
+    assert torch.equal(got[..., pick], want)
 
 
 def test_ntt_on_card_matches_cpu(cuda):
