@@ -56,6 +56,7 @@
 
 #include <atomic>
 
+#include "carry_chain.cuh"
 #include "fp384.cuh"
 
 namespace fp2pow {
@@ -63,133 +64,16 @@ namespace fp2pow {
 using montgomery::kPowDigits;
 using montgomery::PowDigits;
 using montgomery::PowIO;
+using carry::add_words;
+using carry::kN0;
+using carry::mad_row;
+using carry::madc_row;
+using carry::p_word;
+using carry::sub_words;
+using carry::two_p_word;
+using carry::W;
 
-constexpr int W = 12;                  // 32-bit words of an Fp element
-constexpr uint32_t kN0 = 0xfffcfffdu;  // -p^-1 mod 2^32
 constexpr int kLanes = 64;  // lanes per block (mont.py FP2_POW_LANES)
-
-// Word j of p and of 2p (fp384.cuh's kP), as immediates.
-__device__ __forceinline__ uint32_t p_word(int j) {
-  constexpr uint32_t w[W] = {
-      0xffffaaabu, 0xb9feffffu, 0xb153ffffu, 0x1eabfffeu,
-      0xf6b0f624u, 0x6730d2a0u, 0xf38512bfu, 0x64774b84u,
-      0x434bacd7u, 0x4b1ba7b6u, 0x397fe69au, 0x1a0111eau};
-  return w[j];
-}
-
-__device__ __forceinline__ uint32_t two_p_word(int j) {
-  constexpr uint32_t w[W] = {
-      0xffff5556u, 0x73fdffffu, 0x62a7ffffu, 0x3d57fffdu,
-      0xed61ec48u, 0xce61a541u, 0xe70a257eu, 0xc8ee9709u,
-      0x869759aeu, 0x96374f6cu, 0x72ffcd34u, 0x340223d4u};
-  return w[j];
-}
-
-// acc[0..12] += x (y[0] + y[2] 2^64 + ... + y[10] 2^320): y points at six
-// words two apart (the even or the odd words of an element).  The halves
-// of the six word products fill disjoint word pairs, so one carry chain
-// adds them all; the callers' bounds keep acc[12] from carrying out.
-__device__ __forceinline__ void mad_row(uint32_t* acc, uint32_t x,
-                                        const uint32_t* y) {
-  asm("mad.lo.cc.u32 %0, %13, %14, %0;\n\t"
-      "madc.hi.cc.u32 %1, %13, %14, %1;\n\t"
-      "madc.lo.cc.u32 %2, %13, %15, %2;\n\t"
-      "madc.hi.cc.u32 %3, %13, %15, %3;\n\t"
-      "madc.lo.cc.u32 %4, %13, %16, %4;\n\t"
-      "madc.hi.cc.u32 %5, %13, %16, %5;\n\t"
-      "madc.lo.cc.u32 %6, %13, %17, %6;\n\t"
-      "madc.hi.cc.u32 %7, %13, %17, %7;\n\t"
-      "madc.lo.cc.u32 %8, %13, %18, %8;\n\t"
-      "madc.hi.cc.u32 %9, %13, %18, %9;\n\t"
-      "madc.lo.cc.u32 %10, %13, %19, %10;\n\t"
-      "madc.hi.cc.u32 %11, %13, %19, %11;\n\t"
-      "addc.u32 %12, %12, 0;"
-      : "+r"(acc[0]), "+r"(acc[1]), "+r"(acc[2]), "+r"(acc[3]),
-        "+r"(acc[4]), "+r"(acc[5]), "+r"(acc[6]), "+r"(acc[7]),
-        "+r"(acc[8]), "+r"(acc[9]), "+r"(acc[10]), "+r"(acc[11]),
-        "+r"(acc[12])
-      : "r"(x), "r"(y[0]), "r"(y[2]), "r"(y[4]), "r"(y[6]), "r"(y[8]),
-        "r"(y[10]));
-}
-
-// mad_row with one more carry into acc[0]: 1 where cin != 0.
-__device__ __forceinline__ void madc_row(uint32_t* acc, uint32_t x,
-                                         const uint32_t* y, uint32_t cin) {
-  asm("{\n\t.reg .u32 t;\n\t"
-      "add.cc.u32 t, %20, 0xffffffff;\n\t"
-      "madc.lo.cc.u32 %0, %13, %14, %0;\n\t"
-      "madc.hi.cc.u32 %1, %13, %14, %1;\n\t"
-      "madc.lo.cc.u32 %2, %13, %15, %2;\n\t"
-      "madc.hi.cc.u32 %3, %13, %15, %3;\n\t"
-      "madc.lo.cc.u32 %4, %13, %16, %4;\n\t"
-      "madc.hi.cc.u32 %5, %13, %16, %5;\n\t"
-      "madc.lo.cc.u32 %6, %13, %17, %6;\n\t"
-      "madc.hi.cc.u32 %7, %13, %17, %7;\n\t"
-      "madc.lo.cc.u32 %8, %13, %18, %8;\n\t"
-      "madc.hi.cc.u32 %9, %13, %18, %9;\n\t"
-      "madc.lo.cc.u32 %10, %13, %19, %10;\n\t"
-      "madc.hi.cc.u32 %11, %13, %19, %11;\n\t"
-      "addc.u32 %12, %12, 0;\n\t}"
-      : "+r"(acc[0]), "+r"(acc[1]), "+r"(acc[2]), "+r"(acc[3]),
-        "+r"(acc[4]), "+r"(acc[5]), "+r"(acc[6]), "+r"(acc[7]),
-        "+r"(acc[8]), "+r"(acc[9]), "+r"(acc[10]), "+r"(acc[11]),
-        "+r"(acc[12])
-      : "r"(x), "r"(y[0]), "r"(y[2]), "r"(y[4]), "r"(y[6]), "r"(y[8]),
-        "r"(y[10]), "r"(cin));
-}
-
-// r += b + (1 where cin != 0) over 12 words, the carry out dropped (the
-// callers' sums are < 2^384).
-__device__ __forceinline__ void add_words(uint32_t (&r)[W],
-                                          const uint32_t (&b)[W],
-                                          uint32_t cin = 0) {
-  asm("{\n\t.reg .u32 t;\n\t"
-      "add.cc.u32 t, %24, 0xffffffff;\n\t"
-      "addc.cc.u32 %0, %0, %12;\n\t"
-      "addc.cc.u32 %1, %1, %13;\n\t"
-      "addc.cc.u32 %2, %2, %14;\n\t"
-      "addc.cc.u32 %3, %3, %15;\n\t"
-      "addc.cc.u32 %4, %4, %16;\n\t"
-      "addc.cc.u32 %5, %5, %17;\n\t"
-      "addc.cc.u32 %6, %6, %18;\n\t"
-      "addc.cc.u32 %7, %7, %19;\n\t"
-      "addc.cc.u32 %8, %8, %20;\n\t"
-      "addc.cc.u32 %9, %9, %21;\n\t"
-      "addc.cc.u32 %10, %10, %22;\n\t"
-      "addc.u32 %11, %11, %23;\n\t}"
-      : "+r"(r[0]), "+r"(r[1]), "+r"(r[2]), "+r"(r[3]), "+r"(r[4]),
-        "+r"(r[5]), "+r"(r[6]), "+r"(r[7]), "+r"(r[8]), "+r"(r[9]),
-        "+r"(r[10]), "+r"(r[11])
-      : "r"(b[0]), "r"(b[1]), "r"(b[2]), "r"(b[3]), "r"(b[4]), "r"(b[5]),
-        "r"(b[6]), "r"(b[7]), "r"(b[8]), "r"(b[9]), "r"(b[10]), "r"(b[11]),
-        "r"(cin));
-}
-
-// r -= b over 12 words; returns 0xffffffff on a borrow out (r < b), else 0.
-__device__ __forceinline__ uint32_t sub_words(uint32_t (&r)[W],
-                                              const uint32_t (&b)[W]) {
-  uint32_t mask;
-  asm("sub.cc.u32 %0, %0, %13;\n\t"
-      "subc.cc.u32 %1, %1, %14;\n\t"
-      "subc.cc.u32 %2, %2, %15;\n\t"
-      "subc.cc.u32 %3, %3, %16;\n\t"
-      "subc.cc.u32 %4, %4, %17;\n\t"
-      "subc.cc.u32 %5, %5, %18;\n\t"
-      "subc.cc.u32 %6, %6, %19;\n\t"
-      "subc.cc.u32 %7, %7, %20;\n\t"
-      "subc.cc.u32 %8, %8, %21;\n\t"
-      "subc.cc.u32 %9, %9, %22;\n\t"
-      "subc.cc.u32 %10, %10, %23;\n\t"
-      "subc.cc.u32 %11, %11, %24;\n\t"
-      "subc.u32 %12, 0, 0;"
-      : "+r"(r[0]), "+r"(r[1]), "+r"(r[2]), "+r"(r[3]), "+r"(r[4]),
-        "+r"(r[5]), "+r"(r[6]), "+r"(r[7]), "+r"(r[8]), "+r"(r[9]),
-        "+r"(r[10]), "+r"(r[11]), "=r"(mask)
-      : "r"(b[0]), "r"(b[1]), "r"(b[2]), "r"(b[3]), "r"(b[4]), "r"(b[5]),
-        "r"(b[6]), "r"(b[7]), "r"(b[8]), "r"(b[9]), "r"(b[10]),
-        "r"(b[11]));
-  return mask;
-}
 
 // r = (x1 y1 [+ x2 y2]) R^-1 mod p, in [0, 2p), for a sum < pR (here
 // < 8p^2: x1 < 4p, y1 < 2p alone, or x1, y1, y2 < 2p, x2 <= 2p with the

@@ -11,6 +11,8 @@
 //   bls_sop_rows_param_bytes: parameter bytes of the capacity a call of
 //            n_rows rows and G T table entries launches with (-1: none)
 //   bls_sqr: out[g, :, b] = a[g, :, b]^2 R^-1 mod p, int32 [G, 24, B]
+//            (mont_sqr.cuh's sqr_kernel: one thread per lane, carry-flag
+//            chains)
 //   bls_pow_fixed:
 //            out[:, b] = a[:, b]^e R^(1-e) mod p (the Montgomery form of a^e),
 //            a int32 [24, B]; e as n_digits host uint8 4-bit digits, most
@@ -25,28 +27,10 @@
 // The C functions launch on the given stream and return cudaGetLastError().
 #include "fp2_pow.cuh"
 #include "fp384.cuh"
+#include "mont_sqr.cuh"
 
 using namespace montgomery;
 using fp384::Field;
-
-namespace {
-
-constexpr int kBlock = 128;
-
-__global__ void __launch_bounds__(kBlock)
-sqr_kernel(const int32_t* __restrict__ a, int32_t* __restrict__ out, int G,
-           int B) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)G * B) return;
-  const int g = (int)(idx / B), lane = (int)(idx % B);
-  const size_t off = (size_t)g * Field::L16 * B + lane;
-  uint32_t x[Field::W];
-  load16(a + off, B, x);
-  mont_sqr<Field>(x, x);
-  store16(out + off, B, x);
-}
-
-}  // namespace
 
 extern "C" int bls_sop_rows(const SopRow* rows, int n_rows,
                             const uint16_t* ia, const uint16_t* ib,
@@ -62,12 +46,7 @@ extern "C" int bls_sop_rows_param_bytes(int n_rows, int entries) {
 }
 
 extern "C" int bls_sqr(const void* a, void* out, int G, int B, void* stream) {
-  if (G < 1 || B < 1) return (int)cudaErrorInvalidValue;
-  const long long n = (long long)G * B;
-  const int grid = (int)((n + kBlock - 1) / kBlock);
-  sqr_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)a, (int32_t*)out, G, B);
-  return (int)cudaGetLastError();
+  return montsqr::launch_sqr(a, out, G, B, stream);
 }
 
 extern "C" int bls_pow_fixed(const void* a, void* out, const uint8_t* digits,

@@ -11,7 +11,8 @@ pallas_mont.py:682-689) and `fold_planned_pallas` (bodies
 `sop_fr` and `fold_planned` keep those kernels' signatures as thin adapters
 whose rows are views into the caller's stacked tensor; `limbs.py` calls
 `sop_rows` with its operands as they are.  `sqr` replaces `sqr_pallas`
-(default body `_sqr_kernel_r12_scalar`, `csrc/mont.cu`), `butterfly`
+(default body `_sqr_kernel_r12_scalar`; `csrc/mont_sqr.cuh`, built into
+`csrc/mont.cu`), `butterfly`
 replaces `butterfly_pallas` (bodies `_butterfly_kernel_16`,
 `_butterfly_kernel_16_vec`, `csrc/fr.cu`).  `pow_fixed` (Fp, `csrc/mont.cu`)
 and `pow_fixed_fr` (Fr, `csrc/fr.cu`) are `montgomery.cuh`'s
@@ -23,7 +24,13 @@ products, then 4 squares and a product per 4-bit digit) in one launch, so
 does the same for the JAX package's `tower.fp2_pow` (tower.py:287, a scan
 over the exponent's bits of fp2_sqr, fp2_mul and a select, whose Fp products
 are `sop_pallas` launches): the Fp2 square roots' powers, one launch each,
-on the same digit schedule with two threads per lane.
+on the same digit schedule with two threads per lane.  `sqr_wide`
+squares inside the power kernels only: `sqr`'s own kernel is
+`mont_sqr.cuh`'s (one thread a lane, its additions in the hardware carry
+flag: the off-diagonal products in two carry chains by column parity,
+doubled by funnel shifts, the diagonal, then a Montgomery reduction in
+carry chains and one conditional subtraction; SQR_THREADS threads a block,
+SQR_LANES_PER_THREAD lanes a thread; its note gives the bound).
 
 Design.  The 16-bit limbs of each operand are packed into 32-bit words in
 registers (12 for Fp, 8 for Fr), a group's products are summed into a
@@ -138,6 +145,8 @@ POW_LANES = 128           # lanes (threads) per block of the pow kernel
                           # (montgomery.cuh's kPowLanes)
 FP2_POW_LANES = 64        # lanes per block of fp2_pow_fixed, two threads
                           # each (fp2_pow.cuh's kLanes)
+SQR_THREADS = 128         # threads per block of sqr (mont_sqr.cuh kThreads)
+SQR_LANES_PER_THREAD = 1  # squares per thread (kLanesPerThread)
 
 _POW_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_int, ctypes.c_void_p)

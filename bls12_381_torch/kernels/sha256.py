@@ -15,11 +15,22 @@ one launch each in `LAUNCHES.sha256` / `LAUNCHES.xmd_sha256`; on a CPU
 tensor they run `sha256_plain` / `expand_message_xmd_sha256_plain` and
 count nothing.  A uint8 tensor that is not 2-D, another dtype, another
 device, or a non-contiguous CUDA tensor raises ValueError; a failed build
-or launch raises, and nothing falls back.  `xmd_params` packs what the
-XMD kernel takes by value: DST' (after the host's reduction of an
-oversize DST), ell, and the state after the Z_pad block, which is the
-same for every message (the plain compression of 64 zero bytes).
-`xmd_ell` holds draft-16's bounds for both paths.
+or launch raises, and nothing falls back.
+
+`xmd_params` packs what the XMD kernel takes by value, everything that is
+the same for every lane of a call, as big-endian words: the state after
+the Z_pad block (the plain compression of 64 zero bytes), b0's input after
+the message (I2OSP(len_in_bytes, 2) || 0 || DST' || padding, laid out from
+the message's last whole word, the message's bytes in it zero), b_i's
+input after its first 32 bytes (I2OSP(i, 1) || DST' || padding, the byte of
+i zero), the terms of b_i's first block that depend only on those words,
+and the widths of the kernel's message loads and output stores
+(`io_width`: 16, 4 or 1 bytes, from the tensors' addresses and row
+lengths; the kernel instance follows the load width).  DST' is DST ||
+I2OSP(len(DST), 1) after the host's reduction of an oversize DST; its 256
+bytes at most put b0's words at XMD_B0_TAIL_WORDS and b_i's at
+XMD_BI_TAIL_WORDS, 756 bytes of parameters in all (the cap is stated in
+the .cu too).  `xmd_ell` holds draft-16's bounds for both paths.
 
 The plain versions: PyTorch on the CPU has no add, shift or compare for
 uint32, so a word is an int64 tensor holding a value below 2^32, masked
@@ -44,7 +55,6 @@ from . import LAUNCHES, build
 from .mont import check_launch, device_kind
 
 M32 = 0xFFFFFFFF
-MAX_DST_PRIME = 256  # a DST of at most 255 bytes and its length byte
 
 _K = (
     0x428A2F98, 0x71374491, 0xB5C0FBCF, 0xE9B5DBA5, 0x3956C25B, 0x59F111F1,
@@ -63,9 +73,14 @@ _K = (
 _H0 = (0x6A09E667, 0xBB67AE85, 0x3C6EF372, 0xA54FF53A,
        0x510E527F, 0x9B05688C, 0x1F83D9AB, 0x5BE0CD19)
 
-# csrc/sha256.cu's XmdParams: midstate, msg_len, len_in_bytes, ell,
-# len(DST'), DST' (zero-padded)
-_XMD_PARAMS = struct.Struct(f"<8I4I{MAX_DST_PRIME}s")
+# csrc/sha256.cu's XmdParams (756 bytes): midstate; msg_len, len_in_bytes,
+# ell, len(DST'), b0's and b_i's blocks, the load and store widths; b0's
+# and b_i's parameter words (zero-padded to these caps: at most 332 and 288
+# bytes), b_i's first block's K + W of rounds 8-15 and its 9 schedule terms
+XMD_B0_TAIL_WORDS = 84
+XMD_BI_TAIL_WORDS = 72
+_XMD_PARAMS = struct.Struct(
+    f"<16I{XMD_B0_TAIL_WORDS}I{XMD_BI_TAIL_WORDS}I8I9I")
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
@@ -237,15 +252,58 @@ def zpad_midstate() -> tuple:
     return tuple(int(w) for w in _compress(state, [zero] * 16))
 
 
-def xmd_params(dst: bytes, len_in_bytes: int, msg_len: int) -> bytes:
-    """csrc/sha256.cu's XmdParams for one call, packed: the Z_pad
-    midstate, msg_len, len_in_bytes, ell, len(DST') and DST' = DST ||
-    I2OSP(len(DST), 1), the DST reduced first (`xmd_ell` raises on the
-    bounds)."""
+def _be_words(data: bytes) -> list:
+    return list(struct.unpack(f">{len(data) // 4}I", data))
+
+
+def _sigma0(x: int) -> int:
+    return (((x >> 7) | (x << 25)) ^ ((x >> 18) | (x << 14)) ^ (x >> 3)) & M32
+
+
+def _sigma1(x: int) -> int:
+    return (((x >> 17) | (x << 15)) ^ ((x >> 19) | (x << 13))
+            ^ (x >> 10)) & M32
+
+
+def io_width(ptr: int, row_bytes: int) -> int:
+    """The widest access, 16, 4 or 1 bytes, at which every row of a uint8
+    [B, row_bytes] tensor at address ptr starts aligned: the width divides
+    both."""
+    return next(w for w in (16, 4, 1) if ptr % w == 0 and row_bytes % w == 0)
+
+
+@functools.lru_cache(maxsize=256)
+def xmd_params(dst: bytes, len_in_bytes: int, msg_len: int, load: int = 1,
+               store: int = 1) -> bytes:
+    """csrc/sha256.cu's XmdParams for one call, packed (see the module
+    note): the Z_pad midstate, msg_len, len_in_bytes, ell, len(DST'),
+    b0's blocks after Z_pad and b_i's blocks, the message load and output
+    store widths (`io_width`), b0's and b_i's parameter words, and b_i's
+    first block's K[t] + W[t], t = 8..15, and schedule terms W16 -
+    sigma0(W1) - W0, W17 - sigma0(W2) - W1 and sigma0(W[u-15]) + W[u-16],
+    u = 24..30 (W[8] without i).  The DST is reduced first; `xmd_ell`
+    raises on the bounds.  Cached: a call's parameters depend on these
+    arguments alone."""
     ell = xmd_ell(len_in_bytes)
     dst = reduce_dst(dst)
-    return _XMD_PARAMS.pack(*zpad_midstate(), msg_len, len_in_bytes, ell,
-                            len(dst) + 1, dst + bytes([len(dst)]))
+    dst_prime = dst + bytes([len(dst)])
+    b0_in = 64 + msg_len + 3 + len(dst_prime)  # Z_pad || msg || .. || DST'
+    b0_pad = _pad_suffix(b0_in)
+    b0_tail = _be_words(bytes(msg_len % 4) + len_in_bytes.to_bytes(2, "big")
+                        + b"\0" + dst_prime + b0_pad)
+    bi = bytes(33) + dst_prime + _pad_suffix(33 + len(dst_prime))
+    bi_tail = _be_words(bi[32:])
+    assert len(b0_tail) <= XMD_B0_TAIL_WORDS
+    assert len(bi_tail) <= XMD_BI_TAIL_WORDS
+    w = _be_words(bi[:64])
+    kw = [(_K[t] + w[t]) & M32 for t in range(8, 16)]
+    sched = [(_sigma1(w[14]) + w[9]) & M32, (_sigma1(w[15]) + w[10]) & M32]
+    sched += [(_sigma0(w[u - 15]) + w[u - 16]) & M32 for u in range(24, 31)]
+    return _XMD_PARAMS.pack(
+        *zpad_midstate(), msg_len, len_in_bytes, ell, len(dst_prime),
+        (b0_in + len(b0_pad)) // 64 - 1, len(bi) // 64, load, store,
+        *b0_tail, *[0] * (XMD_B0_TAIL_WORDS - len(b0_tail)),
+        *bi_tail, *[0] * (XMD_BI_TAIL_WORDS - len(bi_tail)), *kw, *sched)
 
 
 def sha256(data: torch.Tensor) -> torch.Tensor:
@@ -272,17 +330,21 @@ def expand_message_xmd_sha256(msgs, dst: bytes, len_in_bytes: int,
     messages [B, msg_len] uint8 (see `as_messages`) -> uint8
     [B, len_in_bytes].  A DST over 255 bytes is first reduced on the host
     (§5.3.3, expand_msg.rs:19-105).  One `xmd_sha256_kernel` launch on a
-    CUDA tensor."""
+    CUDA tensor: the instance whose message loads are `io_width` of the
+    rows (16 bytes for 16-byte aligned rows of a multiple of 16 bytes)."""
     msgs = as_messages(msgs, device)
     kind = byte_rows_device(msgs, "expand_message_xmd_sha256")
     if kind == "cpu":
         return expand_message_xmd_sha256_plain(msgs, dst, len_in_bytes)
     bsz, msg_len = msgs.shape
-    params = xmd_params(dst, len_in_bytes, msg_len)
+    xmd_ell(len_in_bytes)
     out = torch.empty((bsz, len_in_bytes), dtype=torch.uint8,
                       device=msgs.device)
     if bsz == 0 or len_in_bytes == 0:
         return out
+    params = xmd_params(bytes(dst), len_in_bytes, msg_len,
+                        io_width(msgs.data_ptr(), msg_len),
+                        io_width(out.data_ptr(), len_in_bytes))
     with torch.cuda.device(msgs.device):
         rc = _lib().bls_expand_xmd_sha256(
             msgs.data_ptr(), out.data_ptr(), params, bsz,

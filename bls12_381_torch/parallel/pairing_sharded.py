@@ -39,18 +39,16 @@ def pairing_sharded(mesh, p_aff, q_aff, aggregate: bool = False,
     """e(P_i, Q_i) for affine batches (xp, yp, inf) and ((x0, x1), (y0, y1),
     inf) over the last axis, the same on every rank, sharded over the mesh.
 
-    aggregate=False: the element-wise pairings [*, B] on every rank.
+    aggregate=False: the element-wise pairings [*, B] on every rank,
+    final-exponentiated whatever final_exp says (as the JAX function).
     aggregate=True: the product of all the pairings with ONE final
     exponentiation (the multi_miller_loop pattern, pairings.rs:554-603,
-    across ranks), batch shape ().  final_exp=False skips the final
-    exponentiation: the raw Miller values (per lane, or their product).
-    The JAX package runs the final exponentiation element-wise whatever
-    final_exp says."""
+    across ranks), batch shape (); final_exp=False skips it and returns
+    the product of the raw Miller values."""
     p, q = mesh_mod.shard_batch(mesh, (p_aff, q_aff))
     f = miller_loop_batched(p, prepare_g2(q))
     if not aggregate:
-        if final_exp:
-            f = final_exponentiation(f)
+        f = final_exponentiation(f)
         return _unpack(f, mesh_mod.gather_batch(_pack(f)))
     f = _tree_product(f)
     for axis in mesh_mod.reduce_axes_inner_first(mesh):

@@ -39,7 +39,12 @@ Phases (each prints its lines and seconds; any failed check exits non-zero):
      sampled lanes) over the Fp2 edge lanes (0, 0), (1, 0), (0, 1),
      (p-1, p-1), (0, p-1), (p-1, 0), (p-1, 1), (1, p-1), (R mod p, 0),
      timed at B = 1, 256, 512, 1024 and 2^16, with its lanes, threads per
-     lane, blocks, shared bytes, registers, spills and both bounds;
+     lane, blocks, shared bytes, registers, spills and both bounds; `sqr`
+     (csrc/mont_sqr.cuh) at G = 1 and 3, B = 1, 33, 1024, 2^16 and 2^20
+     (held on sampled lanes) over the edge lanes 0, 1, p-1, R mod p and
+     R^2 mod p, timed at G = 1 and B = 1024, 2^16, 2^20 (and G = 3 at
+     1024), with its threads, lanes per thread, blocks, parameter bytes,
+     registers, spills and both bounds;
      exact equality (integers: tolerance none); CUDA events around
      back-to-back calls (the host's issue rate for short kernels) and the
      plain version's time (CUDA events; no yardstick).  The rows bound by
@@ -51,9 +56,12 @@ Phases (each prints its lines and seconds; any failed check exits non-zero):
      expand_message_xof) against their plain versions on the card and
      against hashlib / hostmath, byte for byte on every lane: XMD message
      lengths 0 to 200 (b0 over one, two and three blocks), outputs of 32
-     to 8160 bytes (ell = 255), DSTs of 1 to 300 bytes (300 reduced on the
-     host); SHAKE messages of 0, r-1, r, r+1 and 2r bytes to 1, r, r+1 and
-     512 bytes at r = 136 and 168, the XOF at both levels; B = 1, 33, 256
+     to 8160 bytes (ell = 255; 33 and 36 store by bytes and words), DSTs
+     of 1 to 300 bytes (300 reduced on the host), the messages of length
+     a multiple of 4 also from rows 4 and 1 bytes past an aligned start
+     (every message load instance of the XMD kernel runs); SHAKE
+     messages of 0, r-1, r, r+1 and 2r bytes to 1, r, r+1 and 512 bytes
+     at r = 136 and 168, the XOF at both levels; B = 1, 33, 256
      and 2^16; then timed at 256 and 2^16 lanes and at one lane (the
      chain), each beside its bounds by operations and by bytes and the
      plain version's time.
@@ -255,6 +263,12 @@ FP2_POW_TIMED_WIDTHS = (1, 256, 512, 1024, FP2_POW_WIDE)
 FP2_POW_LANE_BYTES = 16 * 2 * 12 * 4  # window table per lane (fp2_pow.cuh)
 FP2_EDGE_LANES = ("0", "0"), ("1", "0"), ("0", "1"), ("p-1", "p-1"), \
     ("0", "p-1"), ("p-1", "0"), ("p-1", "1"), ("1", "p-1"), ("R", "0")
+# sqr (mont_sqr.cuh): one lane, a partial block, the decompression's and
+# h2c's widths, the card full and 2^20 (held on sampled lanes); timed at
+# G = 1 from HBM; 24 bytes of parameters (two pointers, G, B)
+SQR_WIDTHS = (1, 33, 1024, 1 << 16, 1 << 20)
+SQR_TIMED_WIDTHS = (1024, 1 << 16, 1 << 20)
+SQR_PARAM_BYTES = 24
 CODEC_LOG_N = 10                   # bench.py:429-462's decoding rows at 2^10
 CODEC_FORMS = ("compressed", "uncompressed")
 CODEC_REPS = 5
@@ -318,7 +332,8 @@ def sop_imads(T: int, words: int = 12) -> int:
 
 
 def sqr_imads(words: int = 12) -> int:
-    """32-bit multiplies of a square (sqr_wide): the words (words - 1) / 2
+    """32-bit multiplies of a square (montgomery.cuh's sqr_wide and
+    mont_sqr.cuh's sqr_words alike): the words (words - 1) / 2
     off-diagonal and `words` diagonal word products, then the reduction."""
     return 2 * (words * (words + 1) // 2 + words * words) + words
 
@@ -560,7 +575,14 @@ def phase_build():
              "pow_fixed": ptxas_usage("mont", "pow_kernel", "6FpElem"),
              "pow_fixed_fr": ptxas_usage("fr", "pow_kernel", "6FpElem"),
              "fp2_pow_fixed": ptxas_usage("mont", "fp2_pow_kernel"),
-             "xmd_sha256": ptxas_usage("sha256", "17xmd_sha256_kernel"),
+             "sqr": ptxas_usage("mont", "7montsqr10sqr_kernel"),
+             # the XMD's instances by message load width; the main path's
+             # 32-byte rows take 16
+             "xmd_sha256": ptxas_usage("sha256", "17xmd_sha256_kernelILi16E"),
+             "xmd_sha256 load4": ptxas_usage("sha256",
+                                             "17xmd_sha256_kernelILi4E"),
+             "xmd_sha256 load1": ptxas_usage("sha256",
+                                             "17xmd_sha256_kernelILi1E"),
              "sha256": ptxas_usage("sha256", "13sha256_kernel"),
              "shake": ptxas_usage("keccak", "12shake_kernel")}
     for suffix, stem in (("", "mont"), ("_fr", "fr")):
@@ -843,7 +865,7 @@ HASH_WIDTHS = (1, 33, 256, 1 << 16)
 HASH_TIMED_WIDTHS = (256, 1 << 16)  # hash to curve's rows; the card full
 HASH_DST = b"BENCH-DST_"            # entry.H2C_DST
 XMD_MSG_LENS = (0, 1, 32, 55, 56, 63, 64, 119, 120, 200)
-XMD_OUT_LENS = (32, 48, 64, 128, 256, 8160)
+XMD_OUT_LENS = (32, 33, 36, 48, 64, 128, 256, 8160)  # 33, 36: stores of 1, 4
 XMD_DST_LENS = (1, 10, 43, 255, 300)
 SHAKE_RATES = (136, 168)
 
@@ -947,6 +969,52 @@ def fp2_pow_rows(chk, usage, gen, device) -> None:
     del a0, a1, w0, w1, pick
 
 
+def sqr_rows(chk, usage, gen, device, edges) -> None:
+    """Phase kernels' rows of `sqr` into `chk` (KernelChecks; `usage`:
+    ptxas registers and spill bytes by kernel; `edges`: the limb columns
+    of 0, 1 and p-1): G = 1 and 3 at SQR_WIDTHS, lanes 0..4 the edges 0,
+    1, p-1, R mod p, R^2 mod p where B > 5, the widest held on sampled
+    lanes; timed at G = 1 and SQR_TIMED_WIDTHS and at G = 3 and the batch,
+    each launch over rotating operand copies (from HBM)."""
+    from bls12_381_torch import params
+    from bls12_381_torch.kernels import mont
+
+    P = params.P
+    sqr_edges = edges + [edge_col(v, device) for v in (
+        (1 << 384) % P, (1 << 768) % P)]
+    regs, spills = usage["sqr"]
+    per_block = mont.SQR_THREADS * mont.SQR_LANES_PER_THREAD
+    for G in (1, 3):
+        for B in SQR_WIDTHS:
+            a = rand_fp((G, B), gen, device).transpose(0, 1).contiguous()
+            if B > len(sqr_edges):
+                for lane, col in enumerate(sqr_edges):
+                    a[:, :, lane] = col
+            timed = (G, B) == (3, BATCH) or G == 1 and B in SQR_TIMED_WIDTHS
+            call, copies = rotating(mont.sqr, a) if timed else (
+                lambda a=a: mont.sqr(a), 1)
+            extra = {}
+            if B == SQR_WIDTHS[-1]:
+                lanes = sample_lanes(B, gen, device)
+                plain, n_plain = (lambda a=a, i=lanes: mont.sqr_plain(
+                    a.index_select(-1, i))), 0
+                extra = {"pick": lanes, "sampled_lanes": len(lanes)}
+            else:
+                plain = lambda a=a: mont.sqr_plain(a)  # noqa: E731
+                n_plain = (5 if B <= BATCH else 1) if timed else 0
+            n_bytes, n_imads = 4 * G * B * 24 * 2, G * B * sqr_imads()
+            chk.hold(f"sqr G={G} B={B}", call, plain, "sqr",
+                     (200 if B <= BATCH else 20) if timed else 2, n_plain,
+                     n_bytes, n_imads, operand_copies=copies,
+                     threads=mont.SQR_THREADS,
+                     lanes_per_thread=mont.SQR_LANES_PER_THREAD,
+                     blocks=-(-G * B // per_block),
+                     param_bytes=SQR_PARAM_BYTES, registers=regs,
+                     spill_bytes=spills, bytes_ms=bound(n_bytes, 0)[0],
+                     ops_ms=bound(0, n_imads)[0], **extra)
+            del a, call
+
+
 def phase_kernels(device, usage):
     """Each kernel against its plain version at the main paths' shapes
     (`usage`: ptxas registers and spill bytes by kernel, printed with the
@@ -1039,16 +1107,8 @@ def phase_kernels(device, usage):
                      operand_copies=copies, **rows_launch(c, n_sm, usage),
                      **extra)
 
-    # --- sqr: G in {1, 3}, B = 1024
-    for G in (1, 3):
-        a = rand_fp((G, BATCH), gen, device).transpose(0, 1).contiguous()
-        for lane, col in enumerate(edges):
-            a[:, :, lane] = col
-        call, copies = rotating(mont.sqr, a)
-        chk.hold(f"sqr G={G} B={BATCH}", call,
-                 lambda a=a: mont.sqr_plain(a), "sqr", 200, 5,
-                 4 * G * BATCH * 24 * 2, G * BATCH * sqr_imads(),
-                 operand_copies=copies)
+    # --- sqr (mont_sqr.cuh)
+    sqr_rows(chk, usage, gen, device, edges)
 
     # --- plan_exec: every plan at one lane, a ragged last tile and the
     # pairing's batch; the group-law plans also at the MSM's widths: add at
@@ -1387,26 +1447,61 @@ def phase_hashes(device, usage, results, timed) -> None:
 
     def check(label, kernel, plain, host, at_big):
         """kernel(B) at each width against plain(widest)'s first lanes and
-        host(i) on every lane; at_big: 2^16 as well."""
+        host(i) on every lane; at_big: 2^16 as well.  Returns the narrow
+        widths' reference."""
         for widths in [narrow] + ([[big]] if at_big else []):
             ref = plain(max(widths)).cpu().numpy()
             for B in widths:
-                got = kernel(B).cpu().numpy()
-                bad = int((got != ref[:B]).any(1).sum())
-                bad += sum(bytes(got[i]) != host(i) for i in range(B))
-                checked[label.split()[0]] += B
-                if bad:
-                    failures.append(f"{label} B={B}: {bad} lanes")
+                hold(f"{label} B={B}", kernel(B), ref, host, B)
+            if widths is narrow:
+                narrow_ref = ref
+        return narrow_ref
+
+    def hold(label, got, ref, host, B):
+        got = got.cpu().numpy()
+        bad = int((got != ref[:B]).any(1).sum())
+        bad += sum(bytes(got[i]) != host(i) for i in range(B))
+        checked[label.split()[0]] += B
+        if bad:
+            failures.append(f"{label}: {bad} lanes")
+
+    def shifted(t, off: int):
+        """t's rows copied into a buffer at `off` bytes past its start (a
+        256-byte boundary), so that no row starts 16-byte aligned."""
+        B, n = t.shape
+        view = torch.empty(B * n + off, dtype=torch.uint8,
+                           device=t.device)[off:].view(B, n)
+        view.copy_(t)
+        return view
+
+    # the XMD kernel's instances by message load width and its output
+    # stores, over the calls held here: each must run
+    io = collections.Counter()
 
     for m_len, n, d in xmd_cases():
         t, m = messages(m_len)
         dst = dsts[d]
-        check(f"xmd_sha256 msg={m_len} out={n} dst={d}",
-              lambda B: sha256.expand_message_xmd_sha256(t[:B], dst, n),
-              lambda B: sha256.expand_message_xmd_sha256_plain(t[:B], dst,
-                                                               n),
-              lambda i: hm.expand_message_xmd(bytes(m[i]), dst, n),
-              m_len == 32 and n <= 256)
+        label = f"xmd_sha256 msg={m_len} out={n} dst={d}"
+        ref = check(label,
+                    lambda B: sha256.expand_message_xmd_sha256(t[:B], dst, n),
+                    lambda B: sha256.expand_message_xmd_sha256_plain(
+                        t[:B], dst, n),
+                    lambda i: hm.expand_message_xmd(bytes(m[i]), dst, n),
+                    m_len == 32 and n <= 256)
+        io[("load", sha256.io_width(t.data_ptr(), m_len))] += 1
+        io[("store", sha256.io_width(0, n))] += 1
+        # the same rows at 4 and 1 bytes past an aligned start: the
+        # 4-byte and the byte load instances
+        for off in (4, 1) if m_len % 4 == 0 else ():
+            for B in narrow:
+                x = shifted(t[:B], off)
+                io[("load", sha256.io_width(x.data_ptr(), m_len))] += 1
+                hold(f"{label} view+{off} B={B}",
+                     sha256.expand_message_xmd_sha256(x, dst, n), ref,
+                     lambda i: hm.expand_message_xmd(bytes(m[i]), dst, n), B)
+    missing = {(k, w) for k in ("load", "store") for w in (16, 4, 1)} - set(io)
+    if missing:
+        failures.append(f"xmd_sha256 I/O widths never run: {sorted(missing)}")
     for m_len in XMD_MSG_LENS:
         t, m = messages(m_len)
         check(f"sha256 msg={m_len}", lambda B: sha256.sha256(t[:B]),
@@ -1434,6 +1529,7 @@ def phase_hashes(device, usage, results, timed) -> None:
                           bytes(m[i]), dst, n, hash_name=name),
                       (d, n) == (len(HASH_DST), 256))
     say("hashes", lanes_checked=dict(checked), xmd_cases=len(xmd_cases()),
+        xmd_io_widths={f"{k}{w}": c for (k, w), c in sorted(io.items())},
         shake_cases=len(shake_cases()), mismatches=failures,
         seconds=time.perf_counter() - t_phase)
     if failures:
@@ -1448,14 +1544,22 @@ def phase_hashes(device, usage, results, timed) -> None:
         x = t[:B]
         n_plain = 1 if B < big else 0
         launch = {"threads": 128, "blocks": -(-B // 128)}
+        n_bytes, n_ops = xmd_work(B, 32, 256, d10)
         chk.hold(f"xmd_sha256 msg=32 out=256 dst={d10} B={B}",
                  lambda x=x: sha256.expand_message_xmd_sha256(
                      x, HASH_DST, 256).T,
                  lambda x=x: sha256.expand_message_xmd_sha256_plain(
                      x, HASH_DST, 256).T,
-                 "xmd_sha256", 20, n_plain, *xmd_work(B, 32, 256, d10),
+                 "xmd_sha256", 20, n_plain, n_bytes, n_ops,
                  registers=usage["xmd_sha256"][0],
-                 spill_bytes=usage["xmd_sha256"][1], **launch)
+                 spill_bytes=usage["xmd_sha256"][1],
+                 load=sha256.io_width(x.data_ptr(), 32),
+                 store=sha256.io_width(0, 256),
+                 param_bytes=len(sha256.xmd_params(HASH_DST, 256, 32)),
+                 instance_registers={k: usage[k] for k in usage
+                                     if k.startswith("xmd_sha256")},
+                 bytes_ms=bound(n_bytes, 0)[0], ops_ms=bound(0, n_ops)[0],
+                 **launch)
         chk.hold(f"sha256 msg=32 B={B}", lambda x=x: sha256.sha256(x).T,
                  lambda x=x: sha256.sha256_plain(x).T, "sha256", 20,
                  n_plain, B * (32 + 32),
@@ -4169,10 +4273,20 @@ def main() -> None:
               **beside("msm_g1", MSM_SOPS), **smul_beside("sop"),
               **beside("msm_large", f"sop T=1 B={MSM_LARGE_SOP_WIDTH}"),
               **beside("stacked", f"sop T=2 B={BATCH}")),
-        entry("sqr", src + "mont.cu", f"{pallas}:711", counts["sqr"],
-              f"sqr G=1 B={BATCH}",
-              note="fp.sqr of the G1 decompression and the G1 SSWU map; "
-                   "its body (sqr_wide) runs inside pow_fixed"),
+        # launches per round trip (the G1 decompression's two; the G1 h2c
+        # rows' seven are launches_<row>); ms per launch at 1024 lanes, the
+        # wider timed rows beside it
+        entry("sqr", src + "mont_sqr.cuh", f"{pallas}:711",
+              bls_counts["sqr"], f"sqr G=1 B={BATCH}",
+              note="fp.sqr of the G1 decompression and the G1 SSWU map "
+                   "(built into csrc/mont.cu)",
+              **{k: v for k, v in results[f"sqr G=1 B={BATCH}"].items()
+                 if k in ("threads", "lanes_per_thread", "blocks",
+                          "param_bytes", "registers", "spill_bytes",
+                          "bytes_ms", "ops_ms")},
+              **{k: v for B in SQR_TIMED_WIDTHS if B != BATCH
+                 for k, v in beside(f"b{B}", f"sqr G=1 B={B}").items()},
+              **beside("g3", f"sqr G=3 B={BATCH}")),
         # the JAX chain of sqr_pallas / sop_pallas launches in one launch
         entry("pow_fixed", src + "mont.cu", f"{pallas}:711",
               counts["pow_fixed"], f"pow_fixed p-2 B={BATCH}",
@@ -4264,6 +4378,9 @@ def main() -> None:
             threads=results[small]["threads"],
             blocks=results[small]["blocks"],
             registers=usage[name][0], spill_bytes=usage[name][1],
+            **{k: v for k, v in results[small].items() if k in (
+                "load", "store", "param_bytes", "instance_registers",
+                "bytes_ms", "ops_ms")},
             **beside(f"b{HASH_TIMED_WIDTHS[1]}", full)))
     say("phase", name="total", seconds=time.perf_counter() - t_all)
     print(json.dumps({"kernels": kernels}), flush=True)

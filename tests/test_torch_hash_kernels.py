@@ -93,12 +93,106 @@ def test_phase_hashes_times_the_h2c_rows_dst():
     assert DST == entry.H2C_DST
 
 
+XMD_LAYOUT = "<16I84I72I8I9I"  # csrc/sha256.cu XmdParams, 756 bytes
+
+
+# --- a word-level model of csrc/sha256.cu's xmd_sha256_kernel ---------------
+
+M32 = sha256.M32
+
+
+def rotr(x: int, n: int) -> int:
+    return ((x >> n) | (x << (32 - n))) & M32
+
+
+def small_sigma(x: int, which: int) -> int:
+    """sigma0 (which 0) or sigma1 (which 1) of FIPS 180-4."""
+    if which == 0:
+        return rotr(x, 7) ^ rotr(x, 18) ^ (x >> 3)
+    return rotr(x, 17) ^ rotr(x, 19) ^ (x >> 10)
+
+
+def compress_words(st, w, first=None):
+    """The kernel's compress_xmd on Python ints: round t's K[t] + W[t] and
+    schedule word W[u] as `k_plus_w` and `schedule` form them; first =
+    (kw, sched, i8) for b_i's first block (the host's terms)."""
+    w = list(w)
+    for u in range(16, 64):
+        if first and u in (16, 17):
+            v = first[1][u - 16] + small_sigma(w[u - 15], 0) + w[u - 16]
+        elif first and u == 24:
+            v = small_sigma(w[u - 2], 1) + w[u - 7] + first[1][2] + first[2]
+        elif first and 25 <= u <= 30:
+            v = small_sigma(w[u - 2], 1) + w[u - 7] + first[1][u - 22]
+        else:
+            v = (small_sigma(w[u - 2], 1) + w[u - 7]
+                 + small_sigma(w[u - 15], 0) + w[u - 16])
+        w.append(v & M32)
+    a, b, c, d, e, f, g, h = st
+    for t in range(64):
+        if first and 8 <= t < 16:
+            kw = first[0][t - 8] + (first[2] if t == 8 else 0)
+        else:
+            kw = sha256._K[t] + w[t]
+        s1 = rotr(e, 6) ^ rotr(e, 11) ^ rotr(e, 25)
+        ch = (e & f) ^ (~e & g)
+        s0 = rotr(a, 2) ^ rotr(a, 13) ^ rotr(a, 22)
+        maj = (a & b) ^ (a & c) ^ (b & c)
+        t1 = h + kw + s1 + ch
+        h, g, f, e, d, c, b, a = (g, f, e, (d + t1) & M32, c, b, a,
+                                  (t1 + s0 + maj) & M32)
+    return [(x + y) & M32 for x, y in zip(st, (a, b, c, d, e, f, g, h))]
+
+
+def xmd_word_model(params: bytes, msgs) -> list:
+    """expand_message_xmd of each row of msgs (uint8 [B, msg_len]) from
+    the packed XmdParams alone, word by word as the kernel builds its
+    blocks (the instance of the packed load width)."""
+    f = struct.unpack(XMD_LAYOUT, params)
+    midstate, (msg_len, out_len, ell, _, b0_blocks, bi_blocks, load,
+               _) = f[:8], f[8:16]
+    b0_tail, bi_tail = f[16:100], f[100:172]
+    first = (f[172:180], f[180:189])
+    whole = msg_len // 4
+    out = []
+    for row in msgs:
+        row = bytes(row)
+        b0 = list(midstate)
+        for blk in range(b0_blocks):
+            base = 16 * blk
+            w = [b0_tail[base + j - whole] if base + j >= whole else 0
+                 for j in range(16)]
+            for j in range(16):
+                k = base + j
+                if k < whole:
+                    w[j] |= int.from_bytes(row[4 * k:4 * k + 4], "big")
+                elif k == whole and msg_len % 4:
+                    assert load == 1
+                    w[j] |= int.from_bytes(row[4 * k:].ljust(4, b"\0"),
+                                           "big")
+            b0 = compress_words(b0, w)
+        b, okm = [0] * 8, b""
+        for i in range(1, ell + 1):
+            w = [x ^ y for x, y in zip(b0, b)] + list(bi_tail[:8])
+            w[8] |= i << 24
+            b = compress_words(list(sha256._H0), w, first + (i << 24,))
+            for blk in range(1, bi_blocks):
+                b = compress_words(b, bi_tail[16 * blk - 8:16 * blk + 8])
+            okm += struct.pack(">8I", *b)
+        out.append(okm[:out_len])
+    return out
+
+
+
+
 def xmd_fields(dst: bytes, len_in_bytes: int, msg_len: int):
     """`sha256.xmd_params` unpacked: (midstate, msg_len, len_in_bytes, ell,
-    len(DST'), DST' as packed)."""
-    f = struct.unpack("<8I4I256s", sha256.xmd_params(dst, len_in_bytes,
-                                                     msg_len))
-    return (f[:8],) + f[8:]
+    len(DST'), DST' as packed: bytes 1.. of b_i's parameter words)."""
+    f = struct.unpack(XMD_LAYOUT, sha256.xmd_params(dst, len_in_bytes,
+                                                    msg_len))
+    n = f[11]
+    bi_tail = struct.pack(">72I", *f[100:172])
+    return (f[:8],) + f[8:12] + (bi_tail[1:1 + n],)
 
 
 def test_xmd_params_midstate_is_the_compression_of_zpad():
@@ -134,14 +228,57 @@ def test_xmd_params_reduce_an_oversize_dst_as_hostmath_does():
 
 
 def test_xmd_params_pack_layout():
-    """csrc/sha256.cu's XmdParams: 8 midstate words, msg_len,
-    len_in_bytes, ell, len(DST'), DST' zero-padded to 256 bytes."""
-    blob = sha256.xmd_params(DST, 200, 7)
-    assert len(blob) == 304
-    fields = struct.unpack("<8I4I256s", blob)
-    assert fields[:8] == sha256.zpad_midstate()
-    assert fields[8:12] == (7, 200, 7, len(DST) + 1)
-    assert fields[12] == (DST + bytes([len(DST)])).ljust(256, b"\0")
+    """csrc/sha256.cu's XmdParams: 8 midstate words; msg_len, len_in_bytes,
+    ell, len(DST'), b0's blocks after Z_pad, b_i's blocks, the load and
+    store widths; b0's input words after Z_pad from the message's last
+    whole word on (84, the message's bytes zero), b_i's from its word 8 on
+    (72, the byte of i zero), big-endian and zero-padded; K[t] + W[t] of
+    b_i's first block for t = 8..15 and its schedule terms (W[8] without
+    i)."""
+    blob = sha256.xmd_params(DST, 200, 7, 4, 16)
+    assert len(blob) == struct.calcsize(XMD_LAYOUT) == 756
+    f = struct.unpack(XMD_LAYOUT, blob)
+    dst_prime = DST + bytes([len(DST)])
+    # b0: 64 + 7 + 3 + 11 = 85 bytes, one block after Z_pad; b_i: 33 + 11
+    assert f[:8] == sha256.zpad_midstate()
+    assert f[8:16] == (7, 200, 7, len(dst_prime), 1, 1, 4, 16)
+    b0 = (bytes(3) + (200).to_bytes(2, "big") + b"\0" + dst_prime + b"\x80"
+          + bytes(34) + (85 * 8).to_bytes(8, "big"))     # data bytes 4..63
+    assert struct.pack(">84I", *f[16:100]) == b0.ljust(336, b"\0")
+    bi = (b"\0" + dst_prime + b"\x80" + bytes(11)
+          + (44 * 8).to_bytes(8, "big"))                 # bytes 32..63
+    assert struct.pack(">72I", *f[100:172]) == bi.ljust(288, b"\0")
+    w = [0] * 8 + list(struct.unpack(">8I", bi))
+    assert list(f[172:180]) == [(sha256._K[t] + w[t]) & sha256.M32
+                                for t in range(8, 16)]
+    sched = [small_sigma(w[14], 1) + w[9], small_sigma(w[15], 1) + w[10]]
+    sched += [small_sigma(w[u - 15], 0) + w[u - 16] for u in range(24, 31)]
+    assert list(f[180:189]) == [v & M32 for v in sched]
+
+
+def test_io_width():
+    """The load and store widths: the widest of 16, 4, 1 dividing both the
+    address and the row length."""
+    assert [sha256.io_width(a, n) for a, n in (
+        (256, 32), (256, 0), (260, 32), (257, 32), (256, 36), (256, 55))] == [
+        16, 16, 4, 1, 4, 1]
+
+
+@pytest.mark.parametrize("msg_len,out_len,dst_len", chip_smoke.xmd_cases())
+def test_xmd_word_model_matches_hashlib(msg_len, out_len, dst_len):
+    """From the packed words alone, the kernel's word-level assembly (b0's
+    blocks: parameter words at a uniform index, message words OR-ed in at
+    every load width the length admits, the boundary word of a length not a
+    multiple of 4 from its bytes; b_i's first block: b0 ^ b_(i-1), the
+    parameter words with i << 24 OR-ed into word 8, the host's K + W and
+    schedule terms; its other blocks: parameter words) gives hashlib's
+    expand_message_xmd on every lane."""
+    m, dst = messages(msg_len), dst_of(dst_len)
+    want = [hm.expand_message_xmd(bytes(r), dst, out_len) for r in m]
+    for load in (16, 4, 1):
+        if msg_len % load == 0:
+            params = sha256.xmd_params(dst, out_len, msg_len, load, 1)
+            assert xmd_word_model(params, m) == want, load
 
 
 @pytest.mark.parametrize("out_len", [8161, 65536, -1])

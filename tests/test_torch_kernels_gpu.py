@@ -59,12 +59,35 @@ def test_sop_kernel_matches_plain(cuda, T):
     assert torch.equal(got.cpu(), mont.sop_plain(a.cpu(), b.cpu()))
 
 
+SQR_EDGES = ((1 << 384) % P, (1 << 768) % P)  # R and R^2 mod p
+
+
+@pytest.mark.parametrize("B", [1, 33, 257, 1024, 1 << 16])
 @pytest.mark.parametrize("G", [1, 3])
-def test_sqr_kernel_matches_plain(cuda, G):
-    a = rand_limbs(G, 257, cuda, seed=7 + G)
+def test_sqr_kernel_matches_plain(cuda, G, B):
+    """mont_sqr.cuh's kernel at chip_smoke.SQR_WIDTHS' narrower widths;
+    lanes 0..4 the edges 0, 1, p-1, R mod p, R^2 mod p (B > 5; else
+    random lanes)."""
+    a = rand_limbs(G, B + 8, cuda, seed=7 + G + B)
+    for lane, v in enumerate(SQR_EDGES, start=len(EDGES)):
+        a[:, :, lane] = torch.tensor(params.to_limbs(v, 24))
+    a = (a[..., :B] if B > 5 else a[..., -B:]).contiguous()
+    LAUNCHES.reset()
     got = mont.sqr(a)
     torch.cuda.synchronize()
+    assert LAUNCHES.sqr == 1
     assert torch.equal(got.cpu(), mont.sqr_plain(a.cpu()))
+
+
+@pytest.mark.parametrize("G", [1, 3])
+def test_sqr_kernel_at_2_20_matches_plain_on_sampled_lanes(cuda, G):
+    B = 1 << 20
+    a = rand_limbs(G, B, cuda, seed=11 + G)
+    lanes = torch.cat([torch.arange(512), torch.randint(0, B, (512,)),
+                       torch.arange(B - 512, B)]).to(cuda)
+    got = mont.sqr(a).index_select(-1, lanes)
+    torch.cuda.synchronize()
+    assert torch.equal(got, mont.sqr_plain(a.index_select(-1, lanes)))
 
 
 # plan widths: a single lane, narrow grids of one-lane tiles, a ragged last
@@ -557,6 +580,33 @@ def test_hash_kernel_matches_plain_and_hashlib(cuda, case, B):
     assert torch.equal(got, plain(x))
     assert [bytes(r) for r in got.cpu().numpy()] == [host(bytes(r))
                                                      for r in m]
+
+
+@pytest.mark.parametrize("msg_len,out_len", [(32, 256), (64, 36),
+                                             (55, 33), (0, 48)])
+@pytest.mark.parametrize("off", [0, 4, 1])
+def test_xmd_kernel_reads_unaligned_rows(cuda, off, msg_len, out_len):
+    """Message rows `off` bytes past a 256-byte boundary: the 16-byte,
+    4-byte and byte load instances of xmd_sha256_kernel (as
+    `sha256.io_width` picks them) and the 16-byte, 4-byte and byte
+    stores; kernel = plain version = hashlib on every lane."""
+    B = 33
+    m = np.random.default_rng(off + msg_len).integers(
+        0, 256, (B, msg_len), dtype=np.uint8)
+    x = torch.empty(B * msg_len + off, dtype=torch.uint8,
+                    device=cuda)[off:].view(B, msg_len)
+    x.copy_(torch.from_numpy(m))
+    if msg_len:  # an empty row has no address of its own
+        assert sha256.io_width(x.data_ptr(), msg_len) == next(
+            w for w in (16, 4, 1) if off % w == 0 and msg_len % w == 0)
+    LAUNCHES.reset()
+    got = sha256.expand_message_xmd_sha256(x, b"BENCH-DST_", out_len)
+    torch.cuda.synchronize()
+    assert LAUNCHES.xmd_sha256 == 1
+    assert torch.equal(got, sha256.expand_message_xmd_sha256_plain(
+        x, b"BENCH-DST_", out_len))
+    assert [bytes(r) for r in got.cpu().numpy()] == [
+        hm.expand_message_xmd(bytes(r), b"BENCH-DST_", out_len) for r in m]
 
 
 def test_hash_wrappers_take_no_strided_cuda_tensor(cuda):

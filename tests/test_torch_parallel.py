@@ -338,6 +338,20 @@ def test_replicate_and_gather_at_one_rank(world_of_one):
     assert mesh_mod.rank_device("cpu") == torch.device("cpu")
 
 
+def test_elementwise_pairing_final_exponentiates_whatever_final_exp_says(
+        world_of_one):
+    """aggregate=False returns the final-exponentiated pairings with
+    final_exp=False too, as the JAX `_elem` does (it ignores final_exp):
+    limb for limb the final_exp=True value, at one rank over two lanes, one
+    of them a G1 identity."""
+    mesh = mesh_mod.make_mesh()
+    p, q = chip_smoke.pick_lanes(INPUTS["pairing"], [P_IDENTITY - 1,
+                                                     P_IDENTITY])
+    want = pairing_sharded(mesh, p, q)
+    assert same(pairing_sharded(mesh, p, q, final_exp=False), want)
+    assert same(want, pr.pairing(p, q))
+
+
 SCHEDULE_CASES = [
     ("pairing", PAIRING_B), ("pairing_agg", PAIRING_B),
     ("pairing_agg_fe", PAIRING_B), ("msm_g1", 1 << MSM_LOG_N),
