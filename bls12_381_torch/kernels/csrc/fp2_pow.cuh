@@ -4,8 +4,8 @@
 // Replaces the JAX package's `tower.fp2_pow` (bls12_381_tpu/fields/
 // tower.py:287: a lax.scan over the exponent's bits of an fp2_sqr, an
 // fp2_mul and a select, whose Fp products are sop_pallas launches) with one
-// launch, on the Fp power's 4-bit digit schedule (montgomery.cuh
-// `pow_kernel`): the digits by value in the parameter block, a 16-entry
+// launch, on the Fp power's 4-bit digit schedule (mont_pow.cuh
+// `mont_pow_kernel`): the digits by value in the parameter block, a 16-entry
 // window table per lane in shared memory, the leading zero digits and the
 // products by entry 0 skipped.  Every value is canonical at the store, so
 // the result is the JAX schedule's.

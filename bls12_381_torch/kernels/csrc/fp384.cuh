@@ -28,7 +28,18 @@ struct Field {
   static constexpr int L16 = 24;       // 16-bit limbs at the boundary
   static constexpr int MAX_TERMS = 8;  // R/p ~ 9.84
   static constexpr uint32_t N0 = 0xfffcfffdu;  // -p^-1 mod 2^32
+  // 4p < R: a Montgomery product of two values below 2p is below 2p with no
+  // subtraction (mont_pow.cuh keeps the power's values lazy)
+  static constexpr bool kLazy = true;
   __device__ __forceinline__ static uint32_t p(int j) { return kP[j]; }
+  // word j of p as an immediate, for j known at compile time
+  __device__ __forceinline__ static uint32_t word(int j) {
+    constexpr uint32_t w[W] = {
+        0xffffaaabu, 0xb9feffffu, 0xb153ffffu, 0x1eabfffeu,
+        0xf6b0f624u, 0x6730d2a0u, 0xf38512bfu, 0x64774b84u,
+        0x434bacd7u, 0x4b1ba7b6u, 0x397fe69au, 0x1a0111eau};
+    return w[j];
+  }
   __device__ __forceinline__ static uint32_t one(int j) { return kOne[j]; }
 };
 

@@ -10,10 +10,13 @@
 //                  a, b, w int32 [16, B]; out int32 [2, 16, B]
 //   bls_pow_fixed_fr: out[:, b] = a[:, b]^e R^(1-e) mod q, a int32 [16, B];
 //                  e as n_digits <= 256 host uint8 4-bit digits, most
-//                  significant first (montgomery.cuh's pow_kernel for Fr)
+//                  significant first (mont_pow.cuh's mont_pow_kernel for
+//                  Fr: the Fp power's design, 2 or 1 threads per lane by
+//                  the width, every step canonical)
 //
 // The C functions launch on the given stream and return cudaGetLastError().
 #include "fr256.cuh"
+#include "mont_pow.cuh"
 
 using namespace montgomery;
 using fr256::Field;
@@ -59,7 +62,7 @@ extern "C" int bls_sop_rows_fr(const SopRow* rows, int n_rows,
 extern "C" int bls_pow_fixed_fr(const void* a, void* out,
                                 const uint8_t* digits, int n_digits, int B,
                                 void* stream) {
-  return launch_pow<FpElem<Field>>(&a, &out, digits, n_digits, B, stream);
+  return montpow::launch_pow<Field>(a, out, digits, n_digits, B, stream);
 }
 
 extern "C" int bls_butterfly(const void* a, const void* b, const void* w,

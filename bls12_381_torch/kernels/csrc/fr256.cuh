@@ -28,7 +28,17 @@ struct Field {
   static constexpr int L16 = 16;       // 16-bit limbs at the boundary
   static constexpr int MAX_TERMS = 2;  // T q < R
   static constexpr uint32_t N0 = 0xffffffffu;  // -q^-1 mod 2^32 (q's low word is 1)
+  // 4q > R (q ~ 0.45 R): a product of two values below 2q can reach 2.8q,
+  // so mont_pow.cuh keeps the power's Fr values canonical at every step
+  static constexpr bool kLazy = false;
   __device__ __forceinline__ static uint32_t p(int j) { return kQ[j]; }
+  // word j of q as an immediate, for j known at compile time
+  __device__ __forceinline__ static uint32_t word(int j) {
+    constexpr uint32_t w[W] = {
+        0x00000001u, 0xffffffffu, 0xfffe5bfeu, 0x53bda402u,
+        0x09a1d805u, 0x3339d808u, 0x299d7d48u, 0x73eda753u};
+    return w[j];
+  }
   __device__ __forceinline__ static uint32_t one(int j) { return kOne[j]; }
 };
 

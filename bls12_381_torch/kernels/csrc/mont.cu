@@ -16,8 +16,9 @@
 //   bls_pow_fixed:
 //            out[:, b] = a[:, b]^e R^(1-e) mod p (the Montgomery form of a^e),
 //            a int32 [24, B]; e as n_digits host uint8 4-bit digits, most
-//            significant first, n_digits <= 256 (montgomery.cuh's pow_kernel
-//            for Fp)
+//            significant first, n_digits <= 256 (mont_pow.cuh's
+//            mont_pow_kernel for Fp: 4, 2 or 1 threads per lane by the
+//            width, carry-flag products, values below 2p between steps)
 //   bls_fp2_pow_fixed:
 //            (out0 + out1 u)[:, b] = (a0 + a1 u)[:, b]^e in Fp2 = Fp[u]/(u^2+1),
 //            Montgomery form, a0, a1, out0, out1 int32 [24, B]; e as for
@@ -27,6 +28,7 @@
 // The C functions launch on the given stream and return cudaGetLastError().
 #include "fp2_pow.cuh"
 #include "fp384.cuh"
+#include "mont_pow.cuh"
 #include "mont_sqr.cuh"
 
 using namespace montgomery;
@@ -51,7 +53,7 @@ extern "C" int bls_sqr(const void* a, void* out, int G, int B, void* stream) {
 
 extern "C" int bls_pow_fixed(const void* a, void* out, const uint8_t* digits,
                              int n_digits, int B, void* stream) {
-  return launch_pow<FpElem<Field>>(&a, &out, digits, n_digits, B, stream);
+  return montpow::launch_pow<Field>(a, out, digits, n_digits, B, stream);
 }
 
 extern "C" int bls_fp2_pow_fixed(const void* a0, const void* a1, void* out0,

@@ -17,7 +17,8 @@
 // ms, the multiplies at the card's 32-bit rate 0.029 ms).
 //
 // The design.  One thread squares one lane with its additions riding the
-// hardware carry flag (carry_chain.cuh):
+// hardware carry flag (carry_chain.cuh `sqr_words_of`, the square of the Fp
+// and Fr power's single-thread shape too):
 // 1. The off-diagonal products a_i a_j, i < j, row by row: the products
 //    with j - i odd fill disjoint word pairs starting at the odd column
 //    2i + 1 and go to accumulator A in one carry chain, those with j - i
@@ -35,7 +36,7 @@
 // asserts them.  Launch shape: kThreads threads a block, kLanesPerThread
 // lanes a thread (chip_smoke.py and scripts/xmd_sqr_variants.py time the
 // others; PERF.md).  sqr_wide, mont_reduce and mont_sqr of montgomery.cuh
-// (the power and row kernels' square) are not used here.
+// (the 64-bit-carry square) are not used here.
 #pragma once
 
 #include "carry_chain.cuh"
@@ -43,87 +44,16 @@
 
 namespace montsqr {
 
-using carry::add_words;
-using carry::add_words_carry;
-using carry::kN0;
-using carry::mad_pairs;
-using carry::mad_row;
-using carry::mad_squares;
-using carry::madc_row;
-using carry::p_word;
-using carry::sub_words;
 using carry::W;
 
 // the library's launch shape (mont.py SQR_THREADS, SQR_LANES_PER_THREAD)
 constexpr int kThreads = 128;       // threads per block
 constexpr int kLanesPerThread = 1;  // squares per thread
 
-// Off-diagonal row I and the rows after it: A += a_I (a_(I+1) 2^(32(2I+1))
-// + a_(I+3) 2^(32(2I+3)) + ...), B += a_I (a_(I+2) 2^(32(2I+2)) + ...).
-// After row I, A and B are each below (sum_{r<=I} a_r 2^(32r)) 2^384 <
-// 2^(32(I+13)), and each chain ends at column I + 12 or above, so no chain
-// carries out of its last word.
-template <int I>
-__device__ __forceinline__ void off_diagonal(uint32_t (&A)[2 * W],
-                                             uint32_t (&B)[2 * W],
-                                             const uint32_t (&a)[W]) {
-  mad_pairs<(W - I) / 2>(A + 2 * I + 1, a[I], a + I + 1);
-  if constexpr ((W - 1 - I) / 2 > 0)
-    mad_pairs<(W - 1 - I) / 2>(B + 2 * I + 2, a[I], a + I + 2);
-  if constexpr (I + 2 < W) off_diagonal<I + 1>(A, B, a);
-}
-
 // r = a^2 R^-1 mod p, canonical, for a < p (r may be a).
 __device__ __forceinline__ void sqr_words(const uint32_t (&a)[W],
                                           uint32_t (&r)[W]) {
-  // 1. A + B = sum_{i<j} a_i a_j 2^(32(i+j)) < a^2 / 2 < 2^761
-  uint32_t A[2 * W], B[2 * W];
-#pragma unroll
-  for (int k = 0; k < 2 * W; ++k) A[k] = 0, B[k] = 0;
-  off_diagonal<0>(A, B, a);
-  // 2. t = 2 (A + B) + sum_i a_i^2 2^(64 i) = a^2 < p^2 < 2^762: neither
-  // second chain carries out
-  add_words_carry(A + W, B + W, add_words_carry(A, B, 0));
-  uint32_t t[2 * W];
-#pragma unroll
-  for (int k = 2 * W - 1; k > 0; --k)
-    t[k] = __funnelshift_l(A[k - 1], A[k], 1);
-  t[0] = A[0] << 1;
-  mad_squares(t + W, a + W / 2, mad_squares(t, a, 0));
-  // 3. reduce the low half: rows as mont_sum's, without its products.  In
-  // a row the running value x + y < 2^385 + 2^417 (x[W] <= 1, y[W + 1] <= 1);
-  // after the last, x + y + carry = (t mod R + M p) / R <= p
-  uint32_t p[W], x[W + 1], y[W + 2];
-#pragma unroll
-  for (int j = 0; j < W; ++j) p[j] = p_word(j), x[j] = t[j];
-  x[W] = 0;
-#pragma unroll
-  for (int j = 0; j < W + 2; ++j) y[j] = 0;
-  uint32_t cin = 0;  // the dropped words' carry: 1 where cin != 0
-#pragma unroll
-  for (int i = 0; i < W; ++i) {
-    const uint32_t m = (x[0] + y[0] + (cin != 0)) * kN0;
-    madc_row(x, m, p, cin);
-    mad_row(y + 1, m, p + 1);
-    cin = y[0];  // x[0] + y[0] = 0 mod 2^32
-#pragma unroll
-    for (int j = 0; j < W; ++j) x[j] = x[j + 1];
-#pragma unroll
-    for (int j = 0; j <= W; ++j) y[j] = y[j + 1];
-    x[W] = 0, y[W + 1] = 0;
-  }
-  // s = x + y + carry + t / R < p + p^2 / R < 2p: one subtraction
-  uint32_t s[W], v[W], h[W];
-#pragma unroll
-  for (int j = 0; j < W; ++j) s[j] = x[j], v[j] = y[j], h[j] = t[W + j];
-  add_words(s, v, cin);
-  add_words(s, h);
-  uint32_t c[W];
-#pragma unroll
-  for (int j = 0; j < W; ++j) c[j] = s[j];
-  const uint32_t below = sub_words(c, p);
-#pragma unroll
-  for (int j = 0; j < W; ++j) r[j] = below ? s[j] : c[j];
+  carry::sqr_words_of<fp384::Field, true>(a, r);
 }
 
 // kPer lanes per thread, kPer * gridDim.x * kT apart: independent squares

@@ -13,9 +13,12 @@
 //   __device__ static uint32_t p(int j);    word j of the modulus
 //   __device__ static uint32_t one(int j);  word j of R mod p
 // Every function returns a canonical result (< p) from canonical inputs.
-// The sum-of-products kernel at the end is instantiated once per field, the
-// fixed-exponent power kernel once per element type (Fp, Fr); the Fp2 power
-// is fp2_pow.cuh's.
+// These are the 64-bit-carry products: the row kernel at the end
+// (instantiated once per field), the plan kernel (plan_exec.cu) and the
+// butterfly (fr.cu) run them.  The carry-flag arithmetic of the square,
+// the Fp2 power and the Fp and Fr power is carry_chain.cuh's (mont_sqr.cuh,
+// fp2_pow.cuh, mont_pow.cuh); the power kernels' parameters are at the
+// end.
 #pragma once
 
 #include <cstdint>
@@ -170,18 +173,9 @@ __device__ __forceinline__ void mont_reduce(uint32_t (&t)[2 * F::W + 1],
   for (int j = 0; j < W; ++j) r[j] = ge ? d[j] : t[W + j];
 }
 
-// r = a b R^-1 mod p (r may be a or b).
-template <class F>
-__device__ __forceinline__ void mont_mul(const uint32_t (&a)[F::W],
-                                         const uint32_t (&b)[F::W],
-                                         uint32_t (&r)[F::W]) {
-  uint32_t t[2 * F::W + 1];
-  zero_wide(t);
-  mul_acc(t, a, b);
-  mont_reduce<F>(t, r);
-}
-
-// r = a^2 R^-1 mod p (r may be a): sqr_wide, the sqr kernel's body.
+// r = a^2 R^-1 mod p (r may be a): sqr_wide and mont_reduce, the
+// 64-bit-carry square (scripts/xmd_sqr_variants.py times it beside
+// mont_sqr.cuh's).
 template <class F>
 __device__ __forceinline__ void mont_sqr(const uint32_t (&a)[F::W],
                                          uint32_t (&r)[F::W]) {
@@ -445,134 +439,22 @@ int launch_sop_rows(const SopRow* rows, int n_rows, const uint16_t* ia,
 }
 
 // ---------------------------------------------------------------------------
-// Fixed-exponent power: the JAX package's `limbs.pow_fixed` chain (a scan of
-// sqr_pallas and sop_pallas launches, limbs.py:693) in one launch.  The
-// exponent's 4-bit digits, most significant first, travel by value in the
-// launch's parameter block (every thread reads the same digit: a broadcast
-// from the constant cache).  One thread per lane runs the whole chain with
-// the accumulator in registers; its 16-entry window table (one, a, a^2 ..
-// a^15) lives in shared memory, word-major with the lane innermost, so a
-// warp's reads of one word fall in 32 banks.  Every step returns the
-// canonical value, so skipping the leading zero digits and the products by
-// entry 0 keeps the JAX schedules' result.  Bound: the chain of dependent
-// products per lane (latency), not the words it moves.
-//
-// The element type E is FpElem<F> (Fp or Fr: 16 x W words of table per
-// lane).  A block holds kPowLanes lanes: 96 KB of table for Fp, 64 KB for
-// Fr.  The Fp2 power (`tower.fp2_pow`) is a kernel of its own, two threads
-// per lane: fp2_pow.cuh.
+// The parameters of the fixed-exponent power kernels (mont_pow.cuh for Fp
+// and Fr, fp2_pow.cuh for Fp2): the exponent's 4-bit digits, most
+// significant first, by value in the launch's parameter block, and the
+// coordinates' device pointers.
 // ---------------------------------------------------------------------------
 constexpr int kPowDigits = 256;  // 1024-bit exponents
-constexpr int kPowLanes = 128;   // lanes (threads) per block
 
 struct PowDigits {
   uint8_t d[kPowDigits];
 };
 
-// Elements of the power kernel: C coordinates of W words, held as
-// uint32_t[C][W]; one, mul and sqr return canonical values from canonical
-// inputs, and their output may alias an input.  kSqrUnroll: how far the
-// digit's four squares are unrolled.
-template <class F>
-struct FpElem {
-  static constexpr int C = 1, W = F::W, kSqrUnroll = 4;
-  __device__ __forceinline__ static void one(uint32_t (&x)[C][W]) {
-#pragma unroll
-    for (int j = 0; j < W; ++j) x[0][j] = F::one(j);
-  }
-  __device__ __forceinline__ static void mul(const uint32_t (&a)[C][W],
-                                             const uint32_t (&b)[C][W],
-                                             uint32_t (&c)[C][W]) {
-    mont_mul<F>(a[0], b[0], c[0]);
-  }
-  __device__ __forceinline__ static void sqr(const uint32_t (&a)[C][W],
-                                             uint32_t (&c)[C][W]) {
-    mont_sqr<F>(a[0], c[0]);
-  }
-};
-
-// The C coordinates' device pointers, each int32 [L16, B].
+// The coordinates' device pointers, each int32 [L16, B] (one for Fp and
+// Fr, two for Fp2).
 struct PowIO {
   const int32_t* a[2];
   int32_t* out[2];
 };
-
-template <class E>
-__global__ void __launch_bounds__(kPowLanes)
-pow_kernel(const PowIO io, int n_digits, int B,
-           const __grid_constant__ PowDigits e) {
-  constexpr int C = E::C, W = E::W, n = kPowLanes;
-  constexpr int coord = W * n;      // words from one coordinate to the next
-  constexpr int entry = C * coord;  // words from one table entry to the next
-  extern __shared__ uint32_t table[];  // [16][C][W][kPowLanes]
-  const int lane = blockIdx.x * n + threadIdx.x;
-  if (lane >= B) return;  // lanes share no data: no barrier follows
-  uint32_t* mine = table + threadIdx.x;
-  uint32_t base[C][W], x[C][W];
-  E::one(x);
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    store32(mine + c * coord, n, x[c]);
-    load16(io.a[c] + lane, B, base[c]);
-    store32(mine + entry + c * coord, n, base[c]);
-#pragma unroll
-    for (int j = 0; j < W; ++j) x[c][j] = base[c][j];
-  }
-#pragma unroll 1
-  for (int k = 2; k < 16; ++k) {
-    E::mul(x, base, x);
-#pragma unroll
-    for (int c = 0; c < C; ++c) store32(mine + k * entry + c * coord, n, x[c]);
-  }
-  int i = 0;
-  while (i < n_digits && e.d[i] == 0) ++i;
-  const int first = i < n_digits ? e.d[i] : 0;
-  uint32_t acc[C][W];
-#pragma unroll
-  for (int c = 0; c < C; ++c) load32(mine + first * entry + c * coord, n, acc[c]);
-#pragma unroll 1
-  for (++i; i < n_digits; ++i) {
-#pragma unroll (E::kSqrUnroll)
-    for (int s = 0; s < 4; ++s) E::sqr(acc, acc);
-    const int d = e.d[i];
-    if (d != 0) {
-#pragma unroll
-      for (int c = 0; c < C; ++c) load32(mine + d * entry + c * coord, n, x[c]);
-      E::mul(acc, x, acc);
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < C; ++c) store16(io.out[c] + lane, B, acc[c]);
-}
-
-// Launch pow_kernel<E> on `stream` over the E::C coordinates a[c] into
-// out[c]; digits: n_digits host bytes, each < 16.  Returns
-// cudaGetLastError() (or the error of raising the shared-memory cap), or
-// cudaErrorInvalidValue for a width, count or digit the kernel does not
-// take.
-template <class E>
-int launch_pow(const void* const* a, void* const* out, const uint8_t* digits,
-               int n_digits, int B, void* stream) {
-  if (B < 1 || n_digits < 0 || n_digits > kPowDigits)
-    return (int)cudaErrorInvalidValue;
-  PowDigits e = {};
-  for (int i = 0; i < n_digits; ++i) {
-    if (digits[i] > 15) return (int)cudaErrorInvalidValue;
-    e.d[i] = digits[i];
-  }
-  PowIO io = {};
-  for (int c = 0; c < E::C; ++c)
-    io.a[c] = (const int32_t*)a[c], io.out[c] = (int32_t*)out[c];
-  constexpr int smem = 16 * E::C * E::W * (int)sizeof(uint32_t) * kPowLanes;
-  if (smem > 48 * 1024) {  // above 48 KB only after raising the cap
-    const cudaError_t err = cudaFuncSetAttribute(
-        pow_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int grid = (B + kPowLanes - 1) / kPowLanes;
-  pow_kernel<E><<<grid, kPowLanes, smem, (cudaStream_t)stream>>>(io, n_digits,
-                                                                 B, e);
-  return (int)cudaGetLastError();
-}
 
 }  // namespace montgomery

@@ -15,17 +15,15 @@ whose rows are views into the caller's stacked tensor; `limbs.py` calls
 `csrc/mont.cu`), `butterfly`
 replaces `butterfly_pallas` (bodies `_butterfly_kernel_16`,
 `_butterfly_kernel_16_vec`, `csrc/fr.cu`).  `pow_fixed` (Fp, `csrc/mont.cu`)
-and `pow_fixed_fr` (Fr, `csrc/fr.cu`) are `montgomery.cuh`'s
-fixed-exponent power template: the JAX package's `limbs.pow_fixed`
+and `pow_fixed_fr` (Fr, `csrc/fr.cu`) are `csrc/mont_pow.cuh`'s
+`mont_pow_kernel<F, T, L>`: the JAX package's `limbs.pow_fixed`
 (limbs.py:693, a scan of `sqr_pallas` and `sop_pallas` launches: 14 table
-products, then 4 squares and a product per 4-bit digit) in one launch, so
-`sqr_pallas`'s body (`sqr_wide`) reaches the paths through it.
+products, then 4 squares and a product per 4-bit digit) in one launch.
 `fp2_pow_fixed` (`csrc/mont.cu`, `csrc/fp2_pow.cuh`'s `fp2_pow_kernel`)
 does the same for the JAX package's `tower.fp2_pow` (tower.py:287, a scan
 over the exponent's bits of fp2_sqr, fp2_mul and a select, whose Fp products
 are `sop_pallas` launches): the Fp2 square roots' powers, one launch each,
-on the same digit schedule with two threads per lane.  `sqr_wide`
-squares inside the power kernels only: `sqr`'s own kernel is
+on the same digit schedule with two threads per lane.  `sqr`'s kernel is
 `mont_sqr.cuh`'s (one thread a lane, its additions in the hardware carry
 flag: the off-diagonal products in two carry chains by column parity,
 doubled by funnel shifts, the diagonal, then a Montgomery reduction in
@@ -66,16 +64,21 @@ multiply-adds is ceil(n_g / split) products long.
 
 The butterfly is one Fr product t = b w R^-1 followed by a + t and a - t
 mod q, all in registers; 2q < 2^256, so a + t never carries out of the 8
-words.  The power kernel runs one lane's whole chain in one thread: the
-exponent's digits by value in the launch's parameter block (uint8, up to
-POW_DIGITS), the window table in shared memory (16 x W words per lane, lane
-innermost), the accumulator in registers; it skips the leading zero digits
-and the products by entry 0 (R mod p), which leaves every canonical value
-as the JAX schedule has it.  A block holds 128 lanes (`kPowLanes`, fixed at
-compile time): at B = 1024 a launch at p - 2 took 0.560 ms with 128 lanes
-per block, 0.635 with 64 and 0.708 with 32, and 0.556 at B = 1
-(`chip_smoke.py`, NVIDIA H100 80GB HBM3 at 700 W; PERF.md).  Why the
-smaller blocks are slower has not been traced.  The Fp2 power is a
+words.  The Fp and Fr power (`csrc/mont_pow.cuh`, whose note gives its
+design) runs a lane's chain with the exponent's digits by value in the
+launch's parameter block (uint8, up to POW_DIGITS) and the window table in
+shared memory (16 x W words per lane, lane innermost); it skips the
+leading zero digits and the products by entry 0 (R mod p), which leaves
+every canonical value as the JAX schedule has it.  Its products are
+carry-flag CIOS rows (the square at one thread a lane `mont_sqr.cuh`'s),
+Fp values stay below 2p between steps (4p < R) and Fr values canonical
+(4q > R), and a lane's product is split over T threads of a warp: T is
+POW_TPI (4) for Fp and POW_TPI_FR (2) for Fr, halved until the launch's
+threads fit POW_FILL_THREADS, 1 beyond (`pow_threads_per_lane`).  At p - 2
+over 1024 lanes it takes 0.2384 ms (the earlier kernel, one thread a
+lane and 64-bit carries: 0.5518), at 2^16 lanes 1.2849 (2.1762), and
+q - 2 0.1144 (0.1901) (`scripts/pow_variants.py`, NVIDIA H100 80GB HBM3
+at 700 W; PERF.md).  The Fp2 power is a
 kernel of its own (`csrc/fp2_pow.cuh`, whose note gives its design): one
 thread per coordinate, the two of a lane neighbours in a warp that swap
 their coordinates by shuffles after each step, a Montgomery product whose
@@ -98,8 +101,10 @@ near either bound: its time is the launch and one thread's chain.  The
 butterfly reads 3 x 64 and writes 2 x 64 bytes per lane (320 bytes) for
 about 270 IMADs: bound by memory, ~50 us per NTT stage of 2^19 lanes.  A
 power moves 2 L words per lane but runs ~480 dependent products (p - 2):
-at B = 1024 its multiplies are ~14 us of the card's rate, spread over only
-32 warps, so its time is the chain's latency; the Fp2 power's
+at B = 1024 its multiplies are ~14 us of the card's rate; one thread a
+lane (32 warps) runs at the chain's latency (0.5518 ms), four threads a
+lane (128 warps) at 16 times the multiplies (0.2384 ms), and at 2^16
+lanes one thread a lane at 1.39 times its bound; the Fp2 power's
 multiplies, its products counted at Karatsuba's three word products (~2.5
 times as many per lane), are ~0.036 ms at B = 1024, and it runs at about 14
 times that for the same reason, a pair of threads' chain (0.5226 ms; 1.38
@@ -141,8 +146,12 @@ _ROW = struct.Struct("<Qiiii")
 
 POW_WINDOW = 4            # bits per digit of pow_fixed (the JAX default)
 POW_DIGITS = 256          # digits the pow kernel takes by value (1024 bits)
-POW_LANES = 128           # lanes (threads) per block of the pow kernel
-                          # (montgomery.cuh's kPowLanes)
+POW_TPI = 4               # threads per Fp lane of the pow kernel, at most
+POW_TPI_FR = 2            # threads per Fr lane, at most
+POW_LANES = 32            # lanes per block
+POW_FILL_THREADS = 1 << 14  # threads a launch halves POW_TPI to fit
+                            # (mont_pow.cuh kTpiFp, kTpiFr, kLanes,
+                            # kFillThreads)
 FP2_POW_LANES = 64        # lanes per block of fp2_pow_fixed, two threads
                           # each (fp2_pow.cuh's kLanes)
 SQR_THREADS = 128         # threads per block of sqr (mont_sqr.cuh kThreads)
@@ -625,6 +634,17 @@ def butterfly(a: torch.Tensor, b: torch.Tensor,
         LAUNCHES.butterfly += 1
     check_launch(rc, "butterfly")
     return out
+
+
+def pow_threads_per_lane(spec: limbs.FieldSpec, B: int) -> int:
+    """The threads per lane of a `pow_fixed` (Fp) or `pow_fixed_fr` (Fr)
+    launch over B lanes, as `mont_pow.cuh`'s `launch_pow` picks them: the
+    field's POW_TPI or POW_TPI_FR, halved until B of them fit
+    POW_FILL_THREADS, at least 1."""
+    t = POW_TPI if spec is limbs.FP else POW_TPI_FR
+    while t > 1 and B * t > POW_FILL_THREADS:
+        t //= 2
+    return t
 
 
 def _pow_launch(fn, spec: limbs.FieldSpec, operands, exponent: int,

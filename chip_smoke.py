@@ -32,8 +32,13 @@ Phases (each prints its lines and seconds; any failed check exits non-zero):
      group-law plans also at the MSM's widths and phase smul's 4096, each
      with its launch shape:
      lane tile, blocks, threads, shared memory, phases, registers;
-     `pow_fixed` at p - 2 and (p+1)/4, B = 1 and 1024, and `pow_fixed_fr`
-     at q - 2, B = 1024, over the edge lanes 0, 1, 2, m-1, m-2, R mod m;
+     `pow_fixed` (csrc/mont_pow.cuh, 4, 2 or 1 threads per lane by the
+     width: mont.pow_threads_per_lane) at p - 2, (p+1)/4, (p-1)/2, 1, 2
+     and 16, and `pow_fixed_fr` (2 or 1) at q - 2 and (t-1)/2, B = 1, 33,
+     1021, 1024, 8192 and 2^16 (the last two held on sampled lanes),
+     over the edge lanes 0, 1, 2, m-1, m-2, R mod m, timed at p - 2 and
+     q - 2 at B = 1, 1024 and 2^16, with its threads per lane, lanes per
+     block, blocks, shared bytes, registers, spills and both bounds;
      `fp2_pow_fixed` (csrc/fp2_pow.cuh, two threads per lane) at (p-3)/4,
      (p-1)/2, 0, 1, 2 and B = 1, 33, 256, 512, 1021, 1024 and 2^16 (held on
      sampled lanes) over the Fp2 edge lanes (0, 0), (1, 0), (0, 1),
@@ -261,6 +266,18 @@ FP2_POW_WIDTHS = (1024, 1021, 512, 256, 33, 1)
 FP2_POW_WIDE = 1 << 16
 FP2_POW_TIMED_WIDTHS = (1, 256, 512, 1024, FP2_POW_WIDE)
 FP2_POW_LANE_BYTES = 16 * 2 * 12 * 4  # window table per lane (fp2_pow.cuh)
+# pow_fixed / pow_fixed_fr (mont_pow.cuh): the inversions' and square
+# roots' exponents (Fr's (t-1)/2: fr.sqrt) beside 1, 2 and 16; one lane, a
+# partial block, a partial last warp, the paths' 1024; the widths where the
+# launch takes 2 (Fp) and 1 threads a lane, held on sampled lanes; the
+# inversions timed at 1, 1024 and 2^16
+POW_EXPONENTS = {"pow_fixed": ("p-2", "(p+1)/4", "(p-1)/2", "1", "2", "16"),
+                 "pow_fixed_fr": ("q-2", "(t-1)/2")}
+POW_TIMED = ("p-2", "q-2")
+POW_WIDTHS = (1024, 1021, 33, 1)
+POW_WIDE = 1 << 16
+POW_SAMPLED = (1 << 13, POW_WIDE)  # slices of the POW_WIDE operand
+POW_TIMED_WIDTHS = (1, 1024, POW_WIDE)
 FP2_EDGE_LANES = ("0", "0"), ("1", "0"), ("0", "1"), ("p-1", "p-1"), \
     ("0", "p-1"), ("p-1", "0"), ("p-1", "1"), ("1", "p-1"), ("R", "0")
 # sqr (mont_sqr.cuh): one lane, a partial block, the decompression's and
@@ -572,8 +589,14 @@ def phase_build():
         for line in build.ptxas_report(stem):
             print(f"[build:{stem}] {line}", flush=True)
     usage = {"plan_exec": ptxas_usage("plan_exec", "plan_kernel"),
-             "pow_fixed": ptxas_usage("mont", "pow_kernel", "6FpElem"),
-             "pow_fixed_fr": ptxas_usage("fr", "pow_kernel", "6FpElem"),
+             # the power's instances by threads per lane (the launch
+             # picks one by the width: mont.pow_threads_per_lane)
+             **{f"pow_fixed t{t}": ptxas_usage(
+                 "mont", "15mont_pow_kernel", f"ELi{t}ELi32E")
+                for t in (4, 2, 1)},
+             **{f"pow_fixed_fr t{t}": ptxas_usage(
+                 "fr", "15mont_pow_kernel", f"ELi{t}ELi32E")
+                for t in (2, 1)},
              "fp2_pow_fixed": ptxas_usage("mont", "fp2_pow_kernel"),
              "sqr": ptxas_usage("mont", "7montsqr10sqr_kernel"),
              # the XMD's instances by message load width; the main path's
@@ -705,8 +728,8 @@ KERNEL_NAMES = {"sop_rows": ("sop_rows_kernel", "fp384"),
                 "plan_exec": ("plan_kernel",),
                 "sop_rows_fr": ("sop_rows_kernel", "fr256"),
                 "butterfly": ("butterfly_kernel",),
-                "pow_fixed": ("pow_kernel<montgomery::FpElem", "fp384"),
-                "pow_fixed_fr": ("pow_kernel<montgomery::FpElem", "fr256"),
+                "pow_fixed": ("mont_pow_kernel", "fp384"),
+                "pow_fixed_fr": ("mont_pow_kernel", "fr256"),
                 "fp2_pow_fixed": ("fp2_pow_kernel",),
                 "xmd_sha256": ("xmd_sha256_kernel",),
                 "sha256": ("::sha256_kernel",),
@@ -920,6 +943,70 @@ def sample_lanes(B: int, gen, device):
     return torch.unique(torch.cat([
         torch.arange(SAMPLED_LANES, device=device), rand,
         torch.arange(B - SAMPLED_LANES, B, device=device)]))
+
+
+def pow_exponent(label: str) -> int:
+    from bls12_381_torch.params import FR_S, P, Q
+
+    t = (Q - 1) >> FR_S
+    return {"p-2": P - 2, "(p+1)/4": (P + 1) // 4, "(p-1)/2": (P - 1) // 2,
+            "q-2": Q - 2, "(t-1)/2": (t - 1) // 2, "1": 1, "2": 2,
+            "16": 16}[label]
+
+
+def pow_rows(chk, usage, gen, device) -> None:
+    """Phase kernels' rows of `pow_fixed` and `pow_fixed_fr` into `chk`
+    (KernelChecks; `usage`: ptxas registers and spill bytes by kernel, the
+    power's by threads per lane, which each row prints with the launch's):
+    POW_EXPONENTS at POW_WIDTHS over pow_operand's edge lanes, one plain
+    call per exponent at 1024 lanes whose first lanes (lane 9, random, for
+    B = 1) hold the narrower launches, and at POW_SAMPLED, the first B
+    lanes of a POW_WIDE operand, held on its sampled lanes below B; the
+    plain version timed once per field, at 1024 lanes
+    (1-2 s a call on the card).  The inversions timed at
+    POW_TIMED_WIDTHS."""
+    from bls12_381_torch import limbs
+    from bls12_381_torch.kernels import mont
+
+    n = mont.POW_LANES
+    for wrapper, labels in POW_EXPONENTS.items():
+        spec = limbs.FP if wrapper == "pow_fixed" else limbs.FR
+        fn = getattr(mont, wrapper)
+        a = pow_operand(spec, BATCH, gen, device)
+        wide = pow_operand(spec, POW_WIDE, gen, device)
+        pick = sample_lanes(POW_WIDE, gen, device)
+        for label in labels:
+            e = pow_exponent(label)
+            ref = mont.pow_fixed_plain(spec, a, e)
+            ref_wide = mont.pow_fixed_plain(spec, wide.index_select(1, pick),
+                                            e)
+            for B in POW_WIDTHS + POW_SAMPLED:
+                if B in POW_SAMPLED:
+                    below = pick < B
+                    x, want, lanes_held = wide[:, :B].contiguous(), \
+                        ref_wide[:, below], pick[below]
+                else:
+                    held = slice(0, B) if B > 1 else slice(9, 10)
+                    x, want, lanes_held = a[:, held].contiguous(), \
+                        ref[:, held], None
+                timed = label in POW_TIMED and B in POW_TIMED_WIDTHS
+                n_bytes, n_imads = pow_work(spec, e, B)
+                tpi = mont.pow_threads_per_lane(spec, B)
+                regs, spills = usage[f"{wrapper} t{tpi}"]
+                chk.hold(f"{wrapper} {label} B={B}",
+                         lambda fn=fn, x=x, e=e: fn(x, e),
+                         lambda spec=spec, x=x, e=e: mont.pow_fixed_plain(
+                             spec, x, e),
+                         wrapper, 20 if timed else 2,
+                         1 if timed and B == BATCH else 0, n_bytes, n_imads,
+                         ref=want, pick=lanes_held, threads_per_lane=tpi,
+                         lanes=n, blocks=-(-B // n),
+                         shared_bytes=16 * spec.n_limbs * 2 * n,
+                         registers=regs, spill_bytes=spills,
+                         bytes_ms=bound(n_bytes, 0)[0],
+                         ops_ms=bound(0, n_imads)[0])
+            del ref, ref_wide
+        del a, wide, pick
 
 
 def fp2_pow_rows(chk, usage, gen, device) -> None:
@@ -1299,27 +1386,7 @@ def phase_kernels(device, usage):
         del args, calls
     del outs
 
-    # --- pow_fixed: Fp at B = 1 and 1024, at p - 2 (the inversion) and
-    # (p+1)/4 (a square root's exponent); pow_fixed_fr at B = 1024, q - 2
-    # (pow_operand's edge lanes)
-    for spec, wrapper, B, label, e in (
-            (limbs.FP, "pow_fixed", 1, "p-2", P - 2),
-            (limbs.FP, "pow_fixed", 1, "(p+1)/4", (P + 1) // 4),
-            (limbs.FP, "pow_fixed", BATCH, "p-2", P - 2),
-            (limbs.FP, "pow_fixed", BATCH, "(p+1)/4", (P + 1) // 4),
-            (limbs.FR, "pow_fixed_fr", BATCH, "q-2", Q - 2)):
-        a = pow_operand(spec, B, gen, device)
-        ref = mont.pow_fixed_plain(spec, a, e)
-        fn = getattr(mont, wrapper)
-        regs, spills = usage[wrapper]
-        chk.hold(f"{wrapper} {label} B={B}", lambda fn=fn, a=a, e=e: fn(a, e),
-                 lambda spec=spec, a=a, e=e: mont.pow_fixed_plain(spec, a, e),
-                 wrapper, 20, 1, *pow_work(spec, e, B), ref=ref,
-                 lanes=mont.POW_LANES, blocks=-(-B // mont.POW_LANES),
-                 registers=regs,
-                 spill_bytes=spills)
-        del a, ref
-
+    pow_rows(chk, usage, gen, device)
     fp2_pow_rows(chk, usage, gen, device)
 
     # --- Fr: sop_fr (T = 1, 2) and butterfly at B = 2^16 with edge rows,
@@ -1798,7 +1865,7 @@ def phase_kernel_times(results, timed) -> None:
     evs = sorted(device_events(run_all), key=lambda ev: ev[1])
     durs = {}
     for kernel in {t[2] for t in timed}:
-        durs[kernel] = [end - start for name, start, end in evs
+        durs[kernel] = [(end - start, name) for name, start, end in evs
                         if kernel_of(name) == kernel]
         want = sum(n * per for _, _, k, n, per in timed if k == kernel)
         if len(durs[kernel]) != want:
@@ -1806,7 +1873,14 @@ def phase_kernel_times(results, timed) -> None:
                  f"{kernel}, not {want}")
     for key, _, kernel, n, per in timed:
         mine, durs[kernel] = durs[kernel][:n * per], durs[kernel][n * per:]
-        results[key]["ms"] = sum(mine) / (n * per) / 1e3
+        results[key]["ms"] = sum(d for d, _ in mine) / (n * per) / 1e3
+        if "threads_per_lane" in results[key]:  # the instance it launched
+            shape = (f", {results[key]['threads_per_lane']}, "
+                     f"{results[key]['lanes']}>")
+            if kernel.startswith("pow_fixed") and not all(
+                    shape in name for _, name in mine):
+                fail(f"{key}: launched {mine[0][1][:80]}, not the "
+                     f"instance <..{shape}")
         say("kernel_times", kernel=key, ms=results[key]["ms"],
             events_ms=results[key]["events_ms"],
             bound_ms=results[key]["bound_ms"])
@@ -4288,17 +4362,30 @@ def main() -> None:
                  for k, v in beside(f"b{B}", f"sqr G=1 B={B}").items()},
               **beside("g3", f"sqr G=3 B={BATCH}")),
         # the JAX chain of sqr_pallas / sop_pallas launches in one launch
-        entry("pow_fixed", src + "mont.cu", f"{pallas}:711",
+        entry("pow_fixed", src + "mont_pow.cuh", f"{pallas}:711",
               counts["pow_fixed"], f"pow_fixed p-2 B={BATCH}",
               launches_msm_g1=msm_counts["g1"]["pow_fixed"],
               launches_msm_g2=msm_counts["g2"]["pow_fixed"],
               note="the JAX chain is bls12_381_tpu/limbs.py:693 (pow_fixed, "
-                   "a scan over sqr_pallas and sop_pallas); Fr's twin "
-                   "pow_fixed_fr (csrc/fr.cu) beside it",
-              lanes=mont.POW_LANES, registers=usage["pow_fixed"][0],
-              spill_bytes=usage["pow_fixed"][1],
+                   "a scan over sqr_pallas and sop_pallas); built into "
+                   "csrc/mont.cu, its Fr instance pow_fixed_fr into "
+                   "csrc/fr.cu (fr_* beside it)",
+              **{k: v for k, v in results[f"pow_fixed p-2 B={BATCH}"].items()
+                 if k in ("threads_per_lane", "lanes", "blocks",
+                          "shared_bytes", "registers", "spill_bytes",
+                          "bytes_ms", "ops_ms")},
+              fr_registers=results[f"pow_fixed_fr q-2 B={BATCH}"][
+                  "registers"],
+              fr_threads_per_lane=results[f"pow_fixed_fr q-2 B={BATCH}"][
+                  "threads_per_lane"],
+              registers_by_threads_per_lane={
+                  k: v for k, v in usage.items() if k.startswith("pow_")},
               **beside("b1", "pow_fixed p-2 B=1"),
-              **beside("fr", f"pow_fixed_fr q-2 B={BATCH}")),
+              **beside(f"b{POW_WIDE}", f"pow_fixed p-2 B={POW_WIDE}"),
+              **beside("p14", f"pow_fixed (p+1)/4 B={BATCH}"),
+              **{k: v for B in POW_TIMED_WIDTHS
+                 for k, v in beside(f"fr_b{B}",
+                                    f"pow_fixed_fr q-2 B={B}").items()}),
         # launches per pairing, ms and bounds per launch at the pairing's
         # own folds; launches per msm beside them
         entry("fold_planned", src + "mont.cu", f"{pallas}:250",

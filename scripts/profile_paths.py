@@ -8,11 +8,12 @@ Run from the root of a checkout on a machine with a CUDA device:
 It imports the `bls12_381_torch` of the tree it sits in and calls only the
 entry points (`entry.entry`, `entry.ntt_entry`, `entry.msm_entry`,
 `entry.codec_entry`, `entry.h2c_entry`) and `kernels.mont.fp2_pow_fixed`,
-so a copy of this file placed in an older tree takes the same measurement
-there.  For the pairing at batch 1024, one `ntt` at 2^20, one `msm_g1` at
-2^16 points, one `msm_g2` at 2^12, the G2 decompression of 2^10 points
-(subgroup check on) and `hash_to_curve_g2` of 256 messages (the two paths
-that launch the Fp2 power) it prints one JSON line each: the host-clock wall
+`pow_fixed` and `pow_fixed_fr`, so a copy of this file placed in an older
+tree takes the same measurement there.  For the pairing at batch 1024, one
+`ntt` at 2^20, one `msm_g1` at 2^16 points, one `msm_g2` at 2^12, the G1
+and G2 decompressions of 2^10 points (subgroup check on) and
+`hash_to_curve_g1` / `_g2` of 256 messages (the rows that launch the Fp
+and Fp2 powers) it prints one JSON line each: the host-clock wall
 of one run (median of N after a warm-up, ending in a synchronize), the
 device time of one run under torch.profiler (device-side events only), the
 device's busy share of the wall, the launches and device ms of the
@@ -21,7 +22,9 @@ copy kernels, those of the port's kernels by name, and the run's own peak
 of allocated device memory above what was held before it.  Row `fp2_pow`
 prints the Fp2 power kernel's device ms per launch (the mean of
 FP2_POW_LAUNCHES launches in one profiled window) at (p-1)/2 and (p-3)/4
-over random canonical operands at FP2_POW_WIDTHS lanes.  `--rows` picks
+over random canonical operands at FP2_POW_WIDTHS lanes; row `pow` the Fp
+power's at p - 2 and the Fr power's at q - 2 (POW_LAUNCHES launches) at
+POW_WIDTHS lanes.  `--rows` picks
 rows, so that two trees can be compared row by row in one call.  It imports
 nothing of JAX.
 """
@@ -41,10 +44,12 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT_KERNELS = ("sop_rows_kernel", "sop_kernel", "fold_kernel", "sqr_kernel",
                 "plan_kernel", "butterfly_kernel", "fp2_pow_kernel",
                 "pow_kernel")
-ROWS = ("pairing", "ntt", "msm_g1", "msm_g2", "g2_decompress", "h2c_g2",
-        "fp2_pow")
+ROWS = ("pairing", "ntt", "msm_g1", "msm_g2", "g1_decompress",
+        "g2_decompress", "h2c_g1", "h2c_g2", "fp2_pow", "pow")
 FP2_POW_WIDTHS = (1, 256, 512, 1024, 1 << 16)
 FP2_POW_LAUNCHES = 20
+POW_WIDTHS = (1, 1024, 1 << 16)
+POW_LAUNCHES = 10
 
 
 def device_events(fn):
@@ -148,6 +153,41 @@ def fp2_pow_rows() -> None:
                 "ms": sum(mine) / len(mine) / 1e3}), flush=True)
 
 
+def pow_rows() -> None:
+    """The Fp and Fr power kernels' device ms per launch, one JSON line per
+    field and width."""
+    import torch
+
+    from bls12_381_torch import limbs, params
+    from bls12_381_torch.kernels import mont
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(15)
+    for name, spec, label, e in (
+            ("pow_fixed", limbs.FP, "p-2", params.P - 2),
+            ("pow_fixed_fr", limbs.FR, "q-2", params.Q - 2)):
+        fn = getattr(mont, name)
+        for B in POW_WIDTHS:
+            n = spec.n_limbs
+            a = torch.randint(0, 1 << 16, (n, B), generator=gen,
+                              device="cuda", dtype=torch.int32)
+            a[n - 1] %= spec.p_limbs[n - 1]  # canonical: below the modulus
+
+            def run():
+                for _ in range(POW_LAUNCHES):
+                    fn(a, e)
+
+            fn(a, e)  # builds, warms
+            for _ in range(3):  # a capture that falls short is taken again
+                mine = [end - start for kname, start, end in device_events(
+                    run) if "pow_kernel" in kname and "fp2" not in kname]
+                if len(mine) == POW_LAUNCHES:
+                    break
+            print(json.dumps({
+                "path": f"{name} {label} B={B}", "launches": len(mine),
+                "ms": sum(mine) / len(mine) / 1e3}), flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=5)
@@ -171,13 +211,18 @@ def main() -> None:
     for group, log_n in (("g1", 16), ("g2", 12)):
         if f"msm_{group}" in args.rows:
             row(f"msm_{group} 2^{log_n}", *entry.msm_entry(log_n, group))
-    if "g2_decompress" in args.rows:
-        row("g2.from_compressed_host 2^10",
-            *entry.codec_entry(10, "g2", "compressed"))
-    if "h2c_g2" in args.rows:
-        row("hash_to_curve_g2 256", *entry.h2c_entry(8, "g2", "hash"))
+    for group in ("g1", "g2"):
+        if f"{group}_decompress" in args.rows:
+            row(f"{group}.from_compressed_host 2^10",
+                *entry.codec_entry(10, group, "compressed"))
+    for group in ("g1", "g2"):
+        if f"h2c_{group}" in args.rows:
+            row(f"hash_to_curve_{group} 256",
+                *entry.h2c_entry(8, group, "hash"))
     if "fp2_pow" in args.rows:
         fp2_pow_rows()
+    if "pow" in args.rows:
+        pow_rows()
 
 
 if __name__ == "__main__":

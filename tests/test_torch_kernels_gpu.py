@@ -298,10 +298,15 @@ def test_butterfly_kernel_matches_plain(cuda):
                                                        w.cpu()))
 
 
-# 0 (every digit zero: one), 1 (a itself) and 2^1024 - 1 (the 256-digit cap)
-# beside the paths' own exponents
-POW_EXPONENTS = {"p-2": P - 2, "(p+1)/4": (P + 1) // 4, "q-2": Q - 2,
-                 "0": 0, "1": 1, "2^1024-1": (1 << 1024) - 1}
+# 0 (every digit zero: one), 1 (a itself), 2, 16 and 2^1024 - 1 (the
+# 256-digit cap) beside the paths' own exponents: the inversions' p - 2 and
+# q - 2, the square roots' (p+1)/4 and Fr's (t-1)/2, the Legendre symbol's
+# (p-1)/2
+T_FR = (Q - 1) >> params.FR_S
+POW_EXPONENTS = {"p-2": P - 2, "(p+1)/4": (P + 1) // 4,
+                 "(p-1)/2": (P - 1) // 2,
+                 "q-2": Q - 2, "(t-1)/2": (T_FR - 1) // 2, "0": 0, "1": 1,
+                 "2": 2, "16": 16, "2^1024-1": (1 << 1024) - 1}
 
 
 def pow_operand(spec, B: int, device, seed: int) -> torch.Tensor:
@@ -318,11 +323,11 @@ def pow_operand(spec, B: int, device, seed: int) -> torch.Tensor:
 
 
 @pytest.mark.parametrize("name", list(POW_EXPONENTS))
-@pytest.mark.parametrize("B", [1, 33, 1024])
+@pytest.mark.parametrize("B", [1, 33, 1021, 1024])
 @pytest.mark.parametrize("wrapper", ["pow_fixed", "pow_fixed_fr"])
 def test_pow_kernel_matches_plain(cuda, wrapper, B, name):
-    """One launch, B = 33 a ragged block; over Fr, p-2 and (p+1)/4 are
-    wider than q."""
+    """One launch, B = 33 and 1021 ragged blocks; over Fr, p-2, (p+1)/4
+    and (p-1)/2 are wider than q."""
     spec = limbs.FP if wrapper == "pow_fixed" else limbs.FR
     a = pow_operand(spec, B, cuda, seed=B)
     e = POW_EXPONENTS[name]
@@ -331,6 +336,27 @@ def test_pow_kernel_matches_plain(cuda, wrapper, B, name):
     torch.cuda.synchronize()
     assert LAUNCHES.snapshot()[wrapper] == 1
     assert torch.equal(got, mont.pow_fixed_plain(spec, a, e))
+
+
+@pytest.mark.parametrize("B", [1 << 13, 1 << 16])
+@pytest.mark.parametrize("wrapper, name", [
+    ("pow_fixed", "p-2"), ("pow_fixed", "(p+1)/4"), ("pow_fixed_fr", "q-2"),
+    ("pow_fixed_fr", "(t-1)/2")])
+def test_pow_kernel_full_card_matches_plain_on_sampled_lanes(cuda, wrapper,
+                                                             name, B):
+    """8192 lanes (two threads a lane) and 2^16 (one) in one launch, held
+    on the first, the last and 1024 random lanes (the plain version at
+    that width would take minutes)."""
+    spec = limbs.FP if wrapper == "pow_fixed" else limbs.FR
+    a = pow_operand(spec, B, cuda, seed=16)
+    e = POW_EXPONENTS[name]
+    got = getattr(mont, wrapper)(a, e)
+    torch.cuda.synchronize()
+    pick = torch.unique(torch.cat([
+        torch.arange(64), torch.arange(B - 64, B),
+        torch.randint(0, B, (1024,), generator=torch.Generator().manual_seed(
+            16))])).to(cuda)
+    assert torch.equal(got[:, pick], mont.pow_fixed_plain(spec, a[:, pick], e))
 
 
 # the Fp2 square root's two exponents beside 0 (one), 1 (a) and 2
