@@ -1,0 +1,10 @@
+"""The 90th percentile (nearest rank) of one commitment's latency over
+every call of the window, scalars on the card to the point on the host, in
+ms."""
+
+import stats
+
+
+def read(run):
+    p90 = stats.percentile(stats.latencies(run.calls), 90)
+    return None if p90 is None else 1e3 * p90
