@@ -27,7 +27,8 @@ Layers:
                      versions
   fields           — Fp, the Fp2/Fp6/Fp12 tower, Fr; square roots and signs
   utils            — power-of-two scans and reductions, table lookups;
-                     tracing, timing and the H100 roofline (profiling.py);
+                     tracing: a torch.profiler scope and the program's
+                     stage spans, read by portbench (profiling.py);
                      the native host runtime (native.py: Fp byte codecs
                      and expand_message_xmd in C++, built at first use)
   curves           — G1 and G2: the complete group law, scalar

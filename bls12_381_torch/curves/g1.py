@@ -18,6 +18,7 @@ from .. import hostmath as hm
 from .. import limbs, params
 from ..fields import fp
 from ..kernels import plan_exec as pe
+from ..utils import profiling
 from .weierstrass import FieldFns, Weierstrass
 
 _FNS = FieldFns(
@@ -198,16 +199,21 @@ def _decompress_device(x, inf, sort, check_subgroup: bool):
     batch, dev = x.shape[1:], x.device
     rhs = fp.add(fp.mul(fp.sqr(x), x), fp.const(params.B_G1, batch,
                                                 device=dev))
-    y, on_curve = fp.sqrt(rhs)
+    with profiling.span("codec.sqrt"):
+        y, on_curve = fp.sqrt(rhs)
     flip = fp.lexicographically_largest(y) != sort
     y = fp.select(flip, fp.neg(y), y)
     aff = (fp.select(inf, fp.zero(batch, device=dev), x),
            fp.select(inf, fp.one(batch, device=dev), y), inf)
-    tf = is_torsion_free(from_affine(aff)) if check_subgroup else \
-        torch.ones(batch, dtype=torch.bool, device=dev)
+    if check_subgroup:
+        with profiling.span("codec.subgroup"):
+            tf = is_torsion_free(from_affine(aff))
+    else:
+        tf = torch.ones(batch, dtype=torch.bool, device=dev)
     return aff, on_curve, fp.is_zero(x), tf
 
 
+@profiling.spanned("codec.decode")
 def from_compressed_host(data, check_subgroup: bool = True, device="cuda"):
     """uint8 [*batch, 48] -> (affine batch on `device`, numpy valid mask).
     An invalid encoding is masked rather than raised (the batched CtOption

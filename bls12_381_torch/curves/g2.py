@@ -20,6 +20,7 @@ from .. import limbs, params
 from ..fields import fp, tower as tw
 from . import g1 as _g1
 from ..kernels import plan_exec as pe
+from ..utils import profiling
 from .weierstrass import FieldFns, Weierstrass
 
 _FNS = FieldFns(
@@ -198,16 +199,21 @@ def _decompress_device(x, inf, sort, check_subgroup: bool):
     batch, dev = inf.shape, inf.device
     rhs = tw.fp2_add(tw.fp2_mul(tw.fp2_sqr(x), x),
                      tw.fp2_const(params.B_G2, batch, dev))
-    y, on_curve = tw.fp2_sqrt(rhs)
+    with profiling.span("codec.sqrt"):
+        y, on_curve = tw.fp2_sqrt(rhs)
     flip = tw.fp2_lexicographically_largest(y) != sort
     y = tw.fp2_select(flip, tw.fp2_neg(y), y)
     aff = (tw.fp2_select(inf, tw.fp2_zero(batch, dev), x),
            tw.fp2_select(inf, tw.fp2_one(batch, dev), y), inf)
-    tf = is_torsion_free(from_affine(aff)) if check_subgroup else \
-        torch.ones(batch, dtype=torch.bool, device=dev)
+    if check_subgroup:
+        with profiling.span("codec.subgroup"):
+            tf = is_torsion_free(from_affine(aff))
+    else:
+        tf = torch.ones(batch, dtype=torch.bool, device=dev)
     return aff, on_curve, tw.fp2_is_zero(x), tf
 
 
+@profiling.spanned("codec.decode")
 def from_compressed_host(data, check_subgroup: bool = True, device="cuda"):
     """uint8 [*batch, 96] -> (affine batch on `device`, numpy valid mask),
     with g1.from_compressed_host's rules over Fp2."""

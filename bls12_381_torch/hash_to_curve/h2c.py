@@ -14,6 +14,10 @@ as ONE batch of 2B lanes (u as [L, 2, B]) and then adds the two halves,
 where the JAX package maps them in two calls; so each launch of the map
 serves both.
 
+Spans (`utils/profiling.py`): `h2c` over each hash_to_curve_* and
+encode_to_curve_*, `h2c.map` over the map (SSWU and the isogeny), `h2c.clear`
+over the cofactor clearing.
+
 Reference anchors: src/hash_to_curve/{mod,expand_msg,map_g1,map_g2}.rs.
 """
 
@@ -27,7 +31,7 @@ from ..curves import g1 as G1
 from ..curves import g2 as G2
 from ..fields import fp, fr, tower as tw
 from ..kernels import sha256
-from ..utils import scans
+from ..utils import profiling, scans
 
 # isogeny and SSWU constants (draft-16 appendix E; canonical ints)
 _C = params.ISO_CONSTS
@@ -151,6 +155,7 @@ def _iso_map(x, y, const, f, name):
     return f["mul"](xn, yd), f["mul"](f["mul"](y, yn), xd), f["mul"](xd, yd)
 
 
+@profiling.spanned("h2c.map")
 def map_to_curve_g1(u):
     """SSWU to iso-E1, then the 11-isogeny to E1 (map_g1.rs:545-630):
     Fp [L, *batch] -> projective G1."""
@@ -165,6 +170,7 @@ def map_to_curve_g1(u):
     return _iso_map(x, y, const, _FP_NS, "iso11")
 
 
+@profiling.spanned("h2c.map")
 def map_to_curve_g2(u):
     """SSWU to iso-E2, then the 3-isogeny to E2 (map_g2.rs:391-492): Fp2
     [L, *batch] -> projective G2."""
@@ -195,34 +201,44 @@ def _field(fp2: bool, msgs, dst, count, expand, device, kw):
     return fn(msgs, dst, count, expand, device, **kw)
 
 
+def _clear(curve, q):
+    """The cofactor clearing of a mapped point: the span `h2c.clear`."""
+    with profiling.span("h2c.clear"):
+        return curve.clear_cofactor(q)
+
+
 def _halves(q):
     """A point over the batch (2, B) -> its two [B] halves."""
     return (scans.tree_map(lambda t: t[:, 0], q),
             scans.tree_map(lambda t: t[:, 1], q))
 
 
+@profiling.spanned("h2c")
 def hash_to_curve_g1(msgs, dst, expand=hm.expand_message_xmd, device="cuda",
                      **kw):
     """Batched hash_to_curve: messages -> projective G1 batch [B].
     expand="device" expands with the device SHA-256 (equal-length
     messages)."""
     u = _field(False, msgs, dst, 2, expand, device, kw)
-    return G1.clear_cofactor(G1.add(*_halves(map_to_curve_g1(u))))
+    return _clear(G1, G1.add(*_halves(map_to_curve_g1(u))))
 
 
+@profiling.spanned("h2c")
 def encode_to_curve_g1(msgs, dst, expand=hm.expand_message_xmd,
                        device="cuda", **kw):
     u = _field(False, msgs, dst, 1, expand, device, kw)
-    return G1.clear_cofactor(map_to_curve_g1(u[:, 0]))
+    return _clear(G1, map_to_curve_g1(u[:, 0]))
 
 
+@profiling.spanned("h2c")
 def hash_to_curve_g2(msgs, dst, expand=hm.expand_message_xmd, device="cuda",
                      **kw):
     u = _field(True, msgs, dst, 2, expand, device, kw)
-    return G2.clear_cofactor(G2.add(*_halves(map_to_curve_g2(u))))
+    return _clear(G2, G2.add(*_halves(map_to_curve_g2(u))))
 
 
+@profiling.spanned("h2c")
 def encode_to_curve_g2(msgs, dst, expand=hm.expand_message_xmd,
                        device="cuda", **kw):
     u = _field(True, msgs, dst, 1, expand, device, kw)
-    return G2.clear_cofactor(map_to_curve_g2((u[0][:, 0], u[1][:, 0])))
+    return _clear(G2, map_to_curve_g2((u[0][:, 0], u[1][:, 0])))

@@ -37,23 +37,24 @@ class LaunchCounts:
         default_factory=collections.Counter)
 
     def reset(self) -> None:
-        self.sop = self.sqr = self.plan_exec = 0
-        self.sop_fr = self.butterfly = self.fold_planned = 0
-        self.pow_fixed = self.pow_fixed_fr = self.fp2_pow_fixed = 0
-        self.sha256 = self.xmd_sha256 = self.shake = 0
-        self.copied_rows = 0
-        self.plan_exec_by_plan.clear()
+        for f in dataclasses.fields(self):
+            if f.name == "plan_exec_by_plan":
+                self.plan_exec_by_plan.clear()
+            else:
+                setattr(self, f.name, f.default)
 
     def snapshot(self) -> dict:
-        return {"sop": self.sop, "sqr": self.sqr, "plan_exec": self.plan_exec,
-                "sop_fr": self.sop_fr, "butterfly": self.butterfly,
-                "fold_planned": self.fold_planned,
-                "pow_fixed": self.pow_fixed, "pow_fixed_fr": self.pow_fixed_fr,
-                "fp2_pow_fixed": self.fp2_pow_fixed,
-                "sha256": self.sha256, "xmd_sha256": self.xmd_sha256,
-                "shake": self.shake,
-                "copied_rows": self.copied_rows,
-                "plan_exec_by_plan": dict(self.plan_exec_by_plan)}
+        out = dataclasses.asdict(self)
+        out["plan_exec_by_plan"] = dict(self.plan_exec_by_plan)
+        return out
+
+    def port_total(self) -> int:
+        """Every launch of the port's kernels so far: the sum of the launch
+        counts (`copied_rows` counts copies, `plan_exec_by_plan` splits
+        `plan_exec`)."""
+        return sum(getattr(self, name) for name in _LAUNCH_FIELDS)
 
 
+_LAUNCH_FIELDS = tuple(f.name for f in dataclasses.fields(LaunchCounts)
+                       if f.name not in ("copied_rows", "plan_exec_by_plan"))
 LAUNCHES = LaunchCounts()

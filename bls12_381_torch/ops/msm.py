@@ -5,12 +5,12 @@ same order of additions the projective result equals the JAX package's limb
 for limb.  Bucket accumulation is a sort and a segmented scan, with no
 scatter:
 
-  once:
+  once (span `msm.recode`):
     0. split the scalars with the curve endomorphism (GLV 2-way on G1, GLS
        4-way on G2): 2x / 4x the lanes, 1/2 / 1/4 the windows
     1. signed c-bit digits: 2^(c-1) buckets
     2. ONE stable argsort of every window's digit magnitudes [W, B]
-  per window (MSB first):
+  per window (MSB first), span `msm.buckets`:
     3. gather the affine (x, y) by the window's order, negate y where the
        digit is negative, lift to projective with z = 1
     4. segmented inclusive scan of the group law along the lanes
@@ -18,8 +18,10 @@ scatter:
     5. bucket totals at the segment tails, found by searchsorted; empty
        buckets take the identity; bucket 0 (zero digits, identity inputs)
        is never read
+  per window, span `msm.window_sum`:
     6. sum_b b * B_b as a suffix scan and a halving tree
-  recombine: result = sum_w 2^(c w) S_w, c doublings per window.
+    7. recombine: result = sum_w 2^(c w) S_w, c doublings and one add
+  Each public MSM is the span `msm` (`utils/profiling.py`).
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from ..curves import g1 as G1
 from ..curves import g2 as G2
 from ..fields import fp, tower as tw
 from ..limbs import FR
-from ..utils import scans
+from ..utils import profiling, scans
 
 MSM_WINDOW = 12  # bits per window: the JAX package's config.msm_window
 
@@ -53,10 +55,10 @@ def _segmented_scan_add(curve, pts, heads):
     return out
 
 
-def _window_sum(curve_mod, aff_xy, order, mags_s, negs_s, c: int):
-    """One window's sum_b b * B_b from its sorted digits: aff_xy holds the
-    affine (x, y) with the lanes last; order, mags_s, negs_s are [B].
-    Returns a projective point with an empty batch shape."""
+def _window_buckets(curve_mod, aff_xy, order, mags_s, negs_s, c: int):
+    """One window's bucket totals B_1 .. B_half from its sorted digits:
+    aff_xy holds the affine (x, y) with the lanes last; order, mags_s,
+    negs_s are [B].  Returns projective points [half]."""
     curve = curve_mod.CURVE
     f = curve.f
     half = 1 << (c - 1)
@@ -76,34 +78,48 @@ def _window_sum(curve_mod, aff_xy, order, mags_s, negs_s, c: int):
     pos_r = torch.searchsorted(mags_s, bucket_ids, right=True)
     pos_l = torch.searchsorted(mags_s, bucket_ids, right=False)
     tail = (pos_r - 1).clamp(min=0)
-    buckets = scans.tree_map(
+    return scans.tree_map(
         lambda v, i: torch.where(pos_r > pos_l, v, i),
         scans.tree_map(lambda t: t.index_select(-1, tail), scanned),
         curve.identity((half,), dev))
 
-    # sum_b b B_b = the sum of the suffix sums B_half, B_half + B_(half-1), ...
+
+def _bucket_sum(curve, buckets, dev):
+    """sum_b b B_b = the sum of the suffix sums B_half, B_half + B_(half-1),
+    ...; a projective point with an empty batch shape."""
     ident1 = curve.identity((1,), dev)
     suffix = scans.suffix_scan(curve.add, buckets, ident1)
     total = scans.tree_reduce(curve.add, suffix, ident1)
     return scans.tree_map(lambda t: t[..., 0], total)
 
 
-def _msm_pipeline(curve_mod, aff_xy, mags, negs, c: int):
-    """The window loop over signed digits [W, B]: one stable sort up front,
-    then MSB first c doublings and one add per window."""
-    curve = curve_mod.CURVE
+def _sort_digits(mags, negs):
+    """The one stable sort of every window's digit magnitudes [W, B]:
+    (order, sorted magnitudes, their signs)."""
     order = torch.argsort(mags, dim=-1, stable=True)
-    mags_s = torch.take_along_dim(mags, order, dim=-1)
-    negs_s = torch.take_along_dim(negs, order, dim=-1)
-    acc = curve.identity((), mags.device)
-    for w in reversed(range(mags.shape[0])):
-        for _ in range(c):
-            acc = curve.double(acc)
-        acc = curve.add(acc, _window_sum(curve_mod, aff_xy, order[w],
-                                         mags_s[w], negs_s[w], c))
+    return (order, torch.take_along_dim(mags, order, dim=-1),
+            torch.take_along_dim(negs, order, dim=-1))
+
+
+def _msm_windows(curve_mod, aff_xy, sorted_digits, c: int):
+    """The window loop over sorted signed digits [W, B], MSB first: each
+    window's buckets, then their sum, c doublings and one add."""
+    curve = curve_mod.CURVE
+    order, mags_s, negs_s = sorted_digits
+    acc = curve.identity((), order.device)
+    for w in reversed(range(order.shape[0])):
+        with profiling.span("msm.buckets"):
+            buckets = _window_buckets(curve_mod, aff_xy, order[w], mags_s[w],
+                                      negs_s[w], c)
+        with profiling.span("msm.window_sum"):
+            total = _bucket_sum(curve, buckets, order.device)
+            for _ in range(c):
+                acc = curve.double(acc)
+            acc = curve.add(acc, total)
     return acc
 
 
+@profiling.spanned("msm")
 def msm_g1(points_proj, scalars_mont, c: int = MSM_WINDOW, glv: bool = True):
     """sum_i [s_i] P_i over G1 for projective points (x, y, z) [24, B] and
     Montgomery Fr scalars [16, B]; the projective sum, batch shape ().
@@ -112,14 +128,22 @@ def msm_g1(points_proj, scalars_mont, c: int = MSM_WINDOW, glv: bool = True):
     with [z^2]P = -phi(P) = (beta x, -y), so twice the lanes run half the
     windows (128-bit halves).  Valid for subgroup points; glv=False runs the
     plain 255-bit digits for any curve point."""
+    with profiling.span("msm.recode"):
+        aff, mags, negs = _recode_g1(points_proj, scalars_mont, c, glv)
+        digits = _sort_digits(mags, negs)
+    return _msm_windows(G1, aff, digits, c)
+
+
+def _recode_g1(points_proj, scalars_mont, c: int, glv: bool):
+    """msm_g1's affine points and signed digits [W, B'] (B' = 2B with
+    GLV)."""
     canon = limbs.from_mont(FR, scalars_mont)
     # normalize once: the window gathers move two coordinates and the scans
     # start from z = 1; identity lanes get digit 0 (bucket 0, never read)
     ax, ay, inf = G1.to_affine(points_proj)
     if not glv:
         mags, negs = limbs.signed_digits_lsb(canon, 255, c)
-        return _msm_pipeline(G1, (ax, ay), mags.masked_fill(inf[None], 0),
-                             negs, c)
+        return (ax, ay), mags.masked_fill(inf[None], 0), negs
     k2, k1 = limbs.barrett_divmod(canon, params.BLS_X ** 2, 9)
     beta = fp.const(G1.BETA, ax.shape[1:], device=ax.device)
     aff = tuple(torch.cat([a, b], dim=-1)
@@ -128,9 +152,10 @@ def msm_g1(points_proj, scalars_mont, c: int = MSM_WINDOW, glv: bool = True):
     m2, n2 = limbs.signed_digits_lsb(k2, 128, c)
     mags = torch.cat([m1, m2], dim=-1).masked_fill(
         torch.cat([inf, inf])[None], 0)
-    return _msm_pipeline(G1, aff, mags, torch.cat([n1, n2], dim=-1), c)
+    return aff, mags, torch.cat([n1, n2], dim=-1)
 
 
+@profiling.spanned("msm")
 def msm_g1_large(points_proj, scalars_mont, c: int = MSM_WINDOW,
                  glv: bool = True, chunk_log2: int = 21):
     """msm_g1 over chunks of 2^chunk_log2 points, folded with single group
@@ -159,6 +184,7 @@ def _gls_points(ax, ay):
                           (p4[0], tw.fp2_neg(p4[1])))
 
 
+@profiling.spanned("msm")
 def msm_g2(points_proj, scalars_mont, c: int = MSM_WINDOW, gls: bool = True):
     """sum_i [s_i] P_i over G2 (points: tuples of Fp2 coordinates).
 
@@ -167,12 +193,20 @@ def msm_g2(points_proj, scalars_mont, c: int = MSM_WINDOW, gls: bool = True):
     64-bit digits run against P, -psi(P), psi^2(P), -psi^3(P), a quarter
     of the windows.  Subgroup points only; gls=False runs the plain 255-bit
     digits."""
+    with profiling.span("msm.recode"):
+        aff, mags, negs = _recode_g2(points_proj, scalars_mont, c, gls)
+        digits = _sort_digits(mags, negs)
+    return _msm_windows(G2, aff, digits, c)
+
+
+def _recode_g2(points_proj, scalars_mont, c: int, gls: bool):
+    """msm_g2's affine points and signed digits [W, B'] (B' = 4B with
+    GLS)."""
     canon = limbs.from_mont(FR, scalars_mont)
     ax, ay, inf = G2.to_affine(points_proj)  # as in msm_g1
     if not gls:
         mags, negs = limbs.signed_digits_lsb(canon, 255, c)
-        return _msm_pipeline(G2, (ax, ay), mags.masked_fill(inf[None], 0),
-                             negs, c)
+        return (ax, ay), mags.masked_fill(inf[None], 0), negs
     x = params.BLS_X
     q3, r3 = limbs.barrett_divmod(canon, x ** 3, 5)
     q2, r2 = limbs.barrett_divmod(r3, x ** 2, 5)
@@ -182,5 +216,4 @@ def msm_g2(points_proj, scalars_mont, c: int = MSM_WINDOW, gls: bool = True):
     parts = [limbs.signed_digits_lsb(k, 64, c) for k in (c0, q1, q2, q3)]
     mags = torch.cat([m for m, _ in parts], dim=-1).masked_fill(
         torch.cat([inf] * 4)[None], 0)
-    return _msm_pipeline(G2, aff, mags, torch.cat([n for _, n in parts],
-                                                  dim=-1), c)
+    return aff, mags, torch.cat([n for _, n in parts], dim=-1)

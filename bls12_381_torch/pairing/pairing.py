@@ -29,6 +29,7 @@ from .. import params
 from ..curves import g2 as G2
 from ..fields import fp, tower as tw
 from ..kernels import plan_exec as pe
+from ..utils import profiling
 
 # ---------------------------------------------------------------------------
 # Static schedules from the bits of BLS_X below the MSB
@@ -256,9 +257,14 @@ def final_exponentiation(f):
 # ---------------------------------------------------------------------------
 
 
+@profiling.spanned("pairing")
 def pairing(p_aff, q_aff):
-    """e(P_i, Q_i) for batches of affine points (pairings.rs:607-653)."""
-    return final_exponentiation(miller_loop_batched(p_aff, prepare_g2(q_aff)))
+    """e(P_i, Q_i) for batches of affine points (pairings.rs:607-653); the
+    spans `pairing.miller` and `pairing.final_exp` inside `pairing`."""
+    with profiling.span("pairing.miller"):
+        f = miller_loop_batched(p_aff, prepare_g2(q_aff))
+    with profiling.span("pairing.final_exp"):
+        return final_exponentiation(f)
 
 
 def pairing_batched(p_aff, q_aff):

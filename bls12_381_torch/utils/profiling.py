@@ -1,28 +1,170 @@
-"""Tracing and timing helpers (counterpart of
-`bls12_381_tpu/utils/profiling.py`), over `torch.profiler` and the host
-clock, with the roofline of one NVIDIA H100 SXM.
+"""Tracing of the port (counterpart of `bls12_381_tpu/utils/profiling.py`):
+a `torch.profiler` scope, and the program's own spans at the stage
+boundaries of its public paths, with the peaks of one NVIDIA H100 SXM.
+
+A span records while a `torch.profiler` session is active in the process
+and costs one flag read otherwise: its name, its id and the id of the span
+around it (per thread), its start and end on the host's wall clock
+(`time.time_ns`, the clock the profiler stamps device events on), the
+port's kernel launches inside it (`kernels.LAUNCHES.port_total()`) and,
+where CUDA is in use, its time on the current stream from a pair of CUDA
+events.  Up to MAX_SPANS are kept; the rest are counted in `dropped()`.
 
 Usage:
     from bls12_381_torch.utils import profiling
     with profiling.trace("traces/pairing"):
         out = pairing(p, q)
-    profiling.time_fn(pairing, p, q)   # best wall seconds of reps
-    profiling.fp_mul_roofline(1024, seconds)
+    # traces/pairing holds the torch trace (TensorBoard's profiler plugin or
+    # chrome://tracing) and program_spans.json: the spans the scope saw
+
+    with profiling.span("pairing.final_exp"):   # in the program
+        ...
+    profiling.spans()   # [{"name", "id", "parent", "start_ns", "end_ns",
+                        #   "launches", "stream_ms"}], oldest first
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
+import itertools
+import json
+import os
+import threading
 import time
 
 import torch
-from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+from torch.autograd import profiler as _autograd_profiler
+
+from ..kernels import LAUNCHES
 
 # one H100 SXM at its full power limit: HBM3 bytes per second, and 32-bit
 # integer multiply-adds per second, 132 SMs x 64 per clock (CUDA C
 # Programming Guide throughput table, compute capability 9.0) x 1.98 GHz
 HBM_BYTES_PER_S = 3.35e12
 IMAD_PER_S = 132 * 64 * 1.98e9
+
+MAX_SPANS = 1 << 16
+SPANS_FILE = "program_spans.json"
+
+
+class _Span:
+    """One span: entered and exited once."""
+    __slots__ = ("name", "id", "parent", "start_ns", "end_ns",
+                 "launches_in", "launches_out", "events", "stream_ms")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.end_ns = self.launches_out = self.events = self.stream_ms = None
+
+    def __enter__(self):
+        global _dropped
+        stack = _stack()
+        self.parent = stack[-1] if stack else None
+        with _lock:
+            if len(_spans) >= MAX_SPANS:
+                _dropped += 1
+                self.id = None
+                return self
+            self.id = next(_ids)
+            _spans.append(self)
+        stack.append(self.id)
+        if torch.cuda.is_initialized():
+            self.events = (torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True))
+            self.events[0].record()
+        self.launches_in = LAUNCHES.port_total()
+        self.start_ns = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        if self.id is None:
+            return False
+        self.end_ns = time.time_ns()
+        self.launches_out = LAUNCHES.port_total()
+        if self.events is not None:
+            self.events[1].record()
+        _stack().pop()
+        return False
+
+    def record(self) -> dict:
+        if self.events is not None and self.end_ns is not None:
+            start, end = self.events
+            end.synchronize()
+            self.stream_ms = start.elapsed_time(end)
+            self.events = None
+        return {"name": self.name, "id": self.id, "parent": self.parent,
+                "start_ns": self.start_ns, "end_ns": self.end_ns,
+                "launches": None if self.launches_out is None
+                else self.launches_out - self.launches_in,
+                "stream_ms": self.stream_ms}
+
+
+class _Off:
+    """The span while no profiler is active: records nothing."""
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+_spans: list[_Span] = []
+_dropped = 0
+_ids = itertools.count()
+_lock = threading.Lock()
+_local = threading.local()
+
+
+def _stack() -> list:
+    stack = getattr(_local, "stack", None)
+    if stack is None:
+        stack = _local.stack = []
+    return stack
+
+
+def span(name: str):
+    """A context that records the span `name` while a torch.profiler
+    session is active, and does nothing else otherwise."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(name)
+
+
+def spanned(name: str):
+    """Decorator: each call of the function is the span `name`."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return inner
+    return wrap
+
+
+def spans() -> list[dict]:
+    """The recorded spans, oldest first; a span still open has end_ns,
+    launches and stream_ms None.  Reading a span's stream time waits for
+    its end event."""
+    with _lock:
+        kept = list(_spans)
+    return [s.record() for s in kept]
+
+
+def dropped() -> int:
+    """Spans not recorded because MAX_SPANS were kept."""
+    return _dropped
+
+
+def clear() -> None:
+    """Forget the recorded spans and the dropped count."""
+    global _dropped
+    with _lock:
+        _spans.clear()
+        _dropped = 0
 
 
 def _sync() -> None:
@@ -34,53 +176,22 @@ def _sync() -> None:
 def trace(logdir: str):
     """torch.profiler scope over the host and, where there is a card, its
     kernels; the trace is written under logdir for TensorBoard's profiler
-    plugin (or chrome://tracing)."""
+    plugin (or chrome://tracing), and the program's spans recorded inside
+    the scope to logdir/program_spans.json."""
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
+    first, dropped_before = next(_ids), _dropped
     with profile(activities=activities,
                  on_trace_ready=tensorboard_trace_handler(logdir)):
         try:
             yield
         finally:
             _sync()
-
-
-def time_fn(fn, *args, reps: int = 3, warmup: int = 1) -> float:
-    """Best-of-reps wall seconds of fn(*args), each call ending in
-    `torch.cuda.synchronize()` where there is a card."""
-    for _ in range(warmup):
-        fn(*args)
-        _sync()
-    best = float("inf")
-    for _ in range(reps):
-        _sync()
-        t0 = time.perf_counter()
-        fn(*args)
-        _sync()
-        best = min(best, time.perf_counter() - t0)
-    return best
-
-
-def fp_mul_roofline(batch: int, seconds: float, n_limbs: int = 24) -> dict:
-    """Roofline of `batch` Montgomery products over n_limbs 16-bit limbs
-    (24: Fp, 16: Fr) done in `seconds`, against one H100: 32-bit
-    multiplies per product 4 W^2 + W over W = n_limbs / 2 words (the
-    product's and the reduction's W^2 word products, a wide product counting
-    lo and hi: `chip_smoke.sop_imads(1, W)`), bytes per product the two
-    operands read and the result written once (int32 limbs)."""
-    words = n_limbs // 2
-    imads = 4 * words * words + words
-    n_bytes = 3 * 4 * n_limbs
-    bound_s = batch * max(imads / IMAD_PER_S, n_bytes / HBM_BYTES_PER_S)
-    return {
-        "elements_per_s": batch / seconds,
-        "imads_per_s": batch * imads / seconds,
-        "imad_fraction_of_peak": batch * imads / seconds / IMAD_PER_S,
-        "bytes_per_s": batch * n_bytes / seconds,
-        "hbm_fraction_of_peak": batch * n_bytes / seconds / HBM_BYTES_PER_S,
-        "bound_s": bound_s,
-        "bound_by": "operations" if imads / IMAD_PER_S
-        >= n_bytes / HBM_BYTES_PER_S else "bytes",
-        "fraction_of_bound": bound_s / seconds,
-    }
+    seen = [s for s in spans() if s["id"] > first]
+    os.makedirs(logdir, exist_ok=True)
+    with open(os.path.join(logdir, SPANS_FILE), "w") as f:
+        json.dump({"dropped": _dropped - dropped_before, "spans": seen}, f)

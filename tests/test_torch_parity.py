@@ -44,6 +44,9 @@ NO_NAME = {
     # the SSWU and isogeny constants are literals in params.ISO_CONSTS
     # (held to tests/vectors/ref_constants.json), not a JSON read at import
     "hostmath.py": {"_CONSTS_PATH", "_load_consts"},
+    # a best-of time (it hides the tail) and a roofline that nothing read:
+    # the benchmark's yardstick is portbench/, the port's tracing its spans
+    "utils/profiling.py": {"time_fn", "fp_mul_roofline"},
 }
 COPIES = {"hostmath.py", "params.py"}
 

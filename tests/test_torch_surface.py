@@ -1,7 +1,7 @@
 """The rest of the public surface of the ported modules on the CPU, against
 the JAX package: `tower.fp2_mul_fp`, `fp2_sop`, `fp6_mul_by_0`,
-`fp6_mul_by_12`, `fp12_add`, `pairing.pairing_batched`, and the helpers of
-`utils/profiling.py`.
+`fp6_mul_by_12`, `fp12_add`, `pairing.pairing_batched`, and
+`utils/profiling.trace`.
 
 Tolerance: none (integer arithmetic) -- field elements compare limb for
 limb with the JAX tower's (eager jnp on the CPU), pairings with the host
@@ -11,6 +11,7 @@ comparison is `heavy`).  Elements are seeded random with the edge values 0,
 numpy.
 """
 
+import json
 import random
 
 import jax.numpy as jnp
@@ -125,25 +126,12 @@ def test_pairing_batched_matches_jax():
     assert same(pr.pairing_batched(p, q), want)
 
 
-def test_fp_mul_roofline():
-    """An Fp product: 4 W^2 + W = 588 multiplies (W = 12 words), 288 bytes;
-    bound by bytes on one H100 (as PERF.md's T = 1 rows are)."""
-    r = profiling.fp_mul_roofline(1 << 20, 1.0)
-    assert r["elements_per_s"] == 1 << 20
-    assert r["imads_per_s"] == 588 * (1 << 20)
-    assert r["bytes_per_s"] == 288 * (1 << 20)
-    assert r["bound_by"] == "bytes"
-    assert r["bound_s"] == pytest.approx(288 * (1 << 20)
-                                         / profiling.HBM_BYTES_PER_S,
-                                         rel=1e-12)
-    fr_rate = profiling.fp_mul_roofline(1, 1.0, n_limbs=16)
-    assert fr_rate["imads_per_s"] == 4 * 64 + 8
-
-
 def test_time_fn_and_trace(tmp_path):
-    calls = []
-    t = profiling.time_fn(lambda x: calls.append(x), 1, reps=2, warmup=1)
-    assert t >= 0 and calls == [1, 1, 1]
+    """`trace()` writes the torch trace and, beside it, the program's spans
+    recorded inside it."""
     with profiling.trace(str(tmp_path)):
-        torch.ones(4).sum()
-    assert list(tmp_path.glob("*.json"))
+        with profiling.span("sum"):
+            torch.ones(4).sum()
+    spans = json.loads((tmp_path / profiling.SPANS_FILE).read_text())
+    assert [s["name"] for s in spans["spans"]] == ["sum"]
+    assert len(list(tmp_path.glob("*.json"))) == 2
