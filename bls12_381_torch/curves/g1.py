@@ -18,7 +18,7 @@ from .. import hostmath as hm
 from .. import limbs, params
 from ..fields import fp
 from ..kernels import plan_exec as pe
-from ..utils import profiling
+from ..utils import graphs, profiling
 from .weierstrass import FieldFns, Weierstrass
 
 _FNS = FieldFns(
@@ -75,6 +75,7 @@ def _phi_x(p):
     return fp.mul(fp.const(BETA, p[0].shape[1:], device=p[0].device), p[0])
 
 
+@graphs.releasing
 def scalar_mul(p, scalars_mont):
     """[s]P by the GLV split: phi acts as [-z^2] on the subgroup
     (g1.rs:401-410), so s = k1 + k2 z^2 with k1, k2 < 2^128 gives
@@ -214,6 +215,7 @@ def _decompress_device(x, inf, sort, check_subgroup: bool):
 
 
 @profiling.spanned("codec.decode")
+@graphs.releasing
 def from_compressed_host(data, check_subgroup: bool = True, device="cuda"):
     """uint8 [*batch, 48] -> (affine batch on `device`, numpy valid mask).
     An invalid encoding is masked rather than raised (the batched CtOption
@@ -245,6 +247,7 @@ def _from_uncompressed_device(x, y, inf, check: bool):
     return aff, zeros, ok
 
 
+@graphs.releasing
 def from_uncompressed_host(data, check: bool = True, device="cuda"):
     """uint8 [*batch, 96] -> (affine batch on `device`, numpy valid mask):
     invalid are a set compression or sort bit, a coordinate >= p, an

@@ -20,7 +20,7 @@ from .. import limbs, params
 from ..fields import fp, tower as tw
 from . import g1 as _g1
 from ..kernels import plan_exec as pe
-from ..utils import profiling
+from ..utils import graphs, profiling
 from .weierstrass import FieldFns, Weierstrass
 
 _FNS = FieldFns(
@@ -95,6 +95,7 @@ def psi2(p):
     return psi(psi(p))
 
 
+@graphs.releasing
 def scalar_mul(p, scalars_mont):
     """[s]P by the 4-way GLS split: psi acts as [z] on the subgroup
     (g2.rs:475-482), so s = c0 + c1|z| + c2|z|^2 + c3|z|^3 (base-|z|
@@ -214,6 +215,7 @@ def _decompress_device(x, inf, sort, check_subgroup: bool):
 
 
 @profiling.spanned("codec.decode")
+@graphs.releasing
 def from_compressed_host(data, check_subgroup: bool = True, device="cuda"):
     """uint8 [*batch, 96] -> (affine batch on `device`, numpy valid mask),
     with g1.from_compressed_host's rules over Fp2."""
@@ -242,6 +244,7 @@ def _from_uncompressed_device(x, y, inf, check: bool):
     return aff, zeros, ok
 
 
+@graphs.releasing
 def from_uncompressed_host(data, check: bool = True, device="cuda"):
     """uint8 [*batch, 192] -> (affine batch on `device`, numpy valid mask),
     with g1.from_uncompressed_host's rules over Fp2."""

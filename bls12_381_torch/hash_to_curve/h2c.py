@@ -31,7 +31,7 @@ from ..curves import g1 as G1
 from ..curves import g2 as G2
 from ..fields import fp, fr, tower as tw
 from ..kernels import sha256
-from ..utils import profiling, scans
+from ..utils import graphs, profiling, scans
 
 # isogeny and SSWU constants (draft-16 appendix E; canonical ints)
 _C = params.ISO_CONSTS
@@ -214,6 +214,7 @@ def _halves(q):
 
 
 @profiling.spanned("h2c")
+@graphs.releasing
 def hash_to_curve_g1(msgs, dst, expand=hm.expand_message_xmd, device="cuda",
                      **kw):
     """Batched hash_to_curve: messages -> projective G1 batch [B].
@@ -224,6 +225,7 @@ def hash_to_curve_g1(msgs, dst, expand=hm.expand_message_xmd, device="cuda",
 
 
 @profiling.spanned("h2c")
+@graphs.releasing
 def encode_to_curve_g1(msgs, dst, expand=hm.expand_message_xmd,
                        device="cuda", **kw):
     u = _field(False, msgs, dst, 1, expand, device, kw)
@@ -231,6 +233,7 @@ def encode_to_curve_g1(msgs, dst, expand=hm.expand_message_xmd,
 
 
 @profiling.spanned("h2c")
+@graphs.releasing
 def hash_to_curve_g2(msgs, dst, expand=hm.expand_message_xmd, device="cuda",
                      **kw):
     u = _field(True, msgs, dst, 2, expand, device, kw)
@@ -238,6 +241,7 @@ def hash_to_curve_g2(msgs, dst, expand=hm.expand_message_xmd, device="cuda",
 
 
 @profiling.spanned("h2c")
+@graphs.releasing
 def encode_to_curve_g2(msgs, dst, expand=hm.expand_message_xmd,
                        device="cuda", **kw):
     u = _field(True, msgs, dst, 1, expand, device, kw)

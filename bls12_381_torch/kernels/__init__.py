@@ -9,7 +9,11 @@ kernel, and nowhere else (a CPU tensor takes the plain PyTorch version and
 counts nothing), so a run can show which kernels its path went through.
 `copied_rows` is not a launch count: it counts the operands `mont.sop_rows`
 had to copy before a launch because their batch axes do not collapse to two
-lane strides (on either device, so the CPU tests see it too).
+lane strides (on either device, so the CPU tests see it too).  A launch
+recorded into a CUDA graph's capture is not counted; each replay of the
+graph adds the counts its capture recorded (`utils/graphs.py`), so the
+counts stay those of the launches the card ran.  `GRAPHS` counts what
+those graphs did.
 """
 
 from __future__ import annotations
@@ -48,6 +52,29 @@ class LaunchCounts:
         out["plan_exec_by_plan"] = dict(self.plan_exec_by_plan)
         return out
 
+    def since(self, before: dict) -> dict:
+        """The counts added since the snapshot `before`."""
+        now = self.snapshot()
+        out = {k: v - before[k] for k, v in now.items()
+               if k != "plan_exec_by_plan"}
+        out["plan_exec_by_plan"] = dict(
+            collections.Counter(now["plan_exec_by_plan"])
+            - collections.Counter(before["plan_exec_by_plan"]))
+        return out
+
+    def add(self, counts: dict) -> None:
+        """Add counts in the form of `since`'s."""
+        for k, v in counts.items():
+            if k == "plan_exec_by_plan":
+                self.plan_exec_by_plan.update(v)
+            else:
+                setattr(self, k, getattr(self, k) + v)
+
+    def restore(self, snap: dict) -> None:
+        """Set every count back to a snapshot's."""
+        self.reset()
+        self.add(snap)
+
     def port_total(self) -> int:
         """Every launch of the port's kernels so far: the sum of the launch
         counts (`copied_rows` counts copies, `plan_exec_by_plan` splits
@@ -58,3 +85,27 @@ class LaunchCounts:
 _LAUNCH_FIELDS = tuple(f.name for f in dataclasses.fields(LaunchCounts)
                        if f.name not in ("copied_rows", "plan_exec_by_plan"))
 LAUNCHES = LaunchCounts()
+
+
+@dataclasses.dataclass
+class GraphCounts:
+    """What the CUDA graphs did (`utils/graphs.py`): graphs captured, calls
+    replayed from one, calls on the card run eagerly (the first at a shape,
+    any under a profiler before its shape was captured, and every call at
+    a shape whose capture raised or whose graph was too large to keep),
+    captures that raised, and graphs too large to keep."""
+    captures: int = 0
+    replays: int = 0
+    eager: int = 0
+    fallbacks: int = 0
+    oversize: int = 0
+
+    def reset(self) -> None:
+        for f in dataclasses.fields(self):
+            setattr(self, f.name, f.default)
+
+    def snapshot(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+GRAPHS = GraphCounts()

@@ -50,6 +50,8 @@
 //     op 1 add: dst = src0 + src1      op 3 neg: dst = -src0
 //     op 2 sub: dst = src0 - src1      op 4 sop: dst = sum_t src[2t] src[2t+1]
 //   all mod p and canonical; sop takes T <= 8 with one reduction.
+#include <atomic>
+
 #include "fp384.cuh"
 
 using namespace montgomery;
@@ -181,6 +183,26 @@ plan_kernel(const int32_t* __restrict__ ops, int32_t* __restrict__ out,
   }
 }
 
+// plan_kernel's ceiling on dynamic shared memory, raised to kMaxSmem once
+// per device (bit d: device d) at its first launch above the static 48 KB.
+// cudaFuncSetAttribute is no launch: a later launch holds the launch and
+// cudaGetLastError alone, all that a stream capture records.
+std::atomic<unsigned long long> g_smem_raised{0};
+
+cudaError_t allow_smem(int smem_bytes) {
+  if (smem_bytes <= kStaticSmem) return cudaSuccess;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (bit && (g_smem_raised.load() & bit)) return cudaSuccess;
+  e = cudaFuncSetAttribute(plan_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kMaxSmem);
+  if (e == cudaSuccess) g_smem_raised.fetch_or(bit);
+  return e;
+}
+
 }  // namespace
 
 // One launch over B lanes in tiles of 2^lt_log2 lanes, `threads` threads and
@@ -196,11 +218,8 @@ extern "C" int bls_plan_exec(const void* ops, void* out, const void* program,
       smem_bytes > kMaxSmem) {
     return (int)cudaErrorInvalidValue;
   }
-  if (smem_bytes > kStaticSmem) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        plan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-    if (e != cudaSuccess) return (int)e;
-  }
+  const cudaError_t e = allow_smem(smem_bytes);
+  if (e != cudaSuccess) return (int)e;
   const int grid = (B + (1 << lt_log2) - 1) >> lt_log2;
   plan_kernel<<<grid, threads, smem_bytes, (cudaStream_t)stream>>>(
       (const int32_t*)ops, (int32_t*)out, (const uint4*)program,

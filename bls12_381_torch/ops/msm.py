@@ -22,6 +22,16 @@ scatter:
     6. sum_b b * B_b as a suffix scan and a halving tree
     7. recombine: result = sum_w 2^(c w) S_w, c doublings and one add
   Each public MSM is the span `msm` (`utils/profiling.py`).
+
+On a card the launch sequence of steps 0-7 is fixed by the group, N, c and
+the endomorphism split: nothing in it reads data back to the host.  So
+`msm_g1` and `msm_g2` run it from a CUDA graph per shape
+(`utils/graphs.py`): the first call at a shape runs eagerly, the second
+captures and replays, and every later call replays, its span
+`msm.replay` holding the stage spans.  A replay is one launch of host work
+where the eager call dispatches some 6,000 (N = 4096, c = 12).  Up to four
+shapes keep their graphs, whose pools hold at most an eighth of the
+card's memory.  CPU tensors run the steps as written.
 """
 
 from __future__ import annotations
@@ -33,7 +43,7 @@ from ..curves import g1 as G1
 from ..curves import g2 as G2
 from ..fields import fp, tower as tw
 from ..limbs import FR
-from ..utils import profiling, scans
+from ..utils import graphs, profiling, scans
 
 MSM_WINDOW = 12  # bits per window: the JAX package's config.msm_window
 
@@ -128,6 +138,11 @@ def msm_g1(points_proj, scalars_mont, c: int = MSM_WINDOW, glv: bool = True):
     with [z^2]P = -phi(P) = (beta x, -y), so twice the lanes run half the
     windows (128-bit halves).  Valid for subgroup points; glv=False runs the
     plain 255-bit digits for any curve point."""
+    return graphs.graphed("msm.replay", _msm_g1, (points_proj, scalars_mont),
+                          c, glv)
+
+
+def _msm_g1(points_proj, scalars_mont, c: int, glv: bool):
     with profiling.span("msm.recode"):
         aff, mags, negs = _recode_g1(points_proj, scalars_mont, c, glv)
         digits = _sort_digits(mags, negs)
@@ -193,6 +208,11 @@ def msm_g2(points_proj, scalars_mont, c: int = MSM_WINDOW, gls: bool = True):
     64-bit digits run against P, -psi(P), psi^2(P), -psi^3(P), a quarter
     of the windows.  Subgroup points only; gls=False runs the plain 255-bit
     digits."""
+    return graphs.graphed("msm.replay", _msm_g2, (points_proj, scalars_mont),
+                          c, gls)
+
+
+def _msm_g2(points_proj, scalars_mont, c: int, gls: bool):
     with profiling.span("msm.recode"):
         aff, mags, negs = _recode_g2(points_proj, scalars_mont, c, gls)
         digits = _sort_digits(mags, negs)

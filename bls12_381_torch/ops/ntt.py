@@ -20,6 +20,7 @@ import torch
 
 from .. import params
 from ..fields import fr
+from ..utils import graphs
 
 
 def _master_twiddles(log_n: int, inverse: bool, device) -> torch.Tensor:
@@ -47,6 +48,7 @@ def _bit_reverse_perm(log_n: int, device) -> torch.Tensor:
     return rev
 
 
+@graphs.releasing
 def ntt(coeffs: torch.Tensor, inverse: bool = False,
         _skip_scale: bool = False) -> torch.Tensor:
     """In-order radix-2 NTT of an Fr batch [16, *batch, N].
@@ -86,10 +88,12 @@ def ntt(coeffs: torch.Tensor, inverse: bool = False,
     return x
 
 
+@graphs.releasing
 def intt(evals: torch.Tensor) -> torch.Tensor:
     return ntt(evals, inverse=True)
 
 
+@graphs.releasing
 def poly_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Polynomial product via the NTT (convolution theorem), sizes padded
     to the next power of two >= deg(a) + deg(b) + 1."""

@@ -18,7 +18,7 @@ from __future__ import annotations
 from .. import hostmath as hm
 from .. import limbs, params
 from ..fields import tower as tw
-from ..utils import scans
+from ..utils import graphs, scans
 
 identity = tw.fp12_one
 add = tw.fp12_mul
@@ -55,6 +55,7 @@ def _broadcast_to_batch(a, batch):
         (t.shape[0],) + full), a)
 
 
+@graphs.releasing
 def scalar_mul(gt, scalars_mont):
     """[k]a for Gt elements a = `gt` and Montgomery Fr scalars [16, *batch]
     by the 4-way GLS split: the Frobenius acts as [z] on the order-q

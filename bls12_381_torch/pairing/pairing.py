@@ -29,7 +29,7 @@ from .. import params
 from ..curves import g2 as G2
 from ..fields import fp, tower as tw
 from ..kernels import plan_exec as pe
-from ..utils import profiling
+from ..utils import graphs, profiling
 
 # ---------------------------------------------------------------------------
 # Static schedules from the bits of BLS_X below the MSB
@@ -258,6 +258,7 @@ def final_exponentiation(f):
 
 
 @profiling.spanned("pairing")
+@graphs.releasing
 def pairing(p_aff, q_aff):
     """e(P_i, Q_i) for batches of affine points (pairings.rs:607-653); the
     spans `pairing.miller` and `pairing.final_exp` inside `pairing`."""

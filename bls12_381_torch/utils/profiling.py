@@ -10,6 +10,17 @@ port's kernel launches inside it (`kernels.LAUNCHES.port_total()`) and,
 where CUDA is in use, its time on the current stream from a pair of CUDA
 events.  Up to MAX_SPANS are kept; the rest are counted in `dropped()`.
 
+A body captured into a CUDA graph runs on the host once, at its capture,
+never at its replays.  So inside `capturing()` every span is recorded,
+profiler or not, as a template (`Captured`): its name, nesting and launch
+count, and its pair of timing events recorded as external events, which
+makes them nodes of the graph.  A replay inside `replaying(name, captured)`
+is the span `name`, and while a profiler is active the template's spans
+are recorded again as its children once the replay is launched: stamped
+with the replay's host times, the capture's launch counts, and the stream
+ms that the graph's events read after that replay (one wait for the
+stream, only while a profiler is active: the next replay rewrites them).
+
 Usage:
     from bls12_381_torch.utils import profiling
     with profiling.trace("traces/pairing"):
@@ -100,6 +111,74 @@ class _Span:
                 "stream_ms": self.stream_ms}
 
 
+class _CaptureSpan:
+    """A span opened while a CUDA graph is captured: an entry of the
+    template."""
+    __slots__ = ("rec", "name", "index", "launches_in")
+
+    def __init__(self, rec: "Captured", name: str):
+        self.rec, self.name = rec, name
+
+    def __enter__(self):
+        rec = self.rec
+        events = None
+        if torch.cuda.is_initialized():
+            events = (torch.cuda.Event(enable_timing=True, external=True),
+                      torch.cuda.Event(enable_timing=True, external=True))
+            events[0].record()
+        self.index = len(rec.spans)
+        rec.spans.append([self.name, rec.stack[-1] if rec.stack else None,
+                          None, events])
+        rec.stack.append(self.index)
+        self.launches_in = LAUNCHES.port_total()
+        return self
+
+    def __exit__(self, *exc):
+        entry = self.rec.spans[self.index]
+        entry[2] = LAUNCHES.port_total() - self.launches_in
+        if entry[3] is not None:
+            entry[3][1].record()
+        self.rec.stack.pop()
+        return False
+
+
+class Captured:
+    """The spans a body opened while it was captured into a CUDA graph, in
+    the order they opened: [name, index of the span around it or None,
+    port launches inside it, (start, end) events of the graph or None]."""
+
+    def __init__(self):
+        self.spans: list[list] = []
+        self.stack: list[int] = []
+
+    def emit(self, outer: _Span) -> None:
+        """Record the template's spans as children of the open span `outer`
+        (the replay): its start, now, the captured launch counts, and the
+        stream ms the events read after the replay."""
+        global _dropped
+        end_ns = time.time_ns()
+        ids = []
+        for name, up, launches, events in self.spans:
+            s = _Span(name)
+            s.parent = (outer.parent if outer.id is None else outer.id) \
+                if up is None else ids[up]
+            s.start_ns, s.end_ns = outer.start_ns, end_ns
+            s.launches_in, s.launches_out = 0, launches
+            if events is not None:
+                events[1].synchronize()
+                s.stream_ms = events[0].elapsed_time(events[1])
+            with _lock:
+                if len(_spans) >= MAX_SPANS:
+                    _dropped += 1
+                    s.id = None
+                else:
+                    s.id = next(_ids)
+                    _spans.append(s)
+            # a dropped span's children hang from its parent, as they do
+            # on a call that runs eagerly
+            ids.append(s.parent if s.id is None else s.id)
+
+
 class _Off:
     """The span while no profiler is active: records nothing."""
     __slots__ = ()
@@ -126,12 +205,46 @@ def _stack() -> list:
     return stack
 
 
+def active() -> bool:
+    """Whether a torch.profiler session is active: spans record."""
+    return _autograd_profiler._is_profiler_enabled
+
+
 def span(name: str):
     """A context that records the span `name` while a torch.profiler
-    session is active, and does nothing else otherwise."""
+    session is active, and does nothing else otherwise; inside
+    `capturing()`, an entry of the capture's template."""
+    rec = getattr(_local, "capture", None)
+    if rec is not None:
+        return _CaptureSpan(rec, name)
     if not _autograd_profiler._is_profiler_enabled:
         return _OFF
     return _Span(name)
+
+
+@contextlib.contextmanager
+def capturing():
+    """Around the capture of a CUDA graph: the spans opened on this thread
+    inside make the `Captured` template it yields, whether or not a
+    profiler is active."""
+    rec = Captured()
+    before = getattr(_local, "capture", None)
+    _local.capture = rec
+    try:
+        yield rec
+    finally:
+        _local.capture = before
+
+
+@contextlib.contextmanager
+def replaying(name: str, captured: Captured):
+    """The span `name` around a replay of the graph whose capture made
+    `captured`; while a profiler is active, the template's spans are
+    recorded as its children when the body returns."""
+    with span(name) as outer:
+        yield
+        if outer is not None:
+            captured.emit(outer)
 
 
 def spanned(name: str):
