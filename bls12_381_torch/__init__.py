@@ -36,8 +36,10 @@ Layers:
                      clearing, psi, to_affine, the byte codecs
   pairing          — G2 preparation, Miller loop, final exponentiation;
                      Gt (gt.py)
-  ops              — the NTT over Fr (ntt, intt, poly_mul) and the MSM
-                     (msm_g1, msm_g1_large, msm_g2)
+  ops              — the NTT over Fr (ntt, intt, poly_mul), the MSM
+                     (msm_g1, msm_g1_large, msm_g2) and the validator key
+                     registry summed by index (aggregate.KeyRegistry:
+                     register, aggregate; the MSM's segmented sum)
   hash_to_curve    — hash_to_field, SSWU, the isogenies, hash_to_curve and
                      encode_to_curve for G1 and G2 (draft-16)
   parallel         — meshes of ranks (DeviceMesh), msm_g1/g2_sharded,

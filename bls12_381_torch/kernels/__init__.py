@@ -13,7 +13,7 @@ lane strides (on either device, so the CPU tests see it too).  A launch
 recorded into a CUDA graph's capture is not counted; each replay of the
 graph adds the counts its capture recorded (`utils/graphs.py`), so the
 counts stay those of the launches the card ran.  `GRAPHS` counts what
-those graphs did.
+those graphs did, `AGGREGATES` the key sums of `ops/aggregate.py`.
 """
 
 from __future__ import annotations
@@ -87,8 +87,19 @@ _LAUNCH_FIELDS = tuple(f.name for f in dataclasses.fields(LaunchCounts)
 LAUNCHES = LaunchCounts()
 
 
+class _Counts:
+    """Counters of a dataclass of ints: reset and read as a dict."""
+
+    def reset(self) -> None:
+        for f in dataclasses.fields(self):
+            setattr(self, f.name, f.default)
+
+    def snapshot(self) -> dict:
+        return dataclasses.asdict(self)
+
+
 @dataclasses.dataclass
-class GraphCounts:
+class GraphCounts(_Counts):
     """What the CUDA graphs did (`utils/graphs.py`): graphs captured, calls
     replayed from one, calls on the card run eagerly (the first at a shape,
     any under a profiler before its shape was captured, and every call at
@@ -100,12 +111,18 @@ class GraphCounts:
     fallbacks: int = 0
     oversize: int = 0
 
-    def reset(self) -> None:
-        for f in dataclasses.fields(self):
-            setattr(self, f.name, f.default)
-
-    def snapshot(self) -> dict:
-        return dataclasses.asdict(self)
-
 
 GRAPHS = GraphCounts()
+
+
+@dataclasses.dataclass
+class AggregateCounts(_Counts):
+    """What the key sums of `ops/aggregate.py` did, on either device:
+    calls of `KeyRegistry.aggregate`, the sets they were given and the
+    keys they gathered."""
+    calls: int = 0
+    sets: int = 0
+    keys: int = 0
+
+
+AGGREGATES = AggregateCounts()

@@ -1,3 +1,4 @@
-"""Batched operations: the radix-2 NTT over Fr and Pippenger MSM."""
+"""Batched operations: the radix-2 NTT over Fr, Pippenger MSM, and the
+resident validator key table summed by index (`aggregate`)."""
 
-from . import msm, ntt  # noqa: F401
+from . import aggregate, msm, ntt  # noqa: F401

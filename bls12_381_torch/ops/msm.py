@@ -18,6 +18,8 @@ scatter:
     5. bucket totals at the segment tails, found by searchsorted; empty
        buckets take the identity; bucket 0 (zero digits, identity inputs)
        is never read
+    Steps 3-5 are `segment_sums`, which `ops/aggregate.py` shares to sum
+    validator keys by index.
   per window, span `msm.window_sum`:
     6. sum_b b * B_b as a suffix scan and a halving tree
     7. recombine: result = sum_w 2^(c w) S_w, c doublings and one add
@@ -35,6 +37,8 @@ card's memory.  CPU tensors run the steps as written.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -65,33 +69,55 @@ def _segmented_scan_add(curve, pts, heads):
     return out
 
 
+def segment_sums(curve_mod, aff_xy, order, heads, tail, present, negs=None,
+                 stage: str | None = None):
+    """Sums of segments of gathered affine points, the one bucket
+    accumulation of the MSM and of `ops/aggregate.py`'s key sums: the lanes
+    order [K] of aff_xy (the affine (x, y), lanes last), y negated where
+    negs [K] is true, lifted to z = 1, then a segmented inclusive scan of
+    the group law along heads bool [1, K] (true where a segment starts).
+    Segment j's total is the scan at lane tail[j], the identity where
+    present[j] is false.  Returns projective points [len(tail)].  With a
+    `stage`, the gather is the span `<stage>.gather` and the scan and the
+    tails the span `<stage>.sum`."""
+    curve = curve_mod.CURVE
+    f = curve.f
+    dev = order.device
+
+    with _stage_span(stage, "gather"):
+        x, y = scans.tree_map(lambda t: t.index_select(-1, order), aff_xy)
+        if negs is not None:
+            y = scans.tree_map(lambda n_, y_: torch.where(negs, n_, y_),
+                               f.neg(y), y)
+        pts = (x, y, f.one(order.shape, dev))
+    with _stage_span(stage, "sum"):
+        scanned = _segmented_scan_add(curve, pts, heads)
+        return scans.tree_map(
+            lambda v, i: torch.where(present, v, i),
+            scans.tree_map(lambda t: t.index_select(-1, tail), scanned),
+            curve.identity(tail.shape, dev))
+
+
+def _stage_span(stage: str | None, part: str):
+    return contextlib.nullcontext() if stage is None else \
+        profiling.span(f"{stage}.{part}")
+
+
 def _window_buckets(curve_mod, aff_xy, order, mags_s, negs_s, c: int):
     """One window's bucket totals B_1 .. B_half from its sorted digits:
     aff_xy holds the affine (x, y) with the lanes last; order, mags_s,
-    negs_s are [B].  Returns projective points [half]."""
-    curve = curve_mod.CURVE
-    f = curve.f
+    negs_s are [B].  Returns projective points [half].  The sign of a
+    balanced digit costs one y negation; bucket b's total sits at the tail
+    of its segment."""
     half = 1 << (c - 1)
     dev = order.device
-
-    x, y = scans.tree_map(lambda t: t.index_select(-1, order), aff_xy)
-    # the sign of a balanced digit costs one y negation
-    y = scans.tree_map(lambda n_, y_: torch.where(negs_s, n_, y_),
-                       f.neg(y), y)
-    pts = (x, y, f.one(order.shape, dev))
     heads = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
                        mags_s[1:] != mags_s[:-1]])[None]
-    scanned = _segmented_scan_add(curve, pts, heads)
-
-    # bucket b's total sits at the tail of its segment
     bucket_ids = torch.arange(1, half + 1, dtype=mags_s.dtype, device=dev)
     pos_r = torch.searchsorted(mags_s, bucket_ids, right=True)
     pos_l = torch.searchsorted(mags_s, bucket_ids, right=False)
-    tail = (pos_r - 1).clamp(min=0)
-    return scans.tree_map(
-        lambda v, i: torch.where(pos_r > pos_l, v, i),
-        scans.tree_map(lambda t: t.index_select(-1, tail), scanned),
-        curve.identity((half,), dev))
+    return segment_sums(curve_mod, aff_xy, order, heads,
+                        (pos_r - 1).clamp(min=0), pos_r > pos_l, negs_s)
 
 
 def _bucket_sum(curve, buckets, dev):
