@@ -196,7 +196,9 @@ def _decompress_device(x, inf, sort, check_subgroup: bool):
     """The device half of decompression: y from the square root of
     x^3 + 4, its sign from `sort`, the identity masked, and the subgroup
     check (all lanes true when off).  Returns (affine, on_curve, x == 0,
-    torsion_free)."""
+    torsion_free).  Nothing is read back to the host: on the card a CUDA
+    graph per (batch, check_subgroup) replays it from the second call on
+    (`utils/graphs.py`; the span `codec.replay`)."""
     batch, dev = x.shape[1:], x.device
     rhs = fp.add(fp.mul(fp.sqr(x), x), fp.const(params.B_G1, batch,
                                                 device=dev))
@@ -225,9 +227,10 @@ def from_compressed_host(data, check_subgroup: bool = True, device="cuda"):
     data = np.asarray(data, dtype=np.uint8)
     comp, inf, sort = flags(data)
     x, x_ok = fp.from_bytes_host(bodies(data, 48), device)
-    aff, on_curve, x_zero, tf = _decompress_device(
-        x, torch.from_numpy(inf).to(x.device),
-        torch.from_numpy(sort).to(x.device), check_subgroup)
+    aff, on_curve, x_zero, tf = graphs.graphed(
+        "codec.replay", _decompress_device,
+        (x, torch.from_numpy(inf).to(x.device),
+         torch.from_numpy(sort).to(x.device)), check_subgroup)
     on_curve, x_zero, tf = masks_host(on_curve, x_zero, tf)
     valid = comp & x_ok & (~inf | (x_zero & ~sort)) & (inf | on_curve)
     return aff, valid & (tf | inf)

@@ -196,7 +196,7 @@ def _fp2_from_bytes(body: np.ndarray, k: int, device):
 
 def _decompress_device(x, inf, sort, check_subgroup: bool):
     """g1._decompress_device over Fp2: y from `tw.fp2_sqrt` of
-    x^3 + 4(u + 1) (two Fp2 power launches)."""
+    x^3 + 4(u + 1) (two Fp2 power launches); graphed as that one is."""
     batch, dev = inf.shape, inf.device
     rhs = tw.fp2_add(tw.fp2_mul(tw.fp2_sqr(x), x),
                      tw.fp2_const(params.B_G2, batch, dev))
@@ -223,8 +223,9 @@ def from_compressed_host(data, check_subgroup: bool = True, device="cuda"):
     comp, inf, sort = _g1.flags(data)
     (x,), x_ok = _fp2_from_bytes(_g1.bodies(data, 96), 1, device)
     dev = x[0].device
-    aff, on_curve, x_zero, tf = _decompress_device(
-        x, torch.from_numpy(inf).to(dev), torch.from_numpy(sort).to(dev),
+    aff, on_curve, x_zero, tf = graphs.graphed(
+        "codec.replay", _decompress_device,
+        (x, torch.from_numpy(inf).to(dev), torch.from_numpy(sort).to(dev)),
         check_subgroup)
     on_curve, x_zero, tf = _g1.masks_host(on_curve, x_zero, tf)
     valid = comp & x_ok & (~inf | (x_zero & ~sort)) & (inf | on_curve)

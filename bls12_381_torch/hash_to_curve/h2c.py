@@ -16,7 +16,8 @@ serves both.
 
 Spans (`utils/profiling.py`): `h2c` over each hash_to_curve_* and
 encode_to_curve_*, `h2c.map` over the map (SSWU and the isogeny), `h2c.clear`
-over the cofactor clearing.
+over the cofactor clearing; on the card, from the second call at a shape,
+`h2c.replay` over the replay of their CUDA graph, the two below it.
 
 Reference anchors: src/hash_to_curve/{mod,expand_msg,map_g1,map_g2}.rs.
 """
@@ -72,8 +73,7 @@ def hash_to_field_fp_device(msgs, dst, count, device="cuda"):
     `fp.from_okm`.  msgs: equal-length list of bytes, or uint8 [B, len]
     (a tensor stays on its device).  Returns Fp [L, count, B]."""
     okm = sha256.expand_message_xmd_sha256(msgs, dst, count * 64, device)
-    u = fp.from_okm(okm.reshape(okm.shape[0], count, 64))  # [L, B, count]
-    return u.movedim(-1, 1)
+    return _from_okm(okm, False, count)
 
 
 def hash_to_field_fp2_device(msgs, dst, count, device="cuda"):
@@ -81,6 +81,16 @@ def hash_to_field_fp2_device(msgs, dst, count, device="cuda"):
     per element, c0 from the first 64, c1 from the last).  Returns
     ([L, count, B], [L, count, B])."""
     okm = sha256.expand_message_xmd_sha256(msgs, dst, count * 128, device)
+    return _from_okm(okm, True, count)
+
+
+def _from_okm(okm, fp2: bool, count):
+    """uint8 [B, count * 64] (Fp) or [B, count * 128] (Fp2: c0 from the
+    first 64 bytes of each element, c1 from the last) -> u [L, count, B],
+    or its Fp2 pair."""
+    if not fp2:
+        u = fp.from_okm(okm.reshape(okm.shape[0], count, 64))  # [L,B,count]
+        return u.movedim(-1, 1)
     u = fp.from_okm(okm.reshape(okm.shape[0], count, 2, 64))  # [L,B,count,2]
     return u[..., 0].movedim(-1, 1), u[..., 1].movedim(-1, 1)
 
@@ -191,18 +201,38 @@ def map_to_curve_g2(u):
 # ---------------------------------------------------------------------------
 
 
-def _field(fp2: bool, msgs, dst, count, expand, device, kw):
-    """u [L, count, B] (Fp) or its Fp2 pair, expanded on the host by
-    `expand` or, for expand == "device", on the device."""
+def _to_curve(curve, count, msgs, dst, expand, device, kw):
+    """hash_to_curve (count 2) or encode_to_curve (count 1) onto `curve`
+    (the module G1 or G2): u expanded on the host by `expand`, or for
+    expand == "device" by one launch of the device XMD; from there on the
+    card a CUDA graph per (curve, count, batch) replays the launches from
+    the second call on (`utils/graphs.py`; the span `h2c.replay`)."""
+    fp2 = curve is G2
     if expand == "device":
-        fn = hash_to_field_fp2_device if fp2 else hash_to_field_fp_device
-        return fn(msgs, dst, count, device)
+        okm = sha256.expand_message_xmd_sha256(
+            msgs, dst, count * (128 if fp2 else 64), device)
+        return graphs.graphed("h2c.replay", _okm_to_curve, (okm,), curve,
+                              count)
     fn = hash_to_field_fp2 if fp2 else hash_to_field_fp
-    return fn(msgs, dst, count, expand, device, **kw)
+    u = fn(msgs, dst, count, expand, device, **kw)
+    return graphs.graphed("h2c.replay", _u_to_curve, (u,), curve, count)
 
 
-def _clear(curve, q):
-    """The cofactor clearing of a mapped point: the span `h2c.clear`."""
+def _okm_to_curve(okm, curve, count):
+    """The device body from the expanded bytes: `_from_okm`, then
+    `_u_to_curve`."""
+    return _u_to_curve(_from_okm(okm, curve is G2, count), curve, count)
+
+
+def _u_to_curve(u, curve, count):
+    """The device body from u [L, count, B] (or its Fp2 pair): the map,
+    for count 2 the add of the two halves, and the cofactor clearing (the
+    spans `h2c.map` and `h2c.clear`)."""
+    map_to_curve = map_to_curve_g2 if curve is G2 else map_to_curve_g1
+    if count == 2:
+        q = curve.add(*_halves(map_to_curve(u)))
+    else:
+        q = map_to_curve(scans.tree_map(lambda t: t[:, 0], u))
     with profiling.span("h2c.clear"):
         return curve.clear_cofactor(q)
 
@@ -220,29 +250,25 @@ def hash_to_curve_g1(msgs, dst, expand=hm.expand_message_xmd, device="cuda",
     """Batched hash_to_curve: messages -> projective G1 batch [B].
     expand="device" expands with the device SHA-256 (equal-length
     messages)."""
-    u = _field(False, msgs, dst, 2, expand, device, kw)
-    return _clear(G1, G1.add(*_halves(map_to_curve_g1(u))))
+    return _to_curve(G1, 2, msgs, dst, expand, device, kw)
 
 
 @profiling.spanned("h2c")
 @graphs.releasing
 def encode_to_curve_g1(msgs, dst, expand=hm.expand_message_xmd,
                        device="cuda", **kw):
-    u = _field(False, msgs, dst, 1, expand, device, kw)
-    return _clear(G1, map_to_curve_g1(u[:, 0]))
+    return _to_curve(G1, 1, msgs, dst, expand, device, kw)
 
 
 @profiling.spanned("h2c")
 @graphs.releasing
 def hash_to_curve_g2(msgs, dst, expand=hm.expand_message_xmd, device="cuda",
                      **kw):
-    u = _field(True, msgs, dst, 2, expand, device, kw)
-    return _clear(G2, G2.add(*_halves(map_to_curve_g2(u))))
+    return _to_curve(G2, 2, msgs, dst, expand, device, kw)
 
 
 @profiling.spanned("h2c")
 @graphs.releasing
 def encode_to_curve_g2(msgs, dst, expand=hm.expand_message_xmd,
                        device="cuda", **kw):
-    u = _field(True, msgs, dst, 1, expand, device, kw)
-    return _clear(G2, map_to_curve_g2((u[0][:, 0], u[1][:, 0])))
+    return _to_curve(G2, 1, msgs, dst, expand, device, kw)

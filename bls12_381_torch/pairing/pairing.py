@@ -261,7 +261,15 @@ def final_exponentiation(f):
 @graphs.releasing
 def pairing(p_aff, q_aff):
     """e(P_i, Q_i) for batches of affine points (pairings.rs:607-653); the
-    spans `pairing.miller` and `pairing.final_exp` inside `pairing`."""
+    spans `pairing.miller` and `pairing.final_exp` inside `pairing`.  On
+    the card a CUDA graph per batch shape replays the launches from the
+    second call on (`utils/graphs.py`; the span `pairing.replay`)."""
+    return graphs.graphed("pairing.replay", _pairing, (p_aff, q_aff))
+
+
+def _pairing(p_aff, q_aff):
+    """The body of `pairing`: nothing read back to the host, the launch
+    sequence fixed by the schedules above and the batch shape."""
     with profiling.span("pairing.miller"):
         f = miller_loop_batched(p_aff, prepare_g2(q_aff))
     with profiling.span("pairing.final_exp"):
