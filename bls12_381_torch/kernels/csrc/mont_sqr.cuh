@@ -13,8 +13,9 @@
 // products, lo and hi, and the reduction's 144): at the paths' widths (512
 // to 1024 lanes, 4 to 8 blocks of 132 SMs) the time is one lane's chain of
 // dependent instructions plus the launch, about 2 us of the ~3 (the
-// earlier kernel, montgomery.cuh's mont_sqr); at 2^20 lanes the bytes bound it (192 MB at 3.35 TB/s: 0.060
-// ms, the multiplies at the card's 32-bit rate 0.029 ms).
+// earlier kernel, a 64-bit-carry square, since deleted); at 2^20 lanes the
+// bytes bound it (192 MB at 3.35 TB/s: 0.060 ms, the multiplies at the
+// card's 32-bit rate 0.029 ms).
 //
 // The design.  One thread squares one lane with its additions riding the
 // hardware carry flag (carry_chain.cuh `sqr_words_of`, the square of the Fp
@@ -34,9 +35,9 @@
 // Each intermediate's bound is stated beside the code;
 // tests/test_torch_sqr_model.py runs the same rows on Python integers and
 // asserts them.  Launch shape: kThreads threads a block, kLanesPerThread
-// lanes a thread (chip_smoke.py and scripts/xmd_sqr_variants.py time the
-// others; PERF.md).  sqr_wide, mont_reduce and mont_sqr of montgomery.cuh
-// (the 64-bit-carry square) are not used here.
+// lanes a thread (chip_smoke.py times it, scripts/xmd_sqr_variants.py the
+// others; PERF.md).  montgomery.cuh's 64-bit-carry mont_reduce is not used
+// here.
 #pragma once
 
 #include "carry_chain.cuh"

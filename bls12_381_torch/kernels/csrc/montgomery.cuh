@@ -102,40 +102,6 @@ __device__ __forceinline__ void mul_acc(uint32_t (&acc)[2 * W + 1],
   acc[2 * W] += c;
 }
 
-// t = a^2 as 2W words (+ one zero word): off-diagonal products once,
-// doubled, then the diagonal squares.
-template <int W>
-__device__ __forceinline__ void sqr_wide(const uint32_t (&a)[W],
-                                         uint32_t (&t)[2 * W + 1]) {
-  zero_wide(t);
-#pragma unroll
-  for (int i = 0; i < W - 1; ++i) {
-    uint32_t c = 0;
-#pragma unroll
-    for (int j = i + 1; j < W; ++j) {
-      u64 s = (u64)a[i] * a[j] + t[i + j] + c;
-      t[i + j] = (uint32_t)s;
-      c = (uint32_t)(s >> 32);
-    }
-    t[i + W] = c;  // first write of this word
-  }
-  // double: the off-diagonal sum is < a^2 / 2 < 2^(64 W - 1)
-#pragma unroll
-  for (int i = 2 * W - 1; i > 0; --i) t[i] = (t[i] << 1) | (t[i - 1] >> 31);
-  t[0] <<= 1;
-  uint32_t c = 0;
-#pragma unroll
-  for (int i = 0; i < W; ++i) {
-    u64 sq = (u64)a[i] * a[i];
-    u64 s = (u64)t[2 * i] + (uint32_t)sq + c;
-    t[2 * i] = (uint32_t)s;
-    u64 s2 = (u64)t[2 * i + 1] + (sq >> 32) + (s >> 32);
-    t[2 * i + 1] = (uint32_t)s2;
-    c = (uint32_t)(s2 >> 32);
-  }
-  t[2 * W] = c;
-}
-
 // r = t R^-1 mod p, canonical, for t < p R (so that the reduced value is
 // < 2p and one conditional subtraction finishes): W rounds with 32-bit
 // digits m = t_i * N0; each round's carry out of word i+W is kept in `top`
@@ -171,17 +137,6 @@ __device__ __forceinline__ void mont_reduce(uint32_t (&t)[2 * F::W + 1],
   const bool ge = (br == 0) || (top != 0);
 #pragma unroll
   for (int j = 0; j < W; ++j) r[j] = ge ? d[j] : t[W + j];
-}
-
-// r = a^2 R^-1 mod p (r may be a): sqr_wide and mont_reduce, the
-// 64-bit-carry square (scripts/xmd_sqr_variants.py times it beside
-// mont_sqr.cuh's).
-template <class F>
-__device__ __forceinline__ void mont_sqr(const uint32_t (&a)[F::W],
-                                         uint32_t (&r)[F::W]) {
-  uint32_t t[2 * F::W + 1];
-  sqr_wide(a, t);
-  mont_reduce<F>(t, r);
 }
 
 // r = (a + b) mod p

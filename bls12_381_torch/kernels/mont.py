@@ -86,8 +86,8 @@ carries ride the hardware carry flag, reductions left lazy below 2p, and
 FP2_POW_LANES lanes per block (the fastest of 32, 64 and 128 in
 `scripts/fp2_pow_variants.py`; PERF.md): 0.5226 ms at (p-1)/2 at B = 1024
 and 0.5223 at B = 1, where the Fp power template's own Fp2 instance, one
-thread per lane, took 1.5185 (`chip_smoke.py`, NVIDIA H100 80GB HBM3,
-700 W).
+thread per lane, took 1.5185 (`chip_smoke.py`'s kernel table, NVIDIA
+H100 80GB HBM3, 700 W).
 
 Bound on the card.  A T = 1 Fp product reads 2 x 24 and writes 24 int32
 words per lane (288 bytes) and does 2 x 12 x 12 word products plus the

@@ -49,12 +49,6 @@ from torch.autograd import profiler as _autograd_profiler
 
 from ..kernels import LAUNCHES
 
-# one H100 SXM at its full power limit: HBM3 bytes per second, and 32-bit
-# integer multiply-adds per second, 132 SMs x 64 per clock (CUDA C
-# Programming Guide throughput table, compute capability 9.0) x 1.98 GHz
-HBM_BYTES_PER_S = 3.35e12
-IMAD_PER_S = 132 * 64 * 1.98e9
-
 MAX_SPANS = 1 << 16
 SPANS_FILE = "program_spans.json"
 

@@ -22,7 +22,7 @@ JSON line per kernel and width: device ms per launch (the mean duration of
 LAUNCHES launches' kernel events under torch.profiler,
 `chip_smoke.device_events`, the median of REPS rounds that take the
 kernels in turn), whether every lane equals the library's (the library's
-equals the plain version in chip_smoke.py), the bound (`chip_smoke.
+equals the plain version in the `gpu` tests), the bound (`chip_smoke.
 pow_work`); first, registers and spill bytes from `ptxas -v` and, from
 `cuobjdump -sass`, the instructions of each of the library's instances
 (one per threads per lane it launches) and of the parent's kernel.

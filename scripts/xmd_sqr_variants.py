@@ -18,9 +18,7 @@ library's nvcc flags, all nvcc processes started together:
   XMD_VARIANTS' combinations;
 - `sqr.cu` includes `mont_sqr.cuh` and launches `sqr_kernel` at 128 and
   256 threads a block and one and two lanes a thread (the library takes
-  one shape), and the earlier square (`montgomery.cuh`'s `mont_sqr`, one
-  thread a lane, 128 a block) as `mont.cu` launched it before
-  `mont_sqr.cuh`.
+  one shape).
 
 With `--parent DIR` (a checkout of the parent commit, e.g. unpacked by
 `git archive`) it also builds that tree's `sha256.cu` and `mont.cu` and
@@ -36,10 +34,10 @@ One JSON line per kernel and width: device ms per launch (the mean
 duration of LAUNCHES launches' kernel events under torch.profiler,
 `chip_smoke.device_events`, the median of REPS rounds that take the
 kernels in turn), whether every lane equals the library kernel's (the
-library's equals the plain version in chip_smoke.py); first, registers and
+library's equals the plain version in the `gpu` tests); first, registers and
 spill bytes from `ptxas -v` and, from `cuobjdump -sass`, the instructions
-of the library's XMD and square kernels, the earlier square's and the
-parent's XMD, in all and by opcode.  It imports nothing of JAX.
+of the library's XMD and square kernels and the parent's XMD, in all and
+by opcode.  It imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -239,31 +237,9 @@ XMD_VARIANTS = ((0, 0, 0), (0, 1, 0), (1, 0, 0), (1, 1, 0), (0, 0, 1),
 SQR_SOURCE = """#include "fp384.cuh"
 #include "mont_sqr.cuh"
 
-// The earlier square (csrc/mont.cu before mont_sqr.cuh): one thread a lane,
-// montgomery.cuh's mont_sqr (sqr_wide and mont_reduce, 64-bit carries).
-__global__ void __launch_bounds__(128)
-earlier_sqr_kernel(const int32_t* __restrict__ a,
-                   int32_t* __restrict__ out, int G, int B) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)G * B) return;
-  const int g = (int)(idx / B), lane = (int)(idx % B);
-  const size_t off = (size_t)g * fp384::Field::L16 * B + lane;
-  uint32_t x[fp384::Field::W];
-  montgomery::load16(a + off, B, x);
-  montgomery::mont_sqr<fp384::Field>(x, x);
-  montgomery::store16(out + off, B, x);
-}
-
-// threads 0: the earlier kernel; else sqr_kernel<threads, per>
+// sqr_kernel<threads, per>
 extern "C" int bls_sqr_variant(const void* a, void* out, int G, int B,
                                int threads, int per, void* stream) {
-  if (threads == 0) {
-    const long long n = (long long)G * B;
-    earlier_sqr_kernel<<<(unsigned)((n + 127) / 128), 128, 0,
-                         (cudaStream_t)stream>>>((const int32_t*)a,
-                                                 (int32_t*)out, G, B);
-    return (int)cudaGetLastError();
-  }
   if (threads == 128 && per == 1)
     return montsqr::launch_sqr_shape<128, 1>(a, out, G, B, stream);
   if (threads == 128 && per == 2)
@@ -386,8 +362,7 @@ def main() -> None:
     print(json.dumps({"ptxas": usage}), flush=True)
     sass = {"library xmd (load 16)": (kbuild.lib_path("sha256"),
                                       "17xmd_sha256_kernelILi16E"),
-            "library sqr": (kbuild.lib_path("mont"), "10sqr_kernel"),
-            "earlier sqr": (jobs["sqr"][1], "earlier_sqr_kernel")}
+            "library sqr": (kbuild.lib_path("mont"), "10sqr_kernel")}
     if "parent_sha256" in libs:
         sass["parent xmd"] = (jobs["parent_sha256"][1], "xmd_sha256_kernel")
     kbuild.build_all(("sha256", "mont"))
@@ -454,7 +429,6 @@ def main() -> None:
     sqr_calls = {"library": mont.sqr}
     for threads, per in SQR_SHAPES:
         sqr_calls[f"threads={threads} lanes={per}"] = sqr_call(threads, per)
-    sqr_calls["earlier (mont_sqr)"] = sqr_call(0, 0)
     if "parent_mont" in libs:
         sqr_calls["parent"] = parent_sqr
 
@@ -462,8 +436,7 @@ def main() -> None:
         """Per call: device ms per launch (the mean duration of its
         kernel's events under torch.profiler, LAUNCHES launches) in each
         of REPS rounds that take the calls in turn.  A capture that falls
-        short of LAUNCHES events is taken again, up to three times (as
-        chip_smoke.py's profiles do)."""
+        short of LAUNCHES events is taken again, up to three times."""
         ms = {name: [] for name in calls}
         for _ in range(REPS):
             for name, fn in fns.items():

@@ -7,7 +7,7 @@ codecs on the same bytes.
 
 Tolerance: none (integer arithmetic) -- bytes, limbs and masks compare
 exactly.  Points outside the subgroups come from `hostmath`; the rejects
-from `chip_smoke.reject_cases` (flag bits, infinity with a nonzero x or the
+from `port_cases.reject_cases` (flag bits, infinity with a nonzero x or the
 sort bit, x >= p, an x or a point off the curve).
 """
 
@@ -19,7 +19,7 @@ import conftest
 from bls12_381_tpu import hostmath as jhm
 from bls12_381_tpu.curves import g1 as jg1, g2 as jg2
 
-import chip_smoke
+import port_cases
 from bls12_381_torch import hostmath as hm, params
 from bls12_381_torch.curves import g1, g2
 from bls12_381_torch.utils import scans
@@ -82,13 +82,13 @@ def test_walk_with_the_check_and_the_host_oracle(group, form):
     assert all(torch.equal(a, b) for a, b in zip(scans.tree_leaves(aff),
                                                  scans.tree_leaves(off)))
     dec = getattr(hm, f"{group}_from_{form}")
-    assert chip_smoke.affine_to_host(group, aff) == [dec(bytes(r))
+    assert port_cases.affine_to_host(group, aff) == [dec(bytes(r))
                                                     for r in data]
 
 
 def probe_bytes(group: str, form: str):
     """(encodings uint8 [n, width], labels): G, 2G, the identity, a point
-    outside the subgroup, then every reject of `chip_smoke.reject_cases`."""
+    outside the subgroup, then every reject of `port_cases.reject_cases`."""
     gen = {"g1": params.G1_GEN, "g2": params.G2_GEN}[group]
     mul = {"g1": hm.g1_mul, "g2": hm.g2_mul}[group]
     bad = {"g1": hm.g1_point_outside_subgroup,
@@ -96,7 +96,7 @@ def probe_bytes(group: str, form: str):
     enc = getattr(hm, f"{group}_to_{form}")
     labels = ["G", "2G", "identity", "outside the subgroup"]
     rows = [enc(gen), enc(mul(gen, 2)), enc(None), enc(bad)]
-    for label, c in chip_smoke.reject_cases(group, form):
+    for label, c in port_cases.reject_cases(group, form):
         labels.append(label)
         rows.append(c)
     return np.frombuffer(b"".join(rows), np.uint8).reshape(len(rows), -1), \

@@ -203,8 +203,8 @@ def test_psi_and_endomorphism_constants_match_jax():
 
 
 def test_port_hostmath_matches_jax_hostmath():
-    """The port's host group law (the checks' oracle in `chip_smoke.py`)
-    equals the JAX package's: multiples by full-width scalars, sums, P + P,
+    """The port's host group law (the card checks' oracle,
+    `tests/port_cases.py`) equals the JAX package's: multiples by full-width scalars, sums, P + P,
     P + (-P) and the identity."""
     ks = [0, 1, 3, 1 << 20, Q - 1] + [rng.randrange(Q) for _ in range(3)]
     for gen, mul, add, neg, jmul, jadd in (

@@ -12,7 +12,7 @@ and odd word products in two accumulators, the reduction's row in the same
 two, the dropped low words' carry), asserting each stated bound.  Its
 result must equal `hostmath.fp2_pow` and `mont.fp2_pow_plain` (CPU) at both
 of the Fp2 square root's exponents on every edge lane of
-`chip_smoke.FP2_EDGE_LANES` and 8 random lanes.
+`port_cases.FP2_EDGE_LANES` and 8 random lanes.
 
 Tolerance: none (integers compare exactly).
 """
@@ -25,7 +25,7 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
+import port_cases
 from bls12_381_torch import hostmath, params
 from bls12_381_torch.kernels import mont
 
@@ -131,10 +131,10 @@ def fp2_pow_model(a0: int, a1: int, exponent: int):
 
 VALUE = {"0": 0, "1": 1, "p-1": P - 1, "R": ONE}
 _rng = np.random.default_rng(13)
-LANES = [(VALUE[x], VALUE[y]) for x, y in chip_smoke.FP2_EDGE_LANES] + [
+LANES = [(VALUE[x], VALUE[y]) for x, y in port_cases.FP2_EDGE_LANES] + [
     tuple(int.from_bytes(_rng.bytes(48), "little") % P for _ in range(2))
     for _ in range(8)]
-LANE_IDS = [f"edge{i}" for i in range(len(chip_smoke.FP2_EDGE_LANES))] + [
+LANE_IDS = [f"edge{i}" for i in range(len(port_cases.FP2_EDGE_LANES))] + [
     f"random{i}" for i in range(8)]
 
 
@@ -190,8 +190,8 @@ def test_wrapper_takes_the_plain_path_on_the_cpu():
 
 
 def test_lanes_per_block_match_the_kernel_source():
-    """mont.FP2_POW_LANES, from which chip_smoke.py prints the launch
-    shape, is fp2_pow.cuh's kLanes."""
+    """mont.FP2_POW_LANES, from which chip_smoke.py's kernel timer prints
+    the launch shape, is fp2_pow.cuh's kLanes."""
     src = (Path(mont.__file__).parent / "csrc" / "fp2_pow.cuh").read_text()
     lanes = re.findall(r"constexpr int kLanes = (\d+);", src)
     assert lanes == [str(mont.FP2_POW_LANES)]

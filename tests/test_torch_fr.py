@@ -261,12 +261,12 @@ def test_fr_wrappers_validate_inputs():
     "psi", "fr_sqrt", "fr_inv", "fr_from_bytes", "fr_to_bytes",
     "fr_from_bytes_wide", "fp_from_bytes"])
 def test_phase_oracle_launch_schedules(check):
-    """`chip_smoke.expected_oracle_launches` of phase oracle's device
-    checks outside hash to curve and the multi-pairing (their schedules
+    """`port_cases.expected_oracle_launches` of the device calls held to
+    the host oracle outside hash to curve and the multi-pairing (their schedules
     are `expected_h2c_launches` and `expected_parallel_launches`, held in
     test_torch_h2c.py and test_torch_parallel.py), by counting the plain
     versions' calls at 8 lanes."""
-    import chip_smoke
+    import port_cases
     from test_torch_smul import count_launches
 
     from bls12_381_torch import entry
@@ -290,4 +290,4 @@ def test_phase_oracle_launch_schedules(check):
             np.zeros((n, 48), np.uint8), device="cpu"),
     }
     counts, _ = count_launches(calls[check])
-    assert counts == chip_smoke.expected_oracle_launches(check, n)
+    assert counts == port_cases.expected_oracle_launches(check, n)

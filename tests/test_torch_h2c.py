@@ -1,7 +1,7 @@
 """The port's hash to curve (`hash_to_curve/h2c.py`), its device expanders
 (`kernels/sha256.py`, `kernels/keccak.py`), `hostmath`'s expanders and
-constants, and the launch schedules `chip_smoke.py` holds phases codec and
-h2c to, on the CPU.
+constants, and the launch schedules of the codecs and hash to curve in
+`tests/port_cases.py`, on the CPU.
 
 Oracles: hashlib; the draft-16 expansion KATs (tests/vectors/
 expand_msg_kats.json) and hash-to-curve KATs (h2c_kats.json); the JAX
@@ -23,7 +23,7 @@ from bls12_381_tpu import hostmath as jhm
 from bls12_381_tpu.fields import fp as jfp, tower as jtw
 from bls12_381_tpu.hash_to_curve import h2c as jh2c
 
-import chip_smoke
+import port_cases
 from test_torch_smul import count_launches
 from bls12_381_torch import convert, entry, hostmath as hm, params
 from bls12_381_torch.curves import g1, g2
@@ -180,7 +180,7 @@ def test_map_to_curve_g1_matches_jax():
     u = jfp.from_ints(vals)
     got = h2c.map_to_curve_g1(convert.fp_to_torch(np.asarray(u), "cpu"))
     assert same(got, jh2c.map_to_curve_g1(u))
-    assert chip_smoke.affine_to_host("g1", g1.to_affine(got)) == [
+    assert port_cases.affine_to_host("g1", g1.to_affine(got)) == [
         jhm.map_to_curve_g1(v) for v in vals]
 
 
@@ -190,7 +190,7 @@ def test_map_to_curve_g2_matches_jax():
     tu = tuple(convert.fp_to_torch(np.asarray(c), "cpu") for c in u)
     got = h2c.map_to_curve_g2(tu)
     assert same(got, jh2c.map_to_curve_g2(u))
-    assert chip_smoke.affine_to_host("g2", g2.to_affine(got)) == [
+    assert port_cases.affine_to_host("g2", g2.to_affine(got)) == [
         jhm.map_to_curve_g2(v) for v in vals]
 
 
@@ -204,7 +204,7 @@ def test_h2c_kats(name):
     gives the same field elements for all five messages, and the whole
     device pipeline the expected points for the shortest and the longest
     message, one call each (it takes equal-length messages only; every
-    KAT runs through it on the card, `chip_smoke.py` phase h2c)."""
+    KAT runs through it on the card, `test_torch_verify_graph_gpu.py`)."""
     group = name[:2]
     mod = {"g1": g1, "g2": g2}[group]
     kind = "hash" if name.endswith("ro") else "encode"
@@ -232,35 +232,35 @@ def test_h2c_kats(name):
             want[i]]
 
 
-# --- launch schedules of chip_smoke.py's phases codec and h2c -----------
+# --- launch schedules of the codecs and hash to curve ---------------------
 # (the plain versions' calls counted by test_torch_smul.count_launches)
 
 
 @pytest.mark.parametrize("group,form", [(g, f) for g in ("g1", "g2")
-                                        for f in chip_smoke.CODEC_FORMS])
+                                        for f in port_cases.CODEC_FORMS])
 def test_phase_codec_launch_schedules(group, form):
     """Each decoder (check on) and encoder against
-    `chip_smoke.expected_codec_launches`, on `entry.codec_inputs` at 32
+    `port_cases.expected_codec_launches`, on `entry.codec_inputs` at 32
     lanes."""
     n = 32
     fn, (data,) = entry.codec_entry(5, group, form, device="cpu")
     name = f"from_{form}_host"
     counts, (aff, valid) = count_launches(fn, data)
-    assert counts == chip_smoke.expected_codec_launches(group, name, n)
+    assert counts == port_cases.expected_codec_launches(group, name, n)
     assert valid.tolist() == [i % 64 != entry.CODEC_BAD_LANE
                               for i in range(n)]
     mod = {"g1": g1, "g2": g2}[group]
     counts, out = count_launches(getattr(mod, f"to_{form}_host"), aff)
-    assert counts == chip_smoke.expected_codec_launches(
+    assert counts == port_cases.expected_codec_launches(
         group, f"to_{form}_host", n)
     assert np.array_equal(out, data)
 
 
-@pytest.mark.parametrize("group,kind", chip_smoke.H2C_ROWS)
+@pytest.mark.parametrize("group,kind", port_cases.H2C_ROWS)
 def test_phase_h2c_launch_schedules(group, kind):
     """Each h2c row (device expansion) against
-    `chip_smoke.expected_h2c_launches`, at 2 lanes (no step depends on
+    `port_cases.expected_h2c_launches`, at 2 lanes (no step depends on
     the lane count)."""
     fn, args = entry.h2c_entry(1, group, kind, device="cpu")
     counts, _ = count_launches(fn, *args)
-    assert counts == chip_smoke.expected_h2c_launches(group, kind, 2)
+    assert counts == port_cases.expected_h2c_launches(group, kind, 2)

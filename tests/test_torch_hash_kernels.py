@@ -2,8 +2,8 @@
 (`kernels/sha256.py`, `kernels/keccak.py`), on the CPU.
 
 The plain SHA-256, expand_message_xmd, SHAKE and expand_message_xof are
-held to hashlib (through `hostmath`) at the lengths phase hashes of
-`chip_smoke.py` runs the kernels at, and to the JAX package's
+held to hashlib (through `hostmath`) at the lengths of
+`tests/port_cases.py` at which the card tests run the kernels, and to the JAX package's
 `sha256_jax` / `keccak_jax` (jnp on the CPU) at the edge lengths; the XMD
 kernel's host-side parameters (`sha256.xmd_params`) to the JAX package's
 compression and hostmath; the wrappers' ValueErrors, and that a CPU call
@@ -23,14 +23,14 @@ import conftest  # noqa: F401
 import jax.numpy as jnp
 from bls12_381_tpu.kernels import keccak_jax, sha256_jax
 
-import chip_smoke
+import port_cases
 from bls12_381_torch import entry, hostmath as hm
 from bls12_381_torch.kernels import LAUNCHES, keccak, sha256
 
 torch.set_num_threads(1)
 SEED = 20261017
 LANES = 3
-DST = chip_smoke.HASH_DST
+DST = port_cases.HASH_DST
 
 
 def messages(length: int, lanes: int = LANES) -> np.ndarray:
@@ -58,7 +58,7 @@ def rows(t) -> list:
 JAX_MSG_LENS = (0, 55, 56, 119, 120)
 
 
-@pytest.mark.parametrize("msg_len", chip_smoke.XMD_MSG_LENS)
+@pytest.mark.parametrize("msg_len", port_cases.XMD_MSG_LENS)
 def test_plain_sha256_matches_hashlib_and_jax(msg_len):
     m = messages(msg_len)
     got = rows(sha256.sha256(torch.from_numpy(m)))
@@ -67,7 +67,7 @@ def test_plain_sha256_matches_hashlib_and_jax(msg_len):
         assert got == rows(sha256_jax.sha256(jnp.asarray(m)))
 
 
-@pytest.mark.parametrize("msg_len,out_len,dst_len", chip_smoke.xmd_cases())
+@pytest.mark.parametrize("msg_len,out_len,dst_len", port_cases.xmd_cases())
 def test_plain_xmd_matches_hashlib(msg_len, out_len, dst_len):
     """Phase hashes' cases: b0 over one to three blocks, ell up to 255,
     DSTs up to one reduced on the host."""
@@ -264,7 +264,7 @@ def test_io_width():
         16, 16, 4, 1, 4, 1]
 
 
-@pytest.mark.parametrize("msg_len,out_len,dst_len", chip_smoke.xmd_cases())
+@pytest.mark.parametrize("msg_len,out_len,dst_len", port_cases.xmd_cases())
 def test_xmd_word_model_matches_hashlib(msg_len, out_len, dst_len):
     """From the packed words alone, the kernel's word-level assembly (b0's
     blocks: parameter words at a uniform index, message words OR-ed in at
@@ -293,7 +293,7 @@ def test_xmd_bounds_raise(out_len):
 # --- SHAKE and expand_message_xof -------------------------------------------
 
 
-@pytest.mark.parametrize("rate,msg_len,out_len", chip_smoke.shake_cases())
+@pytest.mark.parametrize("rate,msg_len,out_len", port_cases.shake_cases())
 def test_plain_shake_matches_hashlib(rate, msg_len, out_len):
     m = messages(msg_len)
     name = {168: "shake_128", 136: "shake_256"}[rate]
@@ -303,7 +303,7 @@ def test_plain_shake_matches_hashlib(rate, msg_len, out_len):
 
 
 @pytest.mark.parametrize("rate,msg_len", [
-    (r, m) for r in chip_smoke.SHAKE_RATES
+    (r, m) for r in port_cases.SHAKE_RATES
     for m in (r - 1, r, r + 1)])
 def test_plain_shake_matches_jax(rate, msg_len):
     """The padding's edges (the domain byte and 0x80 in one byte, a block

@@ -1,7 +1,8 @@
-"""The port stands alone: `bls12_381_torch` and `chip_smoke.py` import
-neither JAX nor the JAX package, entry points default to the card and
-raise without one, and wrappers never send a tensor of another device to
-the plain path.
+"""The port stands alone: `bls12_381_torch`, `chip_smoke.py` and the tests'
+shared module `tests/port_cases.py` import neither JAX nor the JAX
+package, and the tests import `chip_smoke` only to test the kernel timer;
+entry points default to the card and raise without one, and wrappers
+never send a tensor of another device to the plain path.
 
 Tolerance: none (integer arithmetic) -- no numeric comparison here.
 """
@@ -20,7 +21,10 @@ from bls12_381_torch.kernels import mont, plan_exec as pe
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "bls12_381_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "tests" / "port_cases.py"]
+# the test files that test the kernel timer itself (its recording of the
+# row kernel's calls); the others take what they share from port_cases
+TIMER_TESTS = ("test_torch_smul.py",)
 # the port's C++ and CUDA sources (the native host runtime's among them)
 PORT_SOURCES = sorted(p for ext in ("*.cpp", "*.cu", "*.cuh")
                       for p in (ROOT / "bls12_381_torch").rglob(ext))
@@ -49,6 +53,12 @@ def test_port_imports_no_jax_package():
            for m in imported_modules(p)
            if m.split(".")[0] in FORBIDDEN]
     assert bad == []
+
+
+def test_tests_import_chip_smoke_only_to_test_the_timer():
+    importers = sorted(p.name for p in (ROOT / "tests").glob("*.py")
+                       if "chip_smoke" in set(imported_modules(p)))
+    assert importers == list(TIMER_TESTS)
 
 
 def test_port_sources_include_nothing_of_the_jax_package():

@@ -174,15 +174,15 @@ def test_msm_entry_gives_msm_g1_large(large64, monkeypatch):
 
 def test_msm_large_launch_schedule(large64):
     """The plain path's calls of msm_g1_large over two chunks of 2^5
-    points against `chip_smoke.expected_msm_large_launches` (two msm_g1
+    points against `port_cases.expected_msm_large_launches` (two msm_g1
     schedules and the fold's one add); over one chunk the formula is
     `expected_msm_launches`."""
-    import chip_smoke
+    import port_cases
 
-    assert large64[2] == chip_smoke.expected_msm_large_launches(64, 4, 5)
-    assert chip_smoke.expected_msm_large_launches(64, 4, 6) == \
-        chip_smoke.expected_msm_launches("g1", 64, 4)
-    two = chip_smoke.expected_msm_launches("g1", 32, 4)
+    assert large64[2] == port_cases.expected_msm_large_launches(64, 4, 5)
+    assert port_cases.expected_msm_large_launches(64, 4, 6) == \
+        port_cases.expected_msm_launches("g1", 64, 4)
+    two = port_cases.expected_msm_launches("g1", 32, 4)
     assert large64[2]["plan_exec"] == 2 * two["plan_exec"] + 1
 
 

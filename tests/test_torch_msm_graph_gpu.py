@@ -1,7 +1,7 @@
 """The MSM's CUDA graphs on the card (`utils/graphs.py`, `graphed`): the
 third and later calls at a shape replay its graph and must equal the eager
 call limb for limb, in projective coordinates, and the host's
-[sum_i k_i (i+1)]G (`chip_smoke.msm_host_sum`, hostmath), with the graph's
+[sum_i k_i (i+1)]G (`port_cases.msm_host_sum`, hostmath), with the graph's
 static inputs refreshed on every call and replays from two streams kept in
 order; a capture at a point a graph cannot hold raises and leaves the
 shape eager, counted; a graph beyond the budget is not kept; evicting a
@@ -24,7 +24,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-import chip_smoke
+import port_cases
 from bls12_381_torch import entry, hostmath as hm, params
 from bls12_381_torch.curves import g1, g2
 from bls12_381_torch.kernels import GRAPHS, LAUNCHES
@@ -73,13 +73,13 @@ def host_msm(group, pts, scalars, factor=1):
     or the identity, and factor [i+1]G after `factor` doublings."""
     mod = {"g1": g1, "g2": g2}[group]
     skip = mod.is_identity(pts).cpu().numpy()
-    total = factor * chip_smoke.msm_host_sum(scalars, skip) % params.Q
+    total = factor * port_cases.msm_host_sum(scalars, skip) % params.Q
     gen = {"g1": params.G1_GEN, "g2": params.G2_GEN}[group]
     return {"g1": hm.g1_mul, "g2": hm.g2_mul}[group](gen, total)
 
 
 def is_host_msm(group, got, pts, scalars, factor=1) -> bool:
-    return chip_smoke.affine_ints(group, got) == host_msm(group, pts,
+    return port_cases.affine_ints(group, got) == host_msm(group, pts,
                                                           scalars, factor)
 
 

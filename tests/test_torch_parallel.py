@@ -10,12 +10,13 @@ ranks' partial sums changes projective limbs, not points); the aggregate
 Miller value is a field element and equals `multi_miller_loop`'s exactly.
 
 Four ranks are spawned once for the module (start method spawn, one host
-thread each) and run `chip_smoke.parallel_job`, the code of the card's
-phase parallel, at small sizes: the 1-D mesh of four ranks and, in the same
-world, the 2 x 2 mesh; MSMs of 32 points with window 4, NTTs of 2^6 and
-2^7 (n1 != n2 at 2^7), a pairing batch of 8 lanes with identity lanes, and
-`entry.multichip_entry(4)`.  The launch schedule `chip_smoke` holds the
-card to is checked here at one rank, by counting the plain versions' calls.
+thread each) and run `port_cases.parallel_job` (which the card test runs
+on cuda:0 at full width) at small sizes: the 1-D mesh of four ranks and,
+in the same world, the 2 x 2 mesh; MSMs of 32 points with window 4, NTTs
+of 2^6 and 2^7 (n1 != n2 at 2^7), a pairing batch of 8 lanes with
+identity lanes, and `entry.multichip_entry(4)`.  The launch schedule the
+card test holds the card to is checked here at one rank, by counting the
+plain versions' calls.
 """
 
 import tempfile
@@ -33,7 +34,7 @@ import conftest  # noqa: F401
 from bls12_381_tpu import hostmath as jhm, limbs as jlb, params as jparams
 from bls12_381_tpu.ops import ntt as jntt
 
-import chip_smoke
+import port_cases
 from bls12_381_torch import convert, entry, params
 from bls12_381_torch import pairing as pr
 from bls12_381_torch.curves import g1, g2
@@ -79,23 +80,23 @@ ROWS_2D = [f"{row}_2x2" for row in ROWS_1D if row == "msm_g1"
 
 @pytest.fixture(scope="module")
 def ranks():
-    """Every rank's `chip_smoke.parallel_job` values, in rank order."""
+    """Every rank's `port_cases.parallel_job` values, in rank order."""
     spec = {"device": "cpu", "window": WINDOW, "reps": 0, "values": True}
     with tempfile.TemporaryDirectory() as tmp:
         path = str(Path(tmp) / "inputs.pt")
         torch.save(INPUTS, path)
-        return chip_smoke.spawn_ranks(RANKS, "gloo", spec, path, tmp)
+        return port_cases.spawn_ranks(RANKS, "gloo", spec, path, tmp)
 
 
 @pytest.fixture(scope="module")
 def local():
     """The local path's value of each row."""
     return {row: post(call()) for row, (call, post) in
-            chip_smoke.parallel_local(INPUTS, WINDOW).items()}
+            port_cases.parallel_local(INPUTS, WINDOW).items()}
 
 
 def same(a, b) -> bool:
-    return chip_smoke.same_tree(a, b)
+    return port_cases.same_tree(a, b)
 
 
 @pytest.mark.parametrize("row", ROWS_1D + ROWS_2D + ["entry"])
@@ -151,17 +152,17 @@ def test_ntt_sharded_equals_the_jax_ntt_sharded(ranks):
     assert np.array_equal(got, want)
 
 
-@pytest.mark.parametrize("axis_name", chip_smoke.SHARD_AXES,
-                         ids=chip_smoke.shard_label)
+@pytest.mark.parametrize("axis_name", port_cases.SHARD_AXES,
+                         ids=port_cases.shard_label)
 def test_shard_batch_matches_jax_named_sharding(ranks, axis_name):
     """`shard_batch(mesh, lanes, axis_name=...)` on the 2 x 2 gloo mesh
     gives every rank the lanes that the JAX package's `shard_batch` (a
     NamedSharding) places on the device at the rank's mesh position, the
-    2 x 2 mesh of four virtual CPU devices; and `chip_smoke`'s
-    `expected_shards`, which phase parallel holds the card to."""
+    2 x 2 mesh of four virtual CPU devices; and `port_cases`'s
+    `expected_shards`, which the card test holds the card to."""
     from bls12_381_tpu.parallel import mesh as jmesh
 
-    label = chip_smoke.shard_label(axis_name)
+    label = port_cases.shard_label(axis_name)
     mesh = jmesh.make_mesh_2d(2, RANKS // 2)
     arr = jmesh.shard_batch(mesh, np.arange(2 * RANKS), axis_name=axis_name)
     seen = set()
@@ -171,7 +172,7 @@ def test_shard_batch_matches_jax_named_sharding(ranks, axis_name):
         seen.add(rank)
         want = np.asarray(shard.data).tolist()
         assert ranks[rank]["shards"][label] == want
-        assert chip_smoke.expected_shards(rank, RANKS)[label] == want
+        assert port_cases.expected_shards(rank, RANKS)[label] == want
     assert seen == set(range(RANKS))
 
 
@@ -235,7 +236,7 @@ def msm_host(group: str):
 @pytest.mark.parametrize("row", ["msm_g1", "msm_g2", "msm_g1_2x2"])
 def test_msm_sharded_equals_the_host_oracle(ranks, row):
     group = row[4:6]
-    got = chip_smoke.affine_to_host(group, ranks[0][row]["value"])
+    got = port_cases.affine_to_host(group, ranks[0][row]["value"])
     assert got == [msm_host(group)]
 
 
@@ -245,14 +246,14 @@ def test_aggregate_pairing_equals_the_host_product(ranks):
     s = sum((i + 1) * (2 * i + 1) for i in range(PAIRING_B)
             if i not in (P_IDENTITY, Q_IDENTITY)) % params.Q
     want = jhm.fp12_pow(jhm.pairing(jparams.G1_GEN, jparams.G2_GEN), s)
-    assert chip_smoke.fp12_host(ranks[0]["pairing_agg_fe"]["value"]) == want
+    assert port_cases.fp12_host(ranks[0]["pairing_agg_fe"]["value"]) == want
 
 
 def test_elementwise_pairing_keeps_the_identity_lanes(ranks):
     f = ranks[0]["pairing"]["value"]
     one = tw.fp12_one((1,), "cpu")
     for lane in (P_IDENTITY, Q_IDENTITY):
-        assert same(chip_smoke.to_cpu(tuple(tuple(tuple(
+        assert same(port_cases.to_cpu(tuple(tuple(tuple(
             c[..., lane:lane + 1] for c in c2) for c2 in c6) for c6 in f)),
             one)
 
@@ -264,7 +265,7 @@ def test_multichip_entry(ranks):
     results, ins = ranks[0]["entry"]
     k = sum(int(v) for v in fr.to_ints(ins["msm"][1])) % params.Q
     for key in ("msm", "msm_2d"):
-        assert chip_smoke.affine_ints("g1", results[key]) == jhm.g1_mul(
+        assert port_cases.affine_ints("g1", results[key]) == jhm.g1_mul(
             jparams.G1_GEN, k)
     assert ins["ntt"].shape == (16, 64)
     assert torch.equal(results["ntt"], ntt.ntt(ins["ntt"]))
@@ -345,7 +346,7 @@ def test_elementwise_pairing_final_exponentiates_whatever_final_exp_says(
     limb for limb the final_exp=True value, at one rank over two lanes, one
     of them a G1 identity."""
     mesh = mesh_mod.make_mesh()
-    p, q = chip_smoke.pick_lanes(INPUTS["pairing"], [P_IDENTITY - 1,
+    p, q = port_cases.pick_lanes(INPUTS["pairing"], [P_IDENTITY - 1,
                                                      P_IDENTITY])
     want = pairing_sharded(mesh, p, q)
     assert same(pairing_sharded(mesh, p, q, final_exp=False), want)
@@ -362,7 +363,7 @@ SCHEDULE_CASES = [
                          ids=[k for k, _ in SCHEDULE_CASES])
 def test_expected_parallel_launches_at_one_rank(world_of_one, monkeypatch,
                                                 kind, n):
-    """`chip_smoke.expected_parallel_launches` for a mesh of one rank
+    """`port_cases.expected_parallel_launches` for a mesh of one rank
     equals the plain versions' calls of one sharded call (after a warm-up
     that caches the NTT's twiddle table); `count_launches` counts the row
     kernel's, the plan's and the powers', the butterfly's is counted
@@ -393,5 +394,5 @@ def test_expected_parallel_launches_at_one_rank(world_of_one, monkeypatch,
     if kind in ("ntt", "intt"):
         calls[kind]()
     got, _ = count_launches(calls[kind])
-    want = chip_smoke.expected_parallel_launches(kind, n, (1,), WINDOW)
+    want = port_cases.expected_parallel_launches(kind, n, (1,), WINDOW)
     assert {k: got[k] for k in want} == want

@@ -298,7 +298,8 @@ def test_every_threads_per_lane_at_its_bounds(field, tpi):
 
 def test_launch_shape_matches_the_kernel_source():
     """mont.POW_TPI, POW_TPI_FR, POW_LANES and POW_FILL_THREADS, from which
-    `pow_threads_per_lane` and chip_smoke.py take the launch shape, are
+    `pow_threads_per_lane` and chip_smoke.py's kernel timer take the
+    launch shape, are
     mont_pow.cuh's kTpiFp, kTpiFr, kLanes and kFillThreads."""
     src = (Path(mont.__file__).parent / "csrc" / "mont_pow.cuh").read_text()
     for name, value in (("kTpiFp", mont.POW_TPI), ("kTpiFr", mont.POW_TPI_FR),

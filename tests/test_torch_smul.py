@@ -1,8 +1,8 @@
 """The port's scalar multiplications (`curves/g1.py`, `curves/g2.py`,
 `curves/weierstrass.py`) and their digit recoders (`limbs.digits4_msb`,
 `limbs.signed_digits_msb`) against the JAX package on the CPU, and the
-launch schedules `chip_smoke.py` holds the card to, counted here through
-the kernels' plain versions.
+launch schedules of `tests/port_cases.py`, which the card tests hold the
+card to, counted here through the kernels' plain versions.
 
 Tolerance: none (integer arithmetic) -- digits compare as arrays, points
 limb for limb in projective coordinates (the port keeps the JAX package's
@@ -27,6 +27,7 @@ from bls12_381_tpu.curves import g1 as jg1, g2 as jg2
 from bls12_381_tpu.fields import fp as jfp, fr as jfr, tower as jtw
 
 import chip_smoke
+import port_cases
 from bls12_381_torch import convert, entry, limbs, params
 from bls12_381_torch.curves import g1, g2
 from bls12_381_torch.fields import fp, tower as tw
@@ -259,7 +260,7 @@ def test_fr_bits_and_digits_match_jax():
                           np.asarray(jg1.fr_digits4_msb(js)))
 
 
-# --- the launch schedules of chip_smoke.py's phase smul --------------------
+# --- the launch schedules of the scalar multiplication rows ---------------
 
 
 def count_launches(fn, *args):
@@ -311,7 +312,7 @@ def count_launches(fn, *args):
 
 
 @pytest.mark.parametrize("group,name", sorted(
-    {(g, name) for g, name, _ in chip_smoke.SMUL_ROWS}))
+    {(g, name) for g, name, _ in port_cases.SMUL_ROWS}))
 def test_phase_smul_launch_schedules(group, name):
     n = 32
     if name == "scalar_mul":
@@ -320,32 +321,31 @@ def test_phase_smul_launch_schedules(group, name):
         args = (entry.msm_inputs(5, group, device="cpu")[0],)
     fn = getattr({"g1": g1, "g2": g2, "gt": gt}[group], name)
     assert count_launches(fn, *args)[0] == \
-        chip_smoke.expected_smul_launches(group, name, n)
+        port_cases.expected_smul_launches(group, name, n)
 
 
 @pytest.mark.parametrize("group", ["g1", "g2"])
 def test_msm_launch_schedules(group):
     """msm_g1 / msm_g2 (G2's three psi one fold each) against
-    `chip_smoke.expected_msm_launches`."""
+    `port_cases.expected_msm_launches`."""
     fn, (pts, sc) = entry.msm_entry(5, group, device="cpu")
     assert count_launches(fn, pts, sc, 6)[0] == \
-        chip_smoke.expected_msm_launches(group, 32, 6)
+        port_cases.expected_msm_launches(group, 32, 6)
 
 
 @pytest.mark.parametrize("group,name", sorted(
     {(g, name) for g, name, _ in chip_smoke.SMUL_ROWS}))
 def test_phase_smul_row_calls_recorded(group, name):
-    """Phase kernels replays every `sop_rows` call of each smul row: the
-    recorded calls, split by `chip_smoke.row_route`, are as many as the
-    row's schedule launches on each route, and each replays to its plain
-    value on the inputs `chip_smoke.smul_args` makes (128 lanes: the bad
-    lanes 17 and 81 fit)."""
+    """The kernel timer (`chip_smoke.py`) replays every `sop_rows` call of
+    each smul row: the calls `chip_smoke.record_rows` records, split by
+    `chip_smoke.row_route`, are as many as the row's schedule launches on
+    each route, and each replays to its plain value on the inputs
+    `chip_smoke.smul_args` makes (128 lanes; 100 for batch_normalize)."""
     n = 100 if name == "batch_normalize" else 128
-    outs = {}
-    args = chip_smoke.smul_args(group, name, n, torch.device("cpu"), outs)
+    args = chip_smoke.smul_args(group, name, n, torch.device("cpu"))
     fn = getattr({"g1": g1, "g2": g2, "gt": gt}[group], name)
     calls = chip_smoke.record_rows(lambda: fn(*args))
-    want = chip_smoke.expected_smul_launches(group, name, n)
+    want = port_cases.expected_smul_launches(group, name, n)
     got = collections.Counter(chip_smoke.row_route(c) for c in calls)
     assert {r: got[r] for r in ("sop", "fold_planned", "sop_fr")} == \
         {r: want[r] for r in ("sop", "fold_planned", "sop_fr")}

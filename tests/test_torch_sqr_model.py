@@ -136,8 +136,8 @@ def test_model_matches_plain_and_host(lane):
 
 
 def test_launch_shape_matches_the_kernel_source():
-    """mont.SQR_THREADS and SQR_LANES_PER_THREAD, from which chip_smoke.py
-    prints the launch shape, are mont_sqr.cuh's kThreads and
+    """mont.SQR_THREADS and SQR_LANES_PER_THREAD, from which chip_smoke.py's
+    kernel timer prints the launch shape, are mont_sqr.cuh's kThreads and
     kLanesPerThread."""
     src = (Path(mont.__file__).parent / "csrc" / "mont_sqr.cuh").read_text()
     assert re.findall(r"constexpr int kThreads = (\d+);", src) == [

@@ -155,7 +155,8 @@ def test_psi_squared_and_identity(group):
 
 def test_port_host_oracle_matches_jax():
     """The port's host square roots, torsion tests and cofactor clearing
-    (the oracle of chip_smoke.py's phase smul) equal the JAX package's."""
+    (the oracle of the card's subgroup rows, `test_torch_kernels_gpu.py`)
+    equal the JAX package's."""
     for _ in range(6):
         a = rng.randrange(P)
         ours, theirs = hm.fp_sqrt(a), jhm.fp_sqrt(a)

@@ -5,7 +5,8 @@ and every replay must equal the eager call limb for limb, at the
 benchmark's shapes (pairings over 256, 8,192 and 704 lanes; hashes and
 decoders over 128, 4,096 and 352), the decoders over every invalid kind
 the benchmark sends; `hash_to_curve_g2` and the others on replay give the
-draft's KATs; a replayed pairing counts `chip_smoke.expected_launches()`;
+draft's KATs; a replayed pairing counts `port_cases.expected_launches()`
+and a BLS round trip `expected_bls_launches`;
 the stage spans of a replay are children of its replay span; a verify
 call's graphs are all kept across calls; replays from two streams keep
 their order; the graphs are released where the card runs out of memory.
@@ -26,7 +27,7 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
+import port_cases
 from bls12_381_torch import entry, hostmath as hm, params
 from bls12_381_torch.curves import g1, g2
 from bls12_381_torch.hash_to_curve import h2c
@@ -206,7 +207,7 @@ def test_hashes_on_replay_give_the_kats(cuda):
     functions eager at its first message, captured at its second, replayed
     after."""
     kats = json.loads(KATS.read_text())
-    for name, dst in chip_smoke.KAT_DSTS.items():
+    for name, dst in port_cases.KAT_DSTS.items():
         group = name[:2]
         kind = "hash" if name.endswith("ro") else "encode"
         fn = getattr(h2c, f"{kind}_to_curve_{group}")
@@ -215,7 +216,7 @@ def test_hashes_on_replay_give_the_kats(cuda):
             got = GROUPS[group].to_uncompressed_host(
                 GROUPS[group].to_affine(out))
             assert bytes(got[0]).hex() == c["expected"], (name, c["msg"])
-    total = sum(len(kats[k]) for k in chip_smoke.KAT_DSTS)
+    total = sum(len(kats[k]) for k in port_cases.KAT_DSTS)
     assert GRAPHS.snapshot() == counts(4, total - 4, 4)
 
 
@@ -227,9 +228,29 @@ def pairing_launches(p, q) -> dict:
     return got
 
 
-def test_a_replayed_pairing_counts_the_expected_launches(cuda):
+def round_trip_launches(n: int, dev) -> dict:
+    LAUNCHES.reset()
+    faults = port_cases.round_trip_faults(*port_cases.bls_round_trip(n, dev))
+    assert faults == []
+    got = LAUNCHES.snapshot()
+    del got["plan_exec_by_plan"]
+    return got
+
+
+@pytest.mark.parametrize("path", ["pairing", "round trip"])
+def test_a_replayed_pairing_counts_the_expected_launches(cuda, path):
+    """A pairing over 256 lanes, and the BLS round trip over 256 lanes
+    (`port_cases.bls_round_trip`: keygen, sign, serialize, parse, verify;
+    lanes 3, 7 and 11 of every 64 tampered, every verdict right), three
+    times: eager, captured, replayed; each call's launches =
+    `port_cases.expected_launches` / `expected_bls_launches`."""
+    if path == "round trip":
+        want = port_cases.expected_bls_launches(256)
+        runs = [round_trip_launches(256, cuda) for _ in range(3)]
+        assert runs == [want] * 3
+        return
     p, q = pairing_set(256, 0, cuda)
-    want = chip_smoke.expected_launches()
+    want = port_cases.expected_launches()
     runs = [pairing_launches(p, q) for _ in range(3)]
     assert GRAPHS.snapshot() == counts(1, 2, 1)
     assert runs == [want] * 3
