@@ -13,7 +13,9 @@ lane strides (on either device, so the CPU tests see it too).  A launch
 recorded into a CUDA graph's capture is not counted; each replay of the
 graph adds the counts its capture recorded (`utils/graphs.py`), so the
 counts stay those of the launches the card ran.  `GRAPHS` counts what
-those graphs did, `AGGREGATES` the key sums of `ops/aggregate.py`.
+those graphs did, `AGGREGATES` the key sums of `ops/aggregate.py`,
+`BUCKETS` the bucket sums of `ops/msm.py` (replays add them as they add
+launches).
 """
 
 from __future__ import annotations
@@ -97,6 +99,18 @@ class _Counts:
     def snapshot(self) -> dict:
         return dataclasses.asdict(self)
 
+    def since(self, before: dict) -> dict:
+        """The counts added since the snapshot `before`."""
+        return {k: v - before[k] for k, v in self.snapshot().items()}
+
+    def add(self, counts: dict) -> None:
+        for k, v in counts.items():
+            setattr(self, k, getattr(self, k) + v)
+
+    def restore(self, snap: dict) -> None:
+        for k, v in snap.items():
+            setattr(self, k, v)
+
 
 @dataclasses.dataclass
 class GraphCounts(_Counts):
@@ -126,3 +140,17 @@ class AggregateCounts(_Counts):
 
 
 AGGREGATES = AggregateCounts()
+
+
+@dataclasses.dataclass
+class BucketCounts(_Counts):
+    """The bucket sums of `ops/msm.py` `segment_sums` (the MSM's buckets,
+    the registry's key sets): calls that took the fold (a card) and the
+    segmented scan (the CPU), the lanes folded and the fold's levels."""
+    fold: int = 0
+    scan: int = 0
+    lanes: int = 0
+    levels: int = 0
+
+
+BUCKETS = BucketCounts()

@@ -50,12 +50,56 @@
 //     op 1 add: dst = src0 + src1      op 3 neg: dst = -src0
 //     op 2 sub: dst = src0 - src1      op 4 sop: dst = sum_t src[2t] src[2t+1]
 //   all mod p and canonical; sop takes T <= 8 with one reduction.
+//
+// Fold mode (`plan_kernel<true>`, `bls_plan_fold`): the sums of the runs of
+// equal `dest` along K sorted lanes (the MSM's buckets, the key sets of
+// ops/aggregate.py), one group-law plan per lane added.  It replaces the
+// segmented scan of complete additions (ops/msm.py), whose ~2K additions in
+// 2 lg K launches came with a pass of torch glue per level; the TPU kernel
+// has no counterpart (the JAX package scans).  Each lane of a block's tile
+// is a *folder* that walks a run of M consecutive lanes with its
+// accumulator in the plan's first n_out input slots: the plan is compiled
+// with output o written into input o's slot (kernels/plan_exec.py,
+// `compile_plan(..., fold=True)`), so a step is: load the lane's operand
+// (the point `order` names, y negated where `negs` is set) into the other
+// input slots, reset the accumulator to the identity at a segment's first
+// lane, run the phases.  A piece of a segment that ends inside the run is
+// written at its end: a segment's total (16-bit limbs, `totals[dest]`) where
+// the piece is the whole segment, else one of the run's two partial slots
+// (first: the piece open on the left; last: open on the right), 32-bit
+// words, point-major, with a content flag; a slot with no piece takes the
+// identity and no content.  The partials, sorted like the lanes, are the
+// next level's lanes (the full-addition plan), until one run holds every
+// lane; a segment is written where its pieces meet, once.  Bound: the
+// plan's multiplies, one mixed addition per lane; the operand's 96 bytes
+// (G1) a lane come packed, point-major, so a step reads three sectors a
+// lane and no scattered limbs.
 #include <atomic>
 
 #include "fp384.cuh"
 
 using namespace montgomery;
 using fp384::Field;
+
+// The fold mode's arguments (kernels/plan_exec.py `_FoldArgs`, field for
+// field), passed by value.
+struct PlanFoldArgs {
+  const uint32_t* src;       // operand points, point-major: src_words each
+  const int64_t* order;      // lane -> source point; null: the lane itself
+  const uint8_t* negs;       // negate operand rows [neg_lo, neg_hi); or null
+  const int64_t* dest;       // lane -> its segment's output (dropped outside
+                             // [0, n_totals)), non-decreasing
+  const uint8_t* content;    // the lane holds a piece; null: every lane
+  int32_t* totals;           // [n_out rows][L16][n_totals] 16-bit limbs
+  uint32_t* part;            // [2 runs][n_out rows * W] the partial pieces
+  uint8_t* part_content;     // [2 runs]
+  int K;                     // lanes
+  int M;                     // lanes a folder walks
+  int n_totals;
+  int src_words;
+  int neg_lo, neg_hi;
+  unsigned one_mask;         // accumulator rows of the identity that are 1
+};
 
 namespace {
 
@@ -65,54 +109,38 @@ constexpr int kMaxLaneLog2 = 6;
 constexpr int kMaxSmem = 232448;  // 227 KB: a block's shared-memory limit
 constexpr int kStaticSmem = 48 * 1024;
 enum { kAdd = 1, kSub = 2, kNeg = 3, kSop = 4 };
+// a folder's step (fold mode), decided by its lane's thread
+enum : unsigned {
+  kLoad = 1,         // read the lane's operand
+  kReset = 2,        // set the accumulator to the identity first
+  kNegate = 4,       // negate the operand's rows [neg_lo, neg_hi)
+  kEmitTotal = 8,    // the piece that ended is its segment: totals[dest]
+  kEmitFirst = 16,   // ... the run's first partial (open on the left)
+  kEmitLast = 32,    // ... the run's last partial (open on the right)
+  kClearFirst = 64,  // the run has no first partial: the identity
+  kClearLast = 128,  // ... no last partial
+  kSeen = 256,       // the piece holds content (state and emitted flag)
+  kOpenLeft = 512,   // state: the piece began before the run
+  kEmit = kEmitTotal | kEmitFirst | kEmitLast,
+  kAcc = kReset | kEmit | kClearFirst | kClearLast,
+};
 
 __device__ __forceinline__ int u16_at(const uint8_t* prog, int byte_off) {
   return *(const uint16_t*)(prog + byte_off);
 }
 
-// Shared memory: the program's prog_vecs 16-byte vectors, then the slots.
-__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
-plan_kernel(const int32_t* __restrict__ ops, int32_t* __restrict__ out,
-            const uint4* __restrict__ program, int prog_vecs, int B,
-            int lt_log2) {
+// The phases of one evaluation of the plan over a block's lanes (their
+// inputs in their slots): each round reads every source before it writes
+// any destination.
+__device__ __forceinline__ void run_phases(const uint16_t* phases,
+                                           const uint16_t* rows_at,
+                                           const uint32_t* rows,
+                                           uint32_t* vals, int n_phases,
+                                           int lt_log2, int live_lanes,
+                                           int slot) {
   constexpr int W = Field::W;
-  constexpr int L16 = Field::L16;
-  extern __shared__ uint4 smem[];
-  for (int i = threadIdx.x; i < prog_vecs; i += blockDim.x) {
-    smem[i] = __ldg(program + i);
-  }
-  __syncthreads();
-  const uint8_t* prog = (const uint8_t*)smem;
-  uint32_t* vals = (uint32_t*)(smem + prog_vecs);
-
-  const int n_phases = u16_at(prog, 0);
-  const int n_loads = u16_at(prog, 2);
-  const int n_out = u16_at(prog, 4);
-  const uint16_t* phases = (const uint16_t*)(prog + u16_at(prog, 8));
-  const uint16_t* rows_at = (const uint16_t*)(prog + u16_at(prog, 10));
-  const uint8_t* io = prog + u16_at(prog, 12);
-  const uint32_t* rows = (const uint32_t*)(prog + u16_at(prog, 14));
-
   const int lt = 1 << lt_log2;
   const int lane_mask = lt - 1;
-  const int slot = lt * (W + (lt < 32 ? 1 : 0));  // slot stride in words
-  const int b0 = blockIdx.x << lt_log2;
-  const int live_lanes = min(lt, B - b0);  // the last tile may be ragged
-
-  // inputs: item (load j, word k, lane l), lane fastest
-#pragma unroll 1
-  for (int it = threadIdx.x; it < (n_loads * W) << lt_log2;
-       it += blockDim.x) {
-    const int l = it & lane_mask;
-    if (l >= live_lanes) continue;
-    const int jk = it >> lt_log2;
-    const int j = jk / W, k = jk - j * W;
-    const int row = io[2 * j], s = io[2 * j + 1];
-    const int32_t* src = ops + ((size_t)row * L16 + 2 * k) * B + b0 + l;
-    vals[s * slot + k * lt + l] = (uint32_t)src[0] | ((uint32_t)src[B] << 16);
-  }
-  __syncthreads();
-
 #pragma unroll 1
   for (int ph = 0; ph < n_phases; ++ph) {
     const int r0 = phases[ph];
@@ -168,39 +196,235 @@ plan_kernel(const int32_t* __restrict__ ops, int32_t* __restrict__ out,
       __syncthreads();  // ... before, and every result written after
     }
   }
+}
 
-  // outputs: item (output o, word k, lane l), lane fastest
+// Folder g's step s (fold mode, by the thread of its lane): returns what
+// the step does (the flags above) and sets its operand's point and the
+// output of the piece it ends; `state` (kOpenLeft, kSeen) and `prev_dest`
+// carry over from step to step.  Writes the run's partials' content
+// flags.
+__device__ __forceinline__ unsigned fold_step(const PlanFoldArgs& a, int g,
+                                              int s, unsigned& state,
+                                              int64_t& prev_dest, int& src,
+                                              int& out) {
+  const int64_t base = (int64_t)g * a.M;
+  const int64_t i = base + s;
+  const bool cur = s < a.M && i < a.K;
+  const int64_t d = cur ? a.dest[i] : 0;
+  unsigned f = 0;
+  if (s == 0) {
+    const int64_t last = (base + a.M < a.K ? base + a.M : a.K) - 1;
+    const int64_t dl = a.dest[last];
+    const bool open_left = base > 0 && a.dest[base - 1] == d;
+    const bool open_right = last + 1 < a.K && a.dest[last + 1] == dl;
+    if (!open_left) f |= kClearFirst;
+    // the last piece is open on the right and is not the first one open on
+    // the left too (a run inside one segment has one partial, the first)
+    if (!open_right || (open_left && dl == d)) f |= kClearLast;
+    state = open_left ? kOpenLeft : 0;
+    f |= kReset;
+  } else if (i - 1 < a.K) {
+    const int64_t dp = prev_dest;
+    if (!cur || d != dp) {  // lane i - 1 ends a piece
+      const bool closed_right = cur || i >= a.K || a.dest[i] != dp;
+      const unsigned seen = state & kSeen;
+      if (state & kOpenLeft) {
+        f |= kEmitFirst | seen;
+      } else if (!closed_right) {
+        f |= kEmitLast | seen;
+      } else if (seen && dp >= 0 && dp < a.n_totals) {
+        f |= kEmitTotal;
+        out = (int)dp;
+      }
+      state = 0;
+      if (cur) f |= kReset;
+    }
+  }
+  if (cur) {
+    f |= kLoad;
+    prev_dest = d;
+    if (!a.content || a.content[i]) state |= kSeen;
+    if (a.negs && a.negs[i]) f |= kNegate;
+    src = a.order ? (int)a.order[i] : (int)i;
+  }
+  uint8_t* pc = a.part_content + 2 * (int64_t)g;
+  if (f & (kClearFirst | kEmitFirst)) pc[0] = (f & kEmitFirst) && (f & kSeen);
+  if (f & (kClearLast | kEmitLast)) pc[1] = (f & kEmitLast) && (f & kSeen);
+  return f;
+}
+
+// Shared memory: the program's prog_vecs 16-byte vectors, then the slots;
+// in fold mode then, from the next 8 bytes, per folder its last lane's
+// dest, the step's flags, operand point and output, and its state.  Plain
+// mode: B lanes, one evaluation each.  Fold mode: B folders (runs), the
+// rest in `fold`.
+template <bool kFold>
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
+plan_kernel(const int32_t* __restrict__ ops, int32_t* __restrict__ out,
+            const uint4* __restrict__ program, int prog_vecs, int B,
+            int lt_log2, const PlanFoldArgs fold) {
+  constexpr int W = Field::W;
+  constexpr int L16 = Field::L16;
+  extern __shared__ uint4 smem[];
+  for (int i = threadIdx.x; i < prog_vecs; i += blockDim.x) {
+    smem[i] = __ldg(program + i);
+  }
+  __syncthreads();
+  const uint8_t* prog = (const uint8_t*)smem;
+  uint32_t* vals = (uint32_t*)(smem + prog_vecs);
+
+  const int n_phases = u16_at(prog, 0);
+  const int n_loads = u16_at(prog, 2);
+  const int n_out = u16_at(prog, 4);
+  const uint16_t* phases = (const uint16_t*)(prog + u16_at(prog, 8));
+  const uint16_t* rows_at = (const uint16_t*)(prog + u16_at(prog, 10));
+  const uint8_t* io = prog + u16_at(prog, 12);
+  const uint32_t* rows = (const uint32_t*)(prog + u16_at(prog, 14));
+
+  const int lt = 1 << lt_log2;
+  const int lane_mask = lt - 1;
+  const int slot = lt * (W + (lt < 32 ? 1 : 0));  // slot stride in words
+  const int b0 = blockIdx.x << lt_log2;
+  const int live_lanes = min(lt, B - b0);  // the last tile may be ragged
+
+  if constexpr (kFold) {
+    const PlanFoldArgs& a = fold;
+    // the accumulator is input rows [0, n_out), and output o is written
+    // into input o's slot; the operand is input rows [n_out, n_loads)
+    const int acc_words = n_out * W;
+    // the folders' words, after the slots rounded up to 8 bytes
+    int64_t* m_prev = (int64_t*)(vals + ((u16_at(prog, 6) * slot + 1) & ~1));
+    unsigned* m_flags = (unsigned*)(m_prev + lt);
+    int* m_src = (int*)(m_flags + lt);
+    int* m_out = m_src + lt;
+    unsigned* m_state = (unsigned*)(m_out + lt);
 #pragma unroll 1
-  for (int it = threadIdx.x; it < (n_out * W) << lt_log2; it += blockDim.x) {
-    const int l = it & lane_mask;
-    if (l >= live_lanes) continue;
-    const int ok = it >> lt_log2;
-    const int o = ok / W, k = ok - o * W;
-    const uint32_t x = vals[io[2 * n_loads + o] * slot + k * lt + l];
-    int32_t* d = out + ((size_t)o * L16 + 2 * k) * B + b0 + l;
-    d[0] = (int32_t)(x & 0xffffu);
-    d[B] = (int32_t)(x >> 16);
+    for (int s = 0; s <= a.M; ++s) {
+      unsigned f = 0;
+      if (threadIdx.x < live_lanes) {
+        const int l = threadIdx.x;
+        f = fold_step(a, b0 + l, s, m_state[l], m_prev[l], m_src[l],
+                      m_out[l]);
+        m_flags[l] = f;
+      }
+      // the accumulator's words move only on a step that ends, starts or
+      // clears a piece of some lane of the block
+      const int touch = __syncthreads_or(f & kAcc);
+      // items (load j, word k, lane l), lane fastest
+#pragma unroll 1
+      for (int it = threadIdx.x + (touch ? 0 : (acc_words << lt_log2));
+           it < (n_loads * W) << lt_log2; it += blockDim.x) {
+        const int l = it & lane_mask;
+        if (l >= live_lanes) continue;
+        const unsigned fl = m_flags[l];
+        const int jk = it >> lt_log2;
+        const int j = jk / W, k = jk - j * W;
+        uint32_t* v = vals + io[2 * j + 1] * slot + k * lt + l;
+        if (j < n_out) {
+          uint32_t* part = a.part + 2 * (int64_t)(b0 + l) * acc_words +
+                           j * W + k;
+          if (fl & kEmitTotal) {
+            const uint32_t x = *v;
+            int32_t* d = a.totals + ((int64_t)j * L16 + 2 * k) * a.n_totals +
+                         m_out[l];
+            d[0] = (int32_t)(x & 0xffffu);
+            d[a.n_totals] = (int32_t)(x >> 16);
+          } else if (fl & kEmit) {
+            part[(fl & kEmitLast) ? acc_words : 0] = *v;
+          }
+          const uint32_t id = ((a.one_mask >> j) & 1) ? Field::one(k) : 0;
+          if (fl & kClearFirst) part[0] = id;
+          if (fl & kClearLast) part[acc_words] = id;
+          if (fl & kReset) *v = id;
+        } else if (fl & kLoad) {
+          *v = __ldg(a.src + (int64_t)m_src[l] * a.src_words +
+                     (j - n_out) * W + k);
+        }
+      }
+      __syncthreads();
+      if (s == a.M) break;
+      if (a.negs) {
+        // items (negated row r, lane l)
+#pragma unroll 1
+        for (int it = threadIdx.x; it < (a.neg_hi - a.neg_lo) << lt_log2;
+             it += blockDim.x) {
+          const int l = it & lane_mask;
+          if (l >= live_lanes || !(m_flags[l] & kNegate)) continue;
+          const int j = n_out + a.neg_lo + (it >> lt_log2);
+          uint32_t* v = vals + io[2 * j + 1] * slot + l;
+          uint32_t x[W], z[W], r[W];
+          load32(v, lt, x);
+#pragma unroll
+          for (int k = 0; k < W; ++k) z[k] = 0;
+          mod_sub<Field>(z, x, r);
+          store32(v, lt, r);
+        }
+        __syncthreads();
+      }
+      run_phases(phases, rows_at, rows, vals, n_phases, lt_log2, live_lanes,
+                 slot);
+    }
+  } else {
+    // inputs: item (load j, word k, lane l), lane fastest
+#pragma unroll 1
+    for (int it = threadIdx.x; it < (n_loads * W) << lt_log2;
+         it += blockDim.x) {
+      const int l = it & lane_mask;
+      if (l >= live_lanes) continue;
+      const int jk = it >> lt_log2;
+      const int j = jk / W, k = jk - j * W;
+      const int row = io[2 * j], s = io[2 * j + 1];
+      const int32_t* src = ops + ((size_t)row * L16 + 2 * k) * B + b0 + l;
+      vals[s * slot + k * lt + l] =
+          (uint32_t)src[0] | ((uint32_t)src[B] << 16);
+    }
+    __syncthreads();
+
+    run_phases(phases, rows_at, rows, vals, n_phases, lt_log2, live_lanes,
+               slot);
+
+    // outputs: item (output o, word k, lane l), lane fastest
+#pragma unroll 1
+    for (int it = threadIdx.x; it < (n_out * W) << lt_log2;
+         it += blockDim.x) {
+      const int l = it & lane_mask;
+      if (l >= live_lanes) continue;
+      const int ok = it >> lt_log2;
+      const int o = ok / W, k = ok - o * W;
+      const uint32_t x = vals[io[2 * n_loads + o] * slot + k * lt + l];
+      int32_t* d = out + ((size_t)o * L16 + 2 * k) * B + b0 + l;
+      d[0] = (int32_t)(x & 0xffffu);
+      d[B] = (int32_t)(x >> 16);
+    }
   }
 }
 
 // plan_kernel's ceiling on dynamic shared memory, raised to kMaxSmem once
-// per device (bit d: device d) at its first launch above the static 48 KB.
-// cudaFuncSetAttribute is no launch: a later launch holds the launch and
-// cudaGetLastError alone, all that a stream capture records.
-std::atomic<unsigned long long> g_smem_raised{0};
-
+// per device and mode (bit d: device d) at its first launch above the
+// static 48 KB.  cudaFuncSetAttribute is no launch: a later launch holds
+// the launch and cudaGetLastError alone, all that a stream capture records.
+template <bool kFold>
 cudaError_t allow_smem(int smem_bytes) {
+  static std::atomic<unsigned long long> raised{0};
   if (smem_bytes <= kStaticSmem) return cudaSuccess;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
-  if (bit && (g_smem_raised.load() & bit)) return cudaSuccess;
-  e = cudaFuncSetAttribute(plan_kernel,
+  if (bit && (raised.load() & bit)) return cudaSuccess;
+  e = cudaFuncSetAttribute(plan_kernel<kFold>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            kMaxSmem);
-  if (e == cudaSuccess) g_smem_raised.fetch_or(bit);
+  if (e == cudaSuccess) raised.fetch_or(bit);
   return e;
+}
+
+bool bad_shape(int B, int lt_log2, int threads, int prog_bytes,
+               int smem_bytes) {
+  return B < 1 || lt_log2 < 0 || lt_log2 > kMaxLaneLog2 || threads < 32 ||
+         threads > kMaxThreads || threads % 32 != 0 || prog_bytes < 16 ||
+         prog_bytes % 16 != 0 || smem_bytes < prog_bytes ||
+         smem_bytes > kMaxSmem;
 }
 
 }  // namespace
@@ -212,17 +436,36 @@ cudaError_t allow_smem(int smem_bytes) {
 extern "C" int bls_plan_exec(const void* ops, void* out, const void* program,
                              int prog_bytes, int B, int lt_log2, int threads,
                              int smem_bytes, void* stream) {
-  if (B < 1 || lt_log2 < 0 || lt_log2 > kMaxLaneLog2 || threads < 32 ||
-      threads > kMaxThreads || threads % 32 != 0 || prog_bytes < 16 ||
-      prog_bytes % 16 != 0 || smem_bytes < prog_bytes ||
-      smem_bytes > kMaxSmem) {
+  if (bad_shape(B, lt_log2, threads, prog_bytes, smem_bytes)) {
     return (int)cudaErrorInvalidValue;
   }
-  const cudaError_t e = allow_smem(smem_bytes);
+  const cudaError_t e = allow_smem<false>(smem_bytes);
   if (e != cudaSuccess) return (int)e;
   const int grid = (B + (1 << lt_log2) - 1) >> lt_log2;
-  plan_kernel<<<grid, threads, smem_bytes, (cudaStream_t)stream>>>(
+  plan_kernel<false><<<grid, threads, smem_bytes, (cudaStream_t)stream>>>(
       (const int32_t*)ops, (int32_t*)out, (const uint4*)program,
-      prog_bytes / 16, B, lt_log2);
+      prog_bytes / 16, B, lt_log2, PlanFoldArgs{});
+  return (int)cudaGetLastError();
+}
+
+// One fold level over `runs` folders of args->M lanes, in tiles of
+// 2^lt_log2 folders (the wrapper's `fold_shape`: the program, the slots,
+// 24 bytes a folder); returns cudaGetLastError() or the refusal's error.
+extern "C" int bls_plan_fold(const void* program, int prog_bytes,
+                             const PlanFoldArgs* args, int runs, int lt_log2,
+                             int threads, int smem_bytes, void* stream) {
+  if (bad_shape(runs, lt_log2, threads, prog_bytes, smem_bytes) ||
+      args->M < 1 || args->K < 1 ||
+      (int64_t)runs * args->M < args->K ||
+      (int64_t)(runs - 1) * args->M >= args->K ||
+      (args->neg_hi > args->neg_lo && !args->negs)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const cudaError_t e = allow_smem<true>(smem_bytes);
+  if (e != cudaSuccess) return (int)e;
+  const int grid = (runs + (1 << lt_log2) - 1) >> lt_log2;
+  plan_kernel<true><<<grid, threads, smem_bytes, (cudaStream_t)stream>>>(
+      nullptr, nullptr, (const uint4*)program, prog_bytes / 16, runs,
+      lt_log2, *args);
   return (int)cudaGetLastError();
 }

@@ -44,6 +44,15 @@ node's dependent multiply-add chain, and narrow phases leave threads
 waiting at the barrier), and at a wide one the threads an SM holds
 resident: slots take ~50 bytes per (value, lane) of shared memory and each
 thread up to 85 registers.
+
+Fold mode (`plan_fold`, `compile_plan(..., fold=True)`): the same kernel,
+instantiated once more, sums the runs of equal dest along sorted lanes
+(the MSM's buckets, the key sets of `ops/aggregate.py`): each lane of a
+tile walks a run of lanes, adding each lane's point into an accumulator
+held in the plan's slots (one mixed addition a lane), and leaves its
+run's segment totals and two partials; the partials are the next level's
+lanes (`ops/msm.py` `fold_levels`).  `plan_fold_plain` walks the same
+partition with PyTorch.
 """
 
 from __future__ import annotations
@@ -72,6 +81,7 @@ THREADS = 192              # per block: the kernel's __launch_bounds__
 MAX_LANE_TILE = 64
 SMEM_BUDGET = 64 * 1024    # bytes per block: three blocks fit an SM's 228 KB
 SM_COUNT = 132             # H100 SXM; the wrapper asks the card
+FOLDER_BYTES = 24          # fold mode: a folder's words in shared memory
 
 
 # ---------------------------------------------------------------------------
@@ -704,6 +714,7 @@ class CompiledPlan:
     phases: tuple          # ((start, stop), ...) row ranges of depths
     loads: np.ndarray      # [n_loads, 2] int32: (operand row, slot)
     out_slots: np.ndarray  # [n_out] int32
+    fold: bool = False     # output o written into input o's slot
     _tables: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
@@ -720,24 +731,30 @@ class CompiledPlan:
         """The kernel's byte program (`_encode_program`)."""
         return _encode_program(self)
 
-    def smem_bytes(self, lt: int) -> int:
+    def smem_bytes(self, lt: int, fold: bool = False) -> int:
         """Shared memory of a block of lt lanes: the program, staged once
-        per block, then the slot array."""
-        return len(self.program) + 4 * self.n_slots * slot_words(lt)
+        per block, then the slot array; in fold mode then, from the next 8
+        bytes, FOLDER_BYTES a lane."""
+        words = self.n_slots * slot_words(lt)
+        if fold:
+            return len(self.program) + 4 * (words + words % 2) \
+                + FOLDER_BYTES * lt
+        return len(self.program) + 4 * words
 
-    def launch_shape(self, B: int, n_sm: int = SM_COUNT):
+    def launch_shape(self, B: int, n_sm: int = SM_COUNT, fold: bool = False):
         """(lane tile Lt, threads, shared-memory bytes) of a launch over B
-        lanes.  Lt is the largest power of two <= MAX_LANE_TILE that still
-        gives at least half of the n_sm SMs a block and keeps the block's
-        shared memory within SMEM_BUDGET; one lane where nothing wider does.
-        (On the H100 a narrow batch is latency-bound, so 128 tiles of 8
-        lanes beat 256 of 4 at B = 1024; a wide one is bound by resident
-        threads, which 64-lane tiles of 192 threads maximise.)"""
+        lanes (fold mode: B folders).  Lt is the largest power of two <=
+        MAX_LANE_TILE that still gives at least half of the n_sm SMs a
+        block and keeps the block's shared memory within SMEM_BUDGET; one
+        lane where nothing wider does.  (On the H100 a narrow batch is
+        latency-bound, so 128 tiles of 8 lanes beat 256 of 4 at B = 1024;
+        a wide one is bound by resident threads, which 64-lane tiles of 192
+        threads maximise.)"""
         lt = MAX_LANE_TILE
         while lt > 1 and (-(-B // lt) < n_sm // 2
-                          or self.smem_bytes(lt) > SMEM_BUDGET):
+                          or self.smem_bytes(lt, fold) > SMEM_BUDGET):
             lt //= 2
-        return lt, THREADS, self.smem_bytes(lt)
+        return lt, THREADS, self.smem_bytes(lt, fold)
 
     def tables(self, device: torch.device) -> _Tables:
         """The tables on a device, made once."""
@@ -818,16 +835,21 @@ def _encode_program(plan: CompiledPlan) -> np.ndarray:
 _COMPILED: dict = {}
 
 
-def compile_plan(outputs) -> CompiledPlan:
+def compile_plan(outputs, fold: bool = False) -> CompiledPlan:
     """The plan's table, built once per plan: rows in level-group order, the
     phase boundaries where the depth changes, and slots by liveness.  A
     value holds its slot from its phase to the phase of its last read
     (outputs, inputs among them, to the end); the slot then goes back to a
     free list, from which the lowest is taken by the next node of a LATER
     phase that needs one, so no slot is written in the phase that reads
-    it.  Greedy in phase order, this uses the peak live count of slots."""
+    it.  Greedy in phase order, this uses the peak live count of slots.
+
+    fold=True compiles the plan for the kernel's fold mode: output o is
+    written into the slot of input row o (an accumulator that the next
+    evaluation reads in place), so those slots are held for the outputs,
+    each free from the phase after its input's last read."""
     outputs = tuple(outputs)
-    plan = _COMPILED.get(outputs)
+    plan = _COMPILED.get((outputs, fold))
     if plan is not None:
         return plan
     depth = _depths(outputs)
@@ -842,14 +864,24 @@ def compile_plan(outputs) -> CompiledPlan:
                     key=lambda x: x.args[0])
     free, slot, freed_after = [], {}, collections.defaultdict(list)
     n_slots = 0
+    # fold: output o -> its input's node, whose slot it takes
+    pinned = {o: inp(k) for k, o in enumerate(outputs)} if fold else {}
+    if any(o.op == "in" or pinned[o] not in last
+           or last[pinned[o]] >= depth[o] for o in pinned):
+        raise ValueError("a fold plan's output o must be a new value made "
+                         "after the last read of input row o")
 
     def take(v):
         nonlocal n_slots
+        if v in pinned:
+            slot[v] = slot[pinned[v]]
+            return
         if free:
             slot[v] = heapq.heappop(free)
         else:
             slot[v], n_slots = n_slots, n_slots + 1
-        freed_after[last[v]].append(slot[v])
+        if not (fold and v.op == "in" and v.args[0] < len(outputs)):
+            freed_after[last[v]].append(slot[v])
 
     for x in inputs:
         take(x)
@@ -881,8 +913,9 @@ def compile_plan(outputs) -> CompiledPlan:
     if n_slots > MAX_SLOTS or n_in > MAX_SLOTS:
         raise ValueError(f"plan of {n_slots} slots and {n_in} operand rows; "
                          f"the kernel's 8-bit indices take {MAX_SLOTS}")
-    plan = _COMPILED[outputs] = CompiledPlan(
-        name=_PLAN_NAMES.get(outputs, f"plan[{len(rows)} nodes]"),
+    plan = _COMPILED[(outputs, fold)] = CompiledPlan(
+        name=_PLAN_NAMES.get(outputs, f"plan[{len(rows)} nodes]")
+        + ("[fold]" if fold else ""),
         n_in=n_in,
         n_slots=n_slots,
         instr=np.stack(rows) if rows else np.zeros((0, INSTR_WIDTH), np.int32),
@@ -891,6 +924,7 @@ def compile_plan(outputs) -> CompiledPlan:
         loads=np.array([(x.args[0], slot[x]) for x in inputs],
                        np.int32).reshape(-1, 2),
         out_slots=np.array([slot[o] for o in outputs], np.int32),
+        fold=fold,
     )
     return plan
 
@@ -939,6 +973,11 @@ _SIGNATURES = {
     "bls_plan_exec": (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                       ctypes.c_int, ctypes.c_void_p),
+    # (program, program bytes, &_FoldArgs, runs, log2 folder tile, threads,
+    #  shared bytes, stream)
+    "bls_plan_fold": (ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p),
 }
 
 
@@ -970,6 +1009,204 @@ def plan_exec(ops: torch.Tensor, plan: CompiledPlan) -> torch.Tensor:
         LAUNCHES.plan_exec_by_plan[plan.name] += 1
     check_launch(rc, f"plan_exec {plan.name}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Fold mode: sums of the runs of equal dest along sorted lanes
+# ---------------------------------------------------------------------------
+
+
+def pack_words(rows) -> torch.Tensor:
+    """Fp rows ([L, *batch] limbs, one batch) -> int32 [N, len(rows) * 12]:
+    each point's rows as 32-bit words (limb 2k | limb 2k+1 << 16, the bits
+    of a uint32), point-major: the fold's operand layout."""
+    t = torch.stack([r.reshape(L, -1) for r in rows])
+    n = t.shape[-1]
+    pairs = t.view(len(rows), WORDS, 2, n).permute(3, 0, 1, 2)
+    return pairs.to(torch.int16).contiguous().flatten().view(
+        torch.int32).reshape(n, len(rows) * WORDS)
+
+
+def unpack_words(words: torch.Tensor) -> torch.Tensor:
+    """pack_words' inverse: int32 [N, R * 12] -> limbs [R, L, N]."""
+    n = words.shape[0]
+    limbs16 = words.contiguous().flatten().view(torch.int16).to(
+        limbs.DTYPE) & 0xFFFF
+    return limbs16.reshape(n, -1, L).permute(1, 2, 0)
+
+
+class _FoldArgs(ctypes.Structure):
+    """csrc/plan_exec.cu `PlanFoldArgs`, field for field."""
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "src", "order", "negs", "dest", "content", "totals", "part",
+        "part_content")] + [(name, ctypes.c_int) for name in (
+            "K", "M", "n_totals", "src_words", "neg_lo", "neg_hi")] + [
+        ("one_mask", ctypes.c_uint)]
+
+
+class Fold(NamedTuple):
+    """One fold level's operands (`plan_fold`): K sorted lanes, each adding
+    the point src[order[i]] (src[i] without an order; int32 [n, rows * 12]
+    words, `pack_words`), operand rows [neg_lo, neg_hi) negated where
+    negs[i]; the segments are the runs of equal dest[i] (int64,
+    non-decreasing); content[i] false marks a lane that holds no piece
+    (bool, None: every lane holds one); one_mask: the accumulator rows that
+    are 1 in the identity."""
+    src: torch.Tensor
+    dest: torch.Tensor
+    order: torch.Tensor | None = None
+    negs: torch.Tensor | None = None
+    neg_rows: tuple = (0, 0)
+    content: torch.Tensor | None = None
+    one_mask: int = 0
+
+
+def _check_fold(plan: CompiledPlan, fold: Fold, M: int, totals) -> None:
+    n_acc = plan.n_out
+    if not (plan.fold
+            and plan.loads[:, 0].tolist() == list(range(plan.n_in))):
+        raise ValueError(f"plan_fold: {plan.name} is not compiled for the "
+                         "fold (compile_plan(..., fold=True))")
+    K = fold.dest.shape[-1]
+    words = (plan.n_in - n_acc) * WORDS
+    if fold.src.dtype != limbs.DTYPE or fold.src.dim() != 2 \
+            or fold.src.shape[1] != words or fold.dest.dim() != 1 \
+            or fold.dest.dtype != torch.int64 or K < 1 or M < 1:
+        raise ValueError(f"plan_fold {plan.name}: expected src int32 [n, "
+                         f"{words}], dest int64 [K >= 1], M >= 1; got "
+                         f"{tuple(fold.src.shape)} {fold.src.dtype}, "
+                         f"{tuple(fold.dest.shape)} {fold.dest.dtype}, {M}")
+    if totals.dtype != limbs.DTYPE or totals.dim() != 3 \
+            or tuple(totals.shape[:2]) != (n_acc, L):
+        raise ValueError(f"plan_fold {plan.name}: totals must be int32 "
+                         f"[{n_acc}, {L}, n], got {tuple(totals.shape)}")
+    for name in ("order", "negs", "content"):
+        t = getattr(fold, name)
+        if t is not None and tuple(t.shape) != (K,):
+            raise ValueError(f"plan_fold {plan.name}: {name} must be [{K}]")
+    lo, hi = fold.neg_rows
+    if (fold.negs is None) != (hi <= lo) or lo < 0 \
+            or hi > plan.n_in - n_acc:
+        raise ValueError(f"plan_fold {plan.name}: negated rows {lo}..{hi} "
+                         "need negs, and negs rows to negate")
+
+
+def plan_fold(plan: CompiledPlan, fold: Fold, M: int,
+              totals: torch.Tensor):
+    """One level of the fold: the K lanes of `fold` in runs of M, one
+    folder a run, each adding its lanes' points with `plan` (compiled with
+    fold=True) into an accumulator that a segment's first lane resets to
+    the identity.  A segment inside one run is written into totals [rows,
+    L, n] (16-bit limbs, column dest, in place; only where it held
+    content); each run leaves two partials, its first piece where that is
+    open on the left and its last where that is open on the right (else
+    the identity, without content).  Returns the next level's Fold over
+    the partials (src [2 runs, rows * 12]) with the full addition's plan
+    still to pick: its lanes are sorted like these.  A segment whose dest
+    lies outside [0, n) is summed and dropped."""
+    _check_fold(plan, fold, M, totals)
+    K = fold.dest.shape[0]
+    runs = -(-K // M)
+    first = torch.arange(runs, device=fold.dest.device) * M
+    ends = torch.clamp(first + M, max=K) - 1
+    part_dest = torch.stack([fold.dest[first], fold.dest[ends]], 1)
+    if device_kind(fold.dest) == "cpu":
+        part, content = plan_fold_plain(plan, fold, M, totals)
+    else:
+        part, content = _plan_fold_cuda(plan, fold, M, totals, runs)
+    return Fold(part, part_dest.reshape(-1), content=content,
+                one_mask=fold.one_mask)
+
+
+def _plan_fold_cuda(plan, fold: Fold, M: int, totals, runs: int):
+    K = fold.dest.shape[0]
+    dev = fold.dest.device
+    part = torch.empty((2 * runs, plan.n_out * WORDS), dtype=limbs.DTYPE,
+                       device=dev)
+    content = torch.empty(2 * runs, dtype=torch.bool, device=dev)
+    held = [t.contiguous() if t is not None else None for t in
+            (fold.src, fold.order, fold.negs, fold.dest, fold.content)]
+    src, order, negs, dest, cont = held
+    if not totals.is_contiguous():
+        raise ValueError(f"plan_fold {plan.name}: totals must be contiguous")
+
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
+
+    args = _FoldArgs(ptr(src), ptr(order), ptr(negs), ptr(dest), ptr(cont),
+                     totals.data_ptr(), part.data_ptr(), content.data_ptr(),
+                     K, M, totals.shape[2], src.shape[1], *fold.neg_rows,
+                     fold.one_mask)
+    lt, threads, smem = plan.launch_shape(runs, sm_count(dev.index),
+                                          fold=True)
+    program = plan.tables(dev).program
+    lib = build.load("plan_exec", _SIGNATURES)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.bls_plan_fold(program.data_ptr(), program.numel(),
+                               ctypes.byref(args), runs, lt.bit_length() - 1,
+                               threads, smem, stream)
+        LAUNCHES.plan_exec += 1
+        LAUNCHES.plan_exec_by_plan[plan.name] += 1
+    check_launch(rc, f"plan_fold {plan.name}")
+    return part, content
+
+
+def plan_fold_plain(plan, fold: Fold, M: int, totals):
+    """The kernel's fold mode with PyTorch, every folder at once, one step
+    (lane of the run) at a time: the same resets, pieces, partials and
+    content flags, each evaluation by `plan_exec_plain`."""
+    K = fold.dest.shape[0]
+    dest, dev = fold.dest, fold.dest.device
+    n_acc = plan.n_out
+    runs = -(-K // M)
+    g = torch.arange(runs, device=dev)
+    base = g * M
+    last = torch.clamp(base + M, max=K) - 1
+    d0 = dest[base]
+    open_left = (base > 0) & (dest[(base - 1).clamp(min=0)] == d0)
+    ident = torch.stack([limbs.const(limbs.FP, (fold.one_mask >> r) & 1,
+                                     (), device=dev)
+                         for r in range(n_acc)])[..., None]
+    # the partials start as the identity without content; pieces overwrite
+    part = pack_words(list(ident.expand(n_acc, L, 2 * runs))).clone()
+    content = torch.zeros(2 * runs, dtype=torch.bool, device=dev)
+    acc = ident.expand(n_acc, L, runs)
+    open_now, seen, prev = open_left, torch.zeros_like(open_left), d0
+    for s in range(M + 1):
+        i = base + s
+        cur = (i < K) & (s < M)
+        ic = i.clamp(max=K - 1)
+        d = dest[ic]
+        if s == 0:
+            reset = torch.ones_like(cur)
+        else:
+            ends = (i - 1 < K) & (~cur | (d != prev))
+            closed_right = cur | (i >= K) | (d != prev)
+            emit_first = ends & open_now
+            emit_last = ends & ~open_now & ~closed_right
+            emit_total = ends & ~open_now & closed_right & seen \
+                & (prev >= 0) & (prev < totals.shape[2])
+            totals[:, :, prev[emit_total]] = acc[:, :, emit_total]
+            for which, mask in ((0, emit_first), (1, emit_last)):
+                at = 2 * g[mask] + which
+                part[at] = pack_words(list(acc[:, :, mask]))
+                content[at] = seen[mask]
+            open_now, seen = open_now & ~ends, seen & ~ends
+            reset = ends & cur
+        if s == M:
+            break
+        acc = torch.where(reset, ident, acc)
+        seen = seen | (cur if fold.content is None
+                       else cur & fold.content[ic])
+        prev = torch.where(cur, d, prev)
+        op = unpack_words(fold.src[fold.order[ic] if fold.order is not None
+                                   else ic])
+        for r in range(*fold.neg_rows):
+            op[r] = torch.where(fold.negs[ic], limbs.neg(limbs.FP, op[r]),
+                                op[r])
+        acc = plan_exec_plain(torch.cat([acc, op]), plan)
+    return part, content
 
 
 def run_plan(outputs, components):

@@ -14,21 +14,24 @@ the set's attesting indices.  `KeyRegistry` is that cache on the card:
                             appended in order
   aggregate(indices, offsets)
                             one sum a set: the keys of set s are
-                            indices[offsets[s]:offsets[s + 1]]; one gather
-                            of every set's keys, one ragged segmented sum
+                            indices[offsets[s]:offsets[s + 1]]; one ragged
+                            sum over every set's keys
                             (`ops.msm.segment_sums`, the MSM's bucket
-                            accumulation) and each set's tail
+                            accumulation: on a card the plan kernel's
+                            fold, one mixed addition a key)
 
 The keys are affine (x, y) Montgomery limbs [24, n], as the MSM's window
-gathers read them.  A sum adds complete projective points, so a set may
-hold a key twice or a key and its negation: the sum is exact, the
-identity included.  Indices and offsets come from the host (a block's
-attesting indices) and are checked there before anything reads the
-table.
+gathers read them, and the same keys packed point-major for the fold
+(`plan_exec.pack_words`, 96 bytes a key, made in `register`).  The
+additions are complete, so a set may hold a key twice or a key and its
+negation: the sum is exact, the identity included.  Indices and offsets
+come from the host (a block's attesting indices) and are checked there
+before anything reads the table.
 
 Spans (`utils/profiling.py`): `agg` over `aggregate`, `agg.gather` over
-the gather, `agg.sum` over the scan and the tails; `kernels.AGGREGATES`
-counts the calls, sets and keys.
+preparing the operands (the CPU's gather; nothing on a card, whose table
+is packed), `agg.sum` over the sums; `kernels.AGGREGATES` counts the
+calls, sets and keys, `kernels.BUCKETS` the sums.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ import torch
 from .. import limbs
 from ..curves import g1 as G1
 from ..kernels import AGGREGATES
+from ..kernels import plan_exec as pe
 from ..limbs import FP
 from ..utils import graphs, profiling
 from . import msm
@@ -57,6 +61,7 @@ class KeyRegistry:
         empty = torch.empty((FP.n_limbs, 0), dtype=limbs.DTYPE,
                             device=self.device)
         self.xy = (empty, empty.clone())
+        self.packed = pe.pack_words(self.xy)
 
     def __len__(self) -> int:
         return self.xy[0].shape[-1]
@@ -82,6 +87,8 @@ class KeyRegistry:
         if parts:
             self.xy = tuple(torch.cat([t] + [p[i] for p in parts], -1)
                             for i, t in enumerate(self.xy))
+            self.packed = torch.cat([self.packed] + [pe.pack_words(p)
+                                                     for p in parts])
         return np.concatenate(taken) if taken else np.zeros(0, dtype=bool)
 
     @profiling.spanned("agg")
@@ -103,18 +110,17 @@ class KeyRegistry:
         filled = torch.from_numpy(filled_np).to(dev)
         if len(idx) == 0:
             return G1.identity((n_sets,), dev), filled
-        heads = np.zeros(len(idx), dtype=bool)
-        heads[off[:-1][filled_np]] = True
-        apk = msm.segment_sums(
-            G1, self.xy, torch.from_numpy(idx).to(dev),
-            torch.from_numpy(heads).to(dev)[None],
-            torch.from_numpy(np.maximum(off[1:] - 1, 0)).to(dev), filled,
-            stage="agg")
+        # key i's set: the number of sets that end at or before i
+        sets = torch.searchsorted(torch.from_numpy(off[1:]).to(dev),
+                                  torch.arange(len(idx), device=dev),
+                                  right=True)
+        apk = msm.segment_sums(G1, self.xy, torch.from_numpy(idx).to(dev),
+                               sets, n_sets, stage="agg", packed=self.packed)
         return apk, filled
 
     def _checked(self, indices, offsets):
-        """(indices int32, offsets int64) as numpy arrays, each checked
-        against the table and each other."""
+        """(indices, offsets) as int64 numpy arrays, each checked against
+        the table and each other."""
         idx = np.asarray(indices)
         off = np.asarray(offsets)
         for name, a in (("indices", idx), ("offsets", off)):
@@ -129,4 +135,4 @@ class KeyRegistry:
         if idx.size and (idx.min() < 0 or idx.max() >= len(self)):
             raise ValueError(f"indices must lie in [0, {len(self)}), got "
                              f"[{idx.min()}, {idx.max()}]")
-        return idx.astype(np.int32), off.astype(np.int64)
+        return idx.astype(np.int64), off.astype(np.int64)

@@ -19,7 +19,13 @@ scatter:
        buckets take the identity; bucket 0 (zero digits, identity inputs)
        is never read
     Steps 3-5 are `segment_sums`, which `ops/aggregate.py` shares to sum
-    validator keys by index.
+    validator keys by index.  On a card they are instead, for every window
+    at once (one span `msm.buckets`), a fold (`_fold_sums`): the windows'
+    sorted lanes back to back, each bucket's points added into it with one
+    mixed addition a lane by the plan kernel's fold mode
+    (`kernels/plan_exec.py` `plan_fold`), a handful of launches a call.
+    The fold adds in another order than the scan, so on a card the
+    projective sums differ from the CPU's; the affine points are equal.
   per window, span `msm.window_sum`:
     6. sum_b b * B_b as a suffix scan and a halving tree
     7. recombine: result = sum_w 2^(c w) S_w, c doublings and one add
@@ -39,6 +45,7 @@ card's memory.  CPU tensors run the steps as written.
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import torch
 
@@ -46,10 +53,21 @@ from .. import limbs, params
 from ..curves import g1 as G1
 from ..curves import g2 as G2
 from ..fields import fp, tower as tw
+from ..kernels import BUCKETS
+from ..kernels import plan_exec as pe
 from ..limbs import FR
 from ..utils import graphs, profiling, scans
 
 MSM_WINDOW = 12  # bits per window: the JAX package's config.msm_window
+# The fold's run lengths (`fold_levels`): a level of K lanes gives each
+# folder M = K / FOLD_FOLDERS lanes (a power of two, clamped to FOLD_RUNS),
+# so a wide level fills the card's ~34,000 resident folders (132 SMs, four
+# 64-lane tiles each) twice over or more, and a narrow one is FOLD_RUNS[0]
+# steps deep; every level leaves 2 K / M lanes (two partials a run), until
+# at most FOLD_LAST lanes go to one folder.
+FOLD_FOLDERS = 1 << 14
+FOLD_RUNS = (8, 64)
+FOLD_LAST = 16
 
 
 def _segmented_scan_add(curve, pts, heads):
@@ -69,21 +87,100 @@ def _segmented_scan_add(curve, pts, heads):
     return out
 
 
-def segment_sums(curve_mod, aff_xy, order, heads, tail, present, negs=None,
-                 stage: str | None = None):
+def _on_card(t: torch.Tensor) -> bool:
+    """Whether the bucket sums of t's device fold (a card) or scan (the
+    CPU, the JAX package's order of additions)."""
+    return t.device.type == "cuda"
+
+
+def fold_levels(K: int) -> list[tuple[int, int]]:
+    """(lanes, run length M) of each level of a fold over K lanes: static
+    in K, so a card's call captures into a graph."""
+    levels = []
+    while K > FOLD_LAST:
+        M = min(max(1 << max((K // FOLD_FOLDERS).bit_length() - 1, 0),
+                    FOLD_RUNS[0]), FOLD_RUNS[1])
+        levels.append((K, M))
+        K = 2 * -(-K // M)
+    return levels + [(K, K)]
+
+
+@functools.lru_cache(maxsize=None)
+def _identity_mask(curve) -> int:
+    """Bits of the identity's Fp rows that hold 1 (the rest hold 0)."""
+    rows = [r for c in curve.identity((1,), "cpu") for r in curve.f.rows(c)]
+    one = limbs.const(limbs.FP, 1, (1,), device="cpu")
+    mask = 0
+    for k, r in enumerate(rows):
+        if bool((r == one).all()):
+            mask |= 1 << k
+        elif bool(r.any()):
+            raise ValueError("the identity's rows must be 0 or 1")
+    return mask
+
+
+def _fold_sums(curve_mod, table, order, dest, n_out, negs=None):
+    """Sums of the runs of equal dest over K lanes by the plan kernel's
+    fold mode (`plan_exec.plan_fold`; its plain version on CPU tensors):
+    lane i adds the affine point table[order[i]] (`plan_exec.pack_words`
+    of the x then y rows), y negated where negs[i], by the curve's mixed
+    addition; the partials of each level by its full addition, until one
+    run holds every lane (`fold_levels`).  Output j < n_out holds the sum
+    of the lanes with dest j, the identity where none has it.  Returns
+    (projective points [n_out], the levels run)."""
+    curve = curve_mod.CURVE
+    f = curve.f
+    width = len(f.rows(curve.identity((1,), "cpu")[0]))
+    ident = [r for cd in curve.identity((n_out,), dest.device)
+             for r in f.rows(cd)]
+    totals = torch.stack(ident).contiguous()
+    fold = pe.Fold(table, dest, order, negs,
+                   (0, 0) if negs is None else (width, 2 * width),
+                   one_mask=_identity_mask(curve))
+    levels = fold_levels(dest.shape[0])
+    for n, (_, M) in enumerate(levels):
+        plan = pe.compile_plan(f.add_mixed_plan() if n == 0
+                               else f.add_plan(), fold=True)
+        fold = pe.plan_fold(plan, fold, M, totals)
+    rows = totals.unbind(0)
+    return tuple(f.from_rows(rows[k:k + width])
+                 for k in range(0, len(rows), width)), len(levels)
+
+
+def segment_sums(curve_mod, aff_xy, order, dest, n_out: int, negs=None,
+                 stage: str | None = None, packed=None):
     """Sums of segments of gathered affine points, the one bucket
-    accumulation of the MSM and of `ops/aggregate.py`'s key sums: the lanes
-    order [K] of aff_xy (the affine (x, y), lanes last), y negated where
-    negs [K] is true, lifted to z = 1, then a segmented inclusive scan of
-    the group law along heads bool [1, K] (true where a segment starts).
-    Segment j's total is the scan at lane tail[j], the identity where
-    present[j] is false.  Returns projective points [len(tail)].  With a
-    `stage`, the gather is the span `<stage>.gather` and the scan and the
-    tails the span `<stage>.sum`."""
+    accumulation of the MSM and of `ops/aggregate.py`'s key sums: lane i
+    (of K) takes the affine point order[i] of aff_xy (the affine (x, y),
+    lanes last), y negated where negs[i] is true; the segments are the
+    runs of equal dest[i] (int64 [K], non-decreasing), and output j < n_out
+    is the sum of the segment with dest j, the identity where there is
+    none (a segment with dest outside [0, n_out) is summed and dropped).
+    Returns projective points [n_out].
+
+    On a card, one fold over every lane (`_fold_sums`) from `packed`, the
+    table as `plan_exec.pack_words` gives it, or a packing of aff_xy; on
+    the CPU the segmented inclusive scan of the group law, the JAX
+    package's order of additions: the gathered points lifted to z = 1,
+    heads where dest changes, each total at its segment's tail.  With a
+    `stage`, preparing the operands is the span `<stage>.gather` and the
+    sums the span `<stage>.sum`.  `kernels.BUCKETS` counts the calls of
+    each kind, the lanes folded and the fold's levels."""
     curve = curve_mod.CURVE
     f = curve.f
     dev = order.device
-
+    if _on_card(order):
+        with _stage_span(stage, "gather"):
+            if packed is None:
+                packed = pe.pack_words([r for c in aff_xy for r in f.rows(c)])
+        with _stage_span(stage, "sum"):
+            sums, n_levels = _fold_sums(curve_mod, packed, order.long(),
+                                        dest, n_out, negs)
+        BUCKETS.fold += 1
+        BUCKETS.lanes += order.shape[0]
+        BUCKETS.levels += n_levels
+        return sums
+    BUCKETS.scan += 1
     with _stage_span(stage, "gather"):
         x, y = scans.tree_map(lambda t: t.index_select(-1, order), aff_xy)
         if negs is not None:
@@ -91,11 +188,17 @@ def segment_sums(curve_mod, aff_xy, order, heads, tail, present, negs=None,
                                f.neg(y), y)
         pts = (x, y, f.one(order.shape, dev))
     with _stage_span(stage, "sum"):
+        heads = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
+                           dest[1:] != dest[:-1]])[None]
+        ids = torch.arange(n_out, dtype=dest.dtype, device=dev)
+        pos_r = torch.searchsorted(dest, ids, right=True)
+        pos_l = torch.searchsorted(dest, ids, right=False)
         scanned = _segmented_scan_add(curve, pts, heads)
         return scans.tree_map(
-            lambda v, i: torch.where(present, v, i),
-            scans.tree_map(lambda t: t.index_select(-1, tail), scanned),
-            curve.identity(tail.shape, dev))
+            lambda v, i: torch.where(pos_r > pos_l, v, i),
+            scans.tree_map(lambda t: t.index_select(
+                -1, (pos_r - 1).clamp(min=0)), scanned),
+            curve.identity((n_out,), dev))
 
 
 def _stage_span(stage: str | None, part: str):
@@ -107,17 +210,34 @@ def _window_buckets(curve_mod, aff_xy, order, mags_s, negs_s, c: int):
     """One window's bucket totals B_1 .. B_half from its sorted digits:
     aff_xy holds the affine (x, y) with the lanes last; order, mags_s,
     negs_s are [B].  Returns projective points [half].  The sign of a
-    balanced digit costs one y negation; bucket b's total sits at the tail
-    of its segment."""
-    half = 1 << (c - 1)
-    dev = order.device
-    heads = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
-                       mags_s[1:] != mags_s[:-1]])[None]
-    bucket_ids = torch.arange(1, half + 1, dtype=mags_s.dtype, device=dev)
-    pos_r = torch.searchsorted(mags_s, bucket_ids, right=True)
-    pos_l = torch.searchsorted(mags_s, bucket_ids, right=False)
-    return segment_sums(curve_mod, aff_xy, order, heads,
-                        (pos_r - 1).clamp(min=0), pos_r > pos_l, negs_s)
+    balanced digit costs one y negation; bucket b is output b - 1, so
+    bucket 0 (zero digits, identity inputs) is dropped."""
+    return segment_sums(curve_mod, aff_xy, order, mags_s.long() - 1,
+                        1 << (c - 1), negs_s)
+
+
+def _window_lanes(sorted_digits, c: int):
+    """Every window's sorted lanes back to back, as a fold takes them:
+    (order, dest, negs) [W B'] and the outputs' count.  Bucket b of window
+    w is output w (half + 1) + b, so no segment crosses a window."""
+    order, mags_s, negs_s = sorted_digits
+    n_win, span = order.shape[0], (1 << (c - 1)) + 1
+    dest = mags_s.long() + span * torch.arange(
+        n_win, device=order.device)[:, None]
+    return (order.reshape(-1), dest.reshape(-1), negs_s.reshape(-1),
+            n_win * span)
+
+
+def _all_window_buckets(curve_mod, aff_xy, sorted_digits, c: int):
+    """Every window's bucket totals from one `segment_sums` over the
+    windows' sorted lanes (`_window_lanes`; a card's path), bucket 0's
+    outputs dropped.  Returns per window the projective points B_1 ..
+    B_half."""
+    n_win, span = sorted_digits[0].shape[0], (1 << (c - 1)) + 1
+    order, dest, negs, n_out = _window_lanes(sorted_digits, c)
+    sums = segment_sums(curve_mod, aff_xy, order, dest, n_out, negs)
+    return [scans.tree_map(lambda t: t.view(t.shape[0], n_win, span)[:, w, 1:],
+                           sums) for w in range(n_win)]
 
 
 def _bucket_sum(curve, buckets, dev):
@@ -139,14 +259,22 @@ def _sort_digits(mags, negs):
 
 def _msm_windows(curve_mod, aff_xy, sorted_digits, c: int):
     """The window loop over sorted signed digits [W, B], MSB first: each
-    window's buckets, then their sum, c doublings and one add."""
+    window's buckets (on a card every window's at once, first), then their
+    sum, c doublings and one add."""
     curve = curve_mod.CURVE
     order, mags_s, negs_s = sorted_digits
     acc = curve.identity((), order.device)
-    for w in reversed(range(order.shape[0])):
+    folded = None
+    if _on_card(order):
         with profiling.span("msm.buckets"):
-            buckets = _window_buckets(curve_mod, aff_xy, order[w], mags_s[w],
-                                      negs_s[w], c)
+            folded = _all_window_buckets(curve_mod, aff_xy, sorted_digits, c)
+    for w in reversed(range(order.shape[0])):
+        if folded is not None:
+            buckets = folded[w]
+        else:
+            with profiling.span("msm.buckets"):
+                buckets = _window_buckets(curve_mod, aff_xy, order[w],
+                                          mags_s[w], negs_s[w], c)
         with profiling.span("msm.window_sum"):
             total = _bucket_sum(curve, buckets, order.device)
             for _ in range(c):

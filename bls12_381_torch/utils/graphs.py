@@ -36,17 +36,22 @@ import threading
 
 import torch
 
-from ..kernels import GRAPHS, LAUNCHES
+from ..kernels import BUCKETS, GRAPHS, LAUNCHES
 from . import profiling, scans
 
 SLOTS = 4  # shapes whose state (graph, or calls seen) is kept
 POOL_SHARE = 1 / 8  # of a card's memory: the most its kept graphs hold
 
 
+def _replayed() -> tuple:
+    """The counters a replay adds as its capture counted them."""
+    return LAUNCHES, BUCKETS
+
+
 class _Graph:
     """One shape's capture: the graph, its static inputs and output, the
-    capture's span template and launch counts, the bytes it holds, its
-    device, and the event after the last read of its output."""
+    capture's span template and counts (`_replayed`'s), the bytes it holds,
+    its device, and the event after the last read of its output."""
     __slots__ = ("graph", "inputs", "output", "spans", "launches", "nbytes",
                  "device", "done", "__weakref__")
 
@@ -118,11 +123,12 @@ def _or_release(fn):
     that failed are taken back."""
     if not _held():
         return fn()
-    before = LAUNCHES.snapshot()
+    before = [c.snapshot() for c in _replayed()]
     try:
         return fn()
     except torch.OutOfMemoryError:
-        LAUNCHES.restore(before)
+        for c, snap in zip(_replayed(), before):
+            c.restore(snap)
     # out of the handler: the failed attempt's tensors are free
     release()
     return fn()
@@ -141,8 +147,8 @@ def releasing(fn):
 
 def _capture(body, inputs, args) -> _Graph:
     """Capture body(*inputs, *args) on static copies of the inputs, its
-    spans as a template; the capture's launches are not counted (a replay
-    counts them)."""
+    spans as a template; the capture's launches and bucket sums are not
+    counted (a replay counts them)."""
     static = scans.tree_map(
         lambda t: t.clone(memory_format=torch.contiguous_format), inputs)
     graph = torch.cuda.CUDAGraph()
@@ -151,13 +157,14 @@ def _capture(body, inputs, args) -> _Graph:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     reserved = torch.cuda.memory_reserved()
-    before = LAUNCHES.snapshot()
+    before = [c.snapshot() for c in _replayed()]
     try:
         with profiling.capturing() as spans, torch.cuda.graph(graph):
             out = body(*static, *args)
     finally:
-        launches = LAUNCHES.since(before)
-        LAUNCHES.restore(before)
+        launches = [c.since(snap) for c, snap in zip(_replayed(), before)]
+        for c, snap in zip(_replayed(), before):
+            c.restore(snap)
     nbytes = torch.cuda.memory_reserved() - reserved + sum(
         t.nbytes for t in scans.tree_leaves(static))
     return _Graph(graph, static, out, spans, launches, nbytes,
@@ -170,7 +177,8 @@ def _replay(name: str, g: _Graph, inputs):
         s.copy_(t)
     with profiling.replaying(name, g.spans):
         g.graph.replay()
-        LAUNCHES.add(g.launches)
+        for c, counts in zip(_replayed(), g.launches):
+            c.add(counts)
     GRAPHS.replays += 1
     # the next replay rewrites the output: the caller holds a copy
     out = scans.tree_map(torch.clone, g.output)

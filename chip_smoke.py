@@ -28,7 +28,9 @@ prints its lines and seconds; a failure exits non-zero):
      operands' strides (`record_rows`) and replayed, on the shapes that
      pick the launch shape the chosen shape beside split = 1 and a 32-lane
      tile; every plan at one lane, a ragged last tile and batch 1024, the
-     group-law plans also at the MSM's widths; `sqr`, `pow_fixed`,
+     group-law plans also at the MSM's widths; the plan kernel's fold mode
+     over an MSM's bucket lanes at 2^20 points and at a blob (its first
+     level, and every level); `sqr`, `pow_fixed`,
      `pow_fixed_fr` and `fp2_pow_fixed` at their paths' exponents and
      widths; the butterfly.  Each row is equal to its plain version (on
      sampled lanes where the plain version cannot run at the width), with
@@ -87,6 +89,7 @@ DOUBLINGS = f"sop_fr twiddle doublings of one ntt at 2^{NTT_LOG_N}"
 PAIRING_FOLDS = f"fold_planned folds of one pairing, batch {BATCH}"
 PAIRING_NORM = f"sop norm of one pairing, batch {BATCH}"
 MSM_LOG_N = {"g1": 16, "g2": 12}   # a 2^16 KZG commitment; 4096 signatures
+FOLD_LOG_N = (20, 12)  # the bucket fold at the MSM cells' 2^20 points, a blob
 PLAN_RAGGED = 1021                 # 255 tiles of 4 lanes and one of 1
 # the widest launches of one default chunk of msm_g1_large (2^21 points,
 # 2^22 GLV lanes): the scans' g1_add at 2^21 lanes (2^22 at chunk 22),
@@ -373,7 +376,8 @@ def phase_build():
     for stem in build.SOURCES:
         for line in build.ptxas_report(stem):
             print(f"[build:{stem}] {line}", flush=True)
-    usage = {"plan_exec": ptxas_usage("plan_exec", "plan_kernel"),
+    usage = {"plan_exec": ptxas_usage("plan_exec", "plan_kernelILb0E"),
+             "plan_exec fold": ptxas_usage("plan_exec", "plan_kernelILb1E"),
              # the power's instances by threads per lane (the launch
              # picks one by the width: mont.pow_threads_per_lane)
              **{f"pow_fixed t{t}": ptxas_usage(
@@ -883,7 +887,7 @@ def phase_kernels(device, usage):
     from bls12_381_torch import entry, limbs, params
     from bls12_381_torch.curves import g1, g2
     from bls12_381_torch.kernels import LAUNCHES, mont, plan_exec as pe
-    from bls12_381_torch.ops import ntt
+    from bls12_381_torch.ops import msm, ntt
     from bls12_381_torch.pairing import gt
 
     P, Q = params.P, params.Q
@@ -1006,6 +1010,64 @@ def phase_kernels(device, usage):
     # widths (the plain version on sampled lanes)
     for B in MSM_LARGE_PLAN_WIDTHS:
         hold_plan(pe.g1_add_plan, B, sampled=True)
+
+    # --- plan_exec's fold mode: the MSM's bucket sums over every window's
+    # GLV lanes (c = 12, 11 windows) at 2^20 points and at a blob's 4096,
+    # the entry's points and scalars: the first level's launch (one mixed
+    # addition a lane) and the whole fold, each = its plain version
+    for log_n in FOLD_LOG_N:
+        pts, sc = entry.msm_inputs(log_n, "g1", seed=SEED, device=device)
+        aff, mags, negs = msm._recode_g1(pts, sc, 12, True)
+        order, dest, negs, n_out = msm._window_lanes(
+            msm._sort_digits(mags, negs), 12)
+        table = pe.pack_words(list(aff))
+        K = dest.shape[0]
+        levels = msm.fold_levels(K)
+        one = msm._identity_mask(g1.CURVE)
+
+        def level1(kernel, order=order, dest=dest, negs=negs, n_out=n_out,
+                   table=table, M=levels[0][1]):
+            plan = pe.compile_plan(pe.g1_add_mixed_plan(), fold=True)
+            totals = torch.stack([r for c in g1.identity((n_out,), device)
+                                  for r in g1.CURVE.f.rows(c)]).contiguous()
+            fold = pe.Fold(table, dest, order, negs, (1, 2), one_mask=one)
+            if kernel:
+                nxt = pe.plan_fold(plan, fold, M, totals)
+                part, content = nxt.src, nxt.content
+            else:
+                part, content = pe.plan_fold_plain(plan, fold, M, totals)
+            return torch.cat([totals.reshape(-1), part.reshape(-1),
+                              content.to(totals.dtype)])
+
+        def whole(kernel, order=order, dest=dest, negs=negs, n_out=n_out,
+                  table=table):
+            # the plain version on the card's tensors: plan_fold's route
+            # read as the CPU's
+            route = pe.device_kind
+            if not kernel:
+                pe.device_kind = lambda x: "cpu"
+            try:
+                sums = msm._fold_sums(g1, table, order, dest, n_out, negs)[0]
+            finally:
+                pe.device_kind = route
+            return torch.cat(sums, -1)
+
+        mixed = pe.compile_plan(pe.g1_add_mixed_plan(), fold=True)
+        full = pe.compile_plan(pe.g1_add_plan(), fold=True)
+        first_bytes = K * (96 + 8 + 8 + 1)
+        chk.hold(f"plan_fold {mixed.name} K={K}", lambda f=level1: f(True),
+                 lambda f=level1: f(False), "plan_exec", 20, 0, first_bytes,
+                 K * sum(sop_imads(t) for t in mixed.sop_terms()),
+                 lanes=K, run_lanes=levels[0][1],
+                 slots=mixed.n_slots, registers=usage["plan_exec fold"][0])
+        later = sum(k for k, _ in levels[1:])
+        chk.hold(f"plan_fold g1 all levels K={K}", lambda f=whole: f(True),
+                 lambda f=whole: f(False), "plan_exec", 10, 0,
+                 first_bytes + later * (144 + 8 + 1),
+                 K * sum(sop_imads(t) for t in mixed.sop_terms())
+                 + later * sum(sop_imads(t) for t in full.sop_terms()),
+                 launches=len(levels), lanes=K, levels=len(levels),
+                 level_lanes=[k for k, _ in levels])
 
     # --- fold_planned: the line scaling's shape (G = 4, T = 1 over 68 x
     # 1024 lanes), a fold of Fp2 products (G = 8, T = 2) and uneven groups

@@ -213,7 +213,8 @@ def expected_ntt_launches(n: int, inverse: bool) -> dict:
             "sop_fr": log_n - 1 + int(inverse)}
 
 
-def expected_msm_launches(group: str, n: int, c: int, split: bool = True):
+def expected_msm_launches(group: str, n: int, c: int, split: bool = True,
+                          fold: bool = False):
     """Kernel launches of one msm over n >= 16 points with window c, from
     the schedule of ops/msm.py: from_mont of the scalars (one sop_fr); the
     z inversions of to_affine (`batch_inv`: two product scans of 2 lg n
@@ -221,10 +222,15 @@ def expected_msm_launches(group: str, n: int, c: int, split: bool = True):
     norm, one sop, and two products, one fold) and its x, y products (one
     fold_planned);
     the GLV split's beta x (one sop) or the GLS split's three psi (one
-    fold of two Fp2 products each); then per window of
-    the signed digits the segmented scan (2 lg m adds over m lanes), the
-    bucket sum (a suffix scan and a halving tree over 2^(c-1) buckets:
-    3 (c - 1) adds), c doublings and one add."""
+    fold of two Fp2 products each); then the bucket sums: per window of
+    the signed digits the segmented scan (2 lg m adds over m lanes), or on
+    a card (fold=True) one fold over every window's lanes, a launch of the
+    plan kernel's fold mode a level (`msm.fold_levels`), the first with
+    the mixed addition's plan; per window the bucket sum (a suffix scan
+    and a halving tree over 2^(c-1) buckets: 3 (c - 1) adds), c doublings
+    and one add."""
+    from bls12_381_torch.ops import msm
+
     def lg(m):
         return (m - 1).bit_length()
 
@@ -232,24 +238,34 @@ def expected_msm_launches(group: str, n: int, c: int, split: bool = True):
     lanes, bits = {("g1", True): (2 * n, 128), ("g2", True): (4 * n, 64)}.get(
         (group, split), (n, 255))
     windows = -(-(bits + 1) // c)
-    adds = windows * (2 * lg(lanes) + 3 * (c - 1) + 1)
+    adds = windows * (3 * (c - 1) + 1)
+    by_plan = collections.Counter({f"{group}_double_plan": windows * c})
+    if fold:
+        levels = len(msm.fold_levels(windows * lanes))
+        by_plan.update({f"{group}_add_mixed_plan[fold]": 1,
+                        f"{group}_add_plan[fold]": levels - 1})
+    else:
+        adds += windows * 2 * lg(lanes)
+    by_plan[f"{group}_add_plan"] += adds
     if group == "g1":
         sops, folds = inv + int(split), 1
     else:
         sops, folds = 1 + inv, 2 + (3 if split else 0)
-    return {**zero_launches(), "sop": sops, "plan_exec": adds + windows * c,
-            "sop_fr": 1, "fold_planned": folds, "pow_fixed": 1,
-            "plan_exec_by_plan": {f"{group}_add_plan": adds,
-                                  f"{group}_double_plan": windows * c}}
+    return {**zero_launches(), "sop": sops,
+            "plan_exec": sum(by_plan.values()), "sop_fr": 1,
+            "fold_planned": folds, "pow_fixed": 1,
+            "plan_exec_by_plan": {k: v for k, v in by_plan.items() if v}}
 
 
-def expected_msm_large_launches(n: int, c: int, chunk_log2: int = 21):
+def expected_msm_large_launches(n: int, c: int, chunk_log2: int = 21,
+                                fold: bool = False):
     """Kernel launches of one msm_g1_large over n >= 16 points with window
-    c: msm_g1's schedule (`expected_msm_launches`) per chunk of
-    2^chunk_log2 points, the last one as long as what is left, and one
-    g1_add at one lane per chunk after the first (the fold)."""
+    c: msm_g1's schedule (`expected_msm_launches`, the fold's with
+    fold=True) per chunk of 2^chunk_log2 points, the last one as long as
+    what is left, and one g1_add at one lane per chunk after the first (the
+    fold of the chunks)."""
     cs = 1 << chunk_log2
-    parts = [expected_msm_launches("g1", min(cs, n - i), c)
+    parts = [expected_msm_launches("g1", min(cs, n - i), c, fold=fold)
              for i in range(0, n, cs)]
     out = {k: sum(p[k] for p in parts) for k in parts[0]
            if k != "plan_exec_by_plan"}
@@ -734,7 +750,8 @@ def oracle_inputs() -> dict:
 
 
 def expected_parallel_launches(kind: str, n: int, mesh_shape: tuple,
-                                window: int = PARALLEL_WINDOW) -> dict:
+                                window: int = PARALLEL_WINDOW,
+                                fold: bool = False) -> dict:
     """Kernel launches of one call of a sharded path on one rank of a mesh
     of `mesh_shape`, from the schedules of parallel/ (n: the global batch,
     points or transform size):
@@ -745,7 +762,8 @@ def expected_parallel_launches(kind: str, n: int, mesh_shape: tuple,
         the shard (ceil(lg b) fp12_mul) and of each axis' gathered values
         (ceil(lg size)); pairing_agg_fe adds one final exponentiation;
       - msm_g1 / msm_g2: the local msm of the shard
-        (`expected_msm_launches`) and size - 1 adds per axis;
+        (`expected_msm_launches`, on a card fold=True) and size - 1 adds
+        per axis;
       - ntt / intt: two local NTTs of lengths n1 and n2 (lg N butterflies,
         lg n1 - 1 + lg n2 - 1 twiddle doublings) and the outer twiddle
         product, the inverse's 1/N scaling: `expected_ntt_launches`'s
@@ -762,7 +780,7 @@ def expected_parallel_launches(kind: str, n: int, mesh_shape: tuple,
         return expected_ntt_launches(n, kind == "intt")
     if kind in ("msm_g1", "msm_g2"):
         group = kind[-2:]
-        want = expected_msm_launches(group, n // ranks, window)
+        want = expected_msm_launches(group, n // ranks, window, fold=fold)
         adds = sum(size - 1 for size in mesh_shape)
         want["plan_exec"] += adds
         want["plan_exec_by_plan"][f"{group}_add_plan"] += adds

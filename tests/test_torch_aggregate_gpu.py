@@ -5,7 +5,7 @@ rows among them; ragged sums by index over a 2^15-key table, a set of
 24,576 keys (an Electra attestation's) and the whole table among them,
 each equal to the host's [sum (i+1)]G1; FastAggregateVerify's verdicts
 equal to the plain reference's for every invalid kind; the spans with
-the scan's launches counted and their stream time read (under
+the fold's launches counted and their stream time read (under
 `emit_nvtx`, so no CUPTI session of this file precedes another file's in
 one process).
 
@@ -24,7 +24,7 @@ from bls12_381_torch import hostmath as hm
 from bls12_381_torch.curves import g1
 from bls12_381_torch.fields import fp
 from bls12_381_torch.kernels import AGGREGATES
-from bls12_381_torch.ops import aggregate
+from bls12_381_torch.ops import aggregate, msm
 from bls12_381_torch.utils import profiling, scans
 from test_torch_aggregate import (DST, affine_ints, compressed,
                                   fast_aggregate_verify, flat, host_keys,
@@ -115,8 +115,8 @@ def test_spans_on_the_card(registry):
     assert [s["name"] for s in spans] == ["agg", "agg.gather", "agg.sum"]
     top, gather, total = spans
     assert gather["parent"] == total["parent"] == top["id"]
-    # the scan's group adds are the port's launches, all inside agg.sum
-    assert total["launches"] > 0 and gather["launches"] == 0
-    assert top["launches"] == total["launches"]
+    # the fold's launches, one a level, are the port's, all in agg.sum
+    assert total["launches"] == len(msm.fold_levels(1601))
+    assert gather["launches"] == 0 and top["launches"] == total["launches"]
     assert all(s["stream_ms"] > 0 for s in spans)
     assert top["stream_ms"] >= total["stream_ms"]

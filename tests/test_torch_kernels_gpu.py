@@ -686,9 +686,12 @@ def test_msm_on_card_matches_cpu(cuda, group, log_n, c, chunks):
     """`entry.msm_entry` (msm_g1_large for G1 at each chunk size, msm_g2):
     the inputs hold the identity exactly at i % 64 == 5 and zero scalars at
     i % 64 == 9; launches = `port_cases.expected_msm_large_launches` /
-    `expected_msm_launches`; the affine point = the host's
-    [sum_i k_i (i+1)]G (`port_cases.msm_host_sum`); up to 2^10 points the
-    card = the CPU path limb for limb and the split = the plain digits."""
+    `expected_msm_launches` with the buckets folded; the affine point = the
+    host's [sum_i k_i (i+1)]G (`port_cases.msm_host_sum`); up to 2^10
+    points the card = the CPU path (the JAX package's order of additions)
+    as affine points and by `eq`, and the split = the plain digits.  The
+    card's fold adds in another order than the CPU's scan, so their
+    projective limbs differ."""
     fn, (pts, sc) = entry.msm_entry(log_n, group, seed=3)
     n = 1 << log_n
     mod = {"g1": g1, "g2": g2}[group]
@@ -700,17 +703,17 @@ def test_msm_on_card_matches_cpu(cuda, group, log_n, c, chunks):
         LAUNCHES.reset()
         if group == "g1":
             got = fn(pts, sc, c, chunk_log2=chunk)
-            schedule = pc.expected_msm_large_launches(n, c, chunk)
+            schedule = pc.expected_msm_large_launches(n, c, chunk, fold=True)
         else:
             got = fn(pts, sc, c)
-            schedule = pc.expected_msm_launches(group, n, c)
+            schedule = pc.expected_msm_launches(group, n, c, fold=True)
         torch.cuda.synchronize()
         assert LAUNCHES.snapshot() == schedule, chunk
         assert pc.affine_ints(group, got) == want, chunk
     if log_n <= 10:
         ref = fn(scans.tree_map(lambda t: t.cpu(), pts), sc.cpu(), c)
-        assert all(torch.equal(a.cpu(), b) for a, b in
-                   zip(scans.tree_leaves(got), scans.tree_leaves(ref)))
+        assert pc.affine_ints(group, ref) == want
+        assert bool(mod.eq(got, scans.tree_map(lambda t: t.to(cuda), ref)))
         assert bool(mod.eq(got, fn(pts, sc, c, False)))
 
 
@@ -1103,7 +1106,8 @@ def test_sharded_paths_on_card(cuda, world):
             n = (1 << int(row.split("_")[1]) if kind in ("ntt", "intt")
                  else 1 << MSM_LOG_N[kind[4:]] if kind.startswith("msm")
                  else pc.BATCH)
-            schedule = pc.expected_parallel_launches(kind, n, mesh_shape)
+            schedule = pc.expected_parallel_launches(kind, n, mesh_shape,
+                                                     fold=True)
             assert {k: got["launches"][k] for k in schedule} == schedule, (
                 rank, row)
             assert got["peak_bytes"] < PEAK_LIMIT_BYTES, (rank, row)

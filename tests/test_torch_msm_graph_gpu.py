@@ -27,7 +27,7 @@ from torch.profiler import ProfilerActivity, profile
 import port_cases
 from bls12_381_torch import entry, hostmath as hm, params
 from bls12_381_torch.curves import g1, g2
-from bls12_381_torch.kernels import GRAPHS, LAUNCHES
+from bls12_381_torch.kernels import BUCKETS, GRAPHS, LAUNCHES
 from bls12_381_torch.ops import msm, ntt
 from bls12_381_torch.utils import graphs, profiling
 
@@ -180,16 +180,21 @@ def test_a_graph_beyond_the_budget_is_not_kept(cuda, monkeypatch):
 @pytest.mark.parametrize("log_n", [12, 20])
 def test_no_fallback_at_the_cells_shapes(cuda, log_n):
     """The benchmark's calls: msm_g1_large at the library's defaults over
-    one blob and over 2^20 points."""
+    one blob and over 2^20 points; a replay counts the launches and the
+    bucket fold (`BUCKETS`: every window's GLV lanes, the fold's levels)
+    that the eager call made."""
     pts, k = entry.msm_inputs(log_n, "g1", device=cuda)
+    lanes = 11 * (2 << log_n)
+    fold = {"fold": 1, "scan": 0, "lanes": lanes,
+            "levels": len(msm.fold_levels(lanes))}
     launches = []
     for i in range(3):
-        before = LAUNCHES.port_total()
+        before, folds = LAUNCHES.port_total(), BUCKETS.snapshot()
         got = msm.msm_g1_large(pts, k)
         launches.append(LAUNCHES.port_total() - before)
+        assert BUCKETS.since(folds) == fold, f"call {i}"
         assert is_host_msm("g1", got, pts, k), f"call {i}"
     assert GRAPHS.snapshot() == counts(1, 2, 1)
-    # a replay counts the launches the eager call made
     assert launches[0] == launches[1] == launches[2] > 0
 
 
@@ -246,20 +251,29 @@ def fill_to_cap(cuda, spare: int) -> list:
                                         device=cuda))
         except torch.OutOfMemoryError:
             pass
-    del held[-(spare >> 21):]
+    # give back exactly `spare`, in 2 MB tensors: a 64 MB one is split into
+    # 2 MB ones first where too few of those were taken
+    while sum(t.numel() == 2 << 20 for t in held) < spare >> 21:
+        big = next(i for i, t in enumerate(held) if t.numel() == 64 << 20)
+        del held[big]
+        held += [torch.empty(2 << 20, dtype=torch.uint8, device=cuda)
+                 for _ in range(32)]
+    for _ in range(spare >> 21):
+        small = max(i for i, t in enumerate(held) if t.numel() == 2 << 20)
+        del held[small]
     return held
 
 
 def test_out_of_memory_drops_the_graphs(cuda):
     """With a 2^20 graph kept and 256 MB free under a cap, an eager call at
-    2^18 (over 512 MB at its peak) runs out of memory, drops the graph and
+    2^19 (over 512 MB at its peak) runs out of memory, drops the graph and
     runs once more; the 2^20 shape captures again at its next call."""
     big, kb = entry.msm_inputs(20, "g1", device=cuda)
     for _ in range(2):
         msm.msm_g1(big, kb, C)
     key = graphs._key(msm._msm_g1, (big, kb), C, True)
     assert isinstance(graphs._graphs[key], graphs._Graph)
-    small, ks = entry.msm_inputs(18, "g1", device=cuda)
+    small, ks = entry.msm_inputs(19, "g1", device=cuda)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
@@ -311,8 +325,9 @@ def device_kernels(prof) -> Counter:
 def test_a_replay_under_the_profiler(cuda):
     """Call 1 (eager) and call 3 (a replay) under torch.profiler: the same
     port kernels on the device, the same launch count; the replay's spans
-    are msm > msm.replay > the 23 stages of c = 12, each inside msm's
-    stream time."""
+    are msm > msm.replay > the 13 stages of c = 12 (the recode, every
+    window's buckets at once, 11 window sums), each inside msm's stream
+    time."""
     pts, k = entry.msm_inputs(12, "g1", device=cuda)
     runs = []
     for i in range(3):
@@ -330,13 +345,13 @@ def test_a_replay_under_the_profiler(cuda):
     (eager_n, eager_k, eager_s), (replay_n, replay_k, spans) = runs
     assert replay_n == eager_n and replay_k == eager_k
     assert sum(replay_k.values()) == replay_n
-    windows = sum(s["name"] == "msm.buckets" for s in eager_s)
-    assert len(spans) == 25 == len(eager_s) + 1 and windows == 11
+    windows = sum(s["name"] == "msm.window_sum" for s in eager_s)
+    assert len(spans) == 15 == len(eager_s) + 1 and windows == 11
     (top,) = [s for s in spans if s["parent"] is None]
     (replay,) = [s for s in spans if s["parent"] == top["id"]]
     assert (top["name"], replay["name"]) == ("msm", "msm.replay")
     assert Counter(s["name"] for s in spans if s["parent"] == replay["id"]) \
-        == {"msm.recode": 1, "msm.buckets": 11, "msm.window_sum": 11}
+        == {"msm.recode": 1, "msm.buckets": 1, "msm.window_sum": 11}
     assert top["launches"] == replay["launches"] == eager_n
     stages = [s for s in spans if s["parent"] == replay["id"]]
     assert sum(s["launches"] for s in stages) == eager_n
