@@ -6,8 +6,10 @@ optimal-ate pairing, the radix-2 NTT over the scalar field, the G1/G2
 group law with Pippenger multi-scalar multiplication, the batched
 scalar multiplications of G1, G2 and Gt with the subgroup checks and
 cofactor clearing, the square roots, point codecs and hash to curve
-that a BLS signer and verifier need, and the sharded MSM, NTT and pairing
-across the ranks of a `torch.distributed` process group.  Same numeric domain and boundary
+that a BLS signer and verifier need, the sharded MSM, NTT and pairing
+across the ranks of a `torch.distributed` process group, and, with no
+JAX counterpart, the validator key registry and PeerDAS's
+`verify_cell_kzg_proof_batch`.  Same numeric domain and boundary
 layout as the JAX
 package: a field element batch is an int32 tensor [L, *batch] of 16-bit
 Montgomery limbs (R = 2^384 for Fp, 2^256 for Fr), so values compare as
@@ -37,9 +39,11 @@ Layers:
   pairing          — G2 preparation, Miller loop, final exponentiation;
                      Gt (gt.py)
   ops              — the NTT over Fr (ntt, intt, poly_mul), the MSM
-                     (msm_g1, msm_g1_large, msm_g2) and the validator key
+                     (msm_g1, msm_g1_large, msm_g2), the validator key
                      registry summed by index (aggregate.KeyRegistry:
-                     register, aggregate; the MSM's segmented sum)
+                     register, aggregate; the MSM's segmented sum) and
+                     PeerDAS cell-proof batch verification
+                     (kzg.verify_cell_kzg_proof_batch over a kzg.Setup)
   hash_to_curve    — hash_to_field, SSWU, the isogenies, hash_to_curve and
                      encode_to_curve for G1 and G2 (draft-16)
   parallel         — meshes of ranks (DeviceMesh), msm_g1/g2_sharded,

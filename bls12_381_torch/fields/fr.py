@@ -5,8 +5,10 @@ the same names: the `limbs` operations bound to the Fr spec, the NTT
 constants (generator 7, S = 32, the 2^32-th root of unity), inversion and
 powers, the fused NTT butterfly (`kernels/mont.py::butterfly`), the
 Tonelli-Shanks square root and the 32-byte little-endian codecs (opposite
-endianness from Fp, scalar.rs:256-296).  Constructors take a `device`
-(the card by default).
+endianness from Fp, scalar.rs:256-296); beyond the JAX package, the
+32-byte big-endian decoder of the KZG specs (`from_bytes_be`) and sums
+of many elements reduced once (`sum_along`, `segment_sum`).  Constructors
+take a `device` (the card by default).
 """
 
 from __future__ import annotations
@@ -186,6 +188,52 @@ def from_bytes_host(data, device="cuda"):
                                  FR.n_limbs)
     ok = (borrow != 0).numpy()
     return limbs.to_mont(FR, canon.to(limbs.resolve_device(device))), ok
+
+
+def from_bytes_be(data, device="cuda"):
+    """uint8 [*batch, 32] big-endian -> ([16, *batch] Montgomery, validity
+    mask: the value is < q), both on the data's device (the KZG specs'
+    `bytes_to_bls_field`, KZG_ENDIANNESS = big).  A tensor stays on its
+    device and nothing is read back to the host; other array-likes go to
+    `device`.  Lanes >= q hold another value, which the caller refuses."""
+    d = _as_bytes(data, device)
+    if d.shape[-1:] != (32,):
+        raise ValueError(f"expected 32-byte field elements, got shape "
+                         f"{tuple(d.shape)}")
+    canon = _bytes_to_limbs_le(d.flip(-1)).contiguous()
+    c64 = canon.long()
+    _, borrow = limbs._sub_limbs(c64, limbs._col(FR.p_limbs, c64),
+                                 FR.n_limbs)
+    return limbs.to_mont(FR, canon), borrow != 0
+
+
+def _reduce_columns(t: torch.Tensor) -> torch.Tensor:
+    """int64 limb columns [16, *batch], each below 2^47, whose value X =
+    sum_i t_i 2^(16 i) is a sum of Montgomery elements -> X mod q as Fr
+    limbs: the carries resolved into 32 limbs (X < 2^289), then
+    `limbs.wide_reduce` (the Montgomery form of X mod q) and `from_mont`."""
+    pad = torch.zeros((2 * FR.n_limbs - t.shape[0],) + t.shape[1:],
+                      dtype=t.dtype, device=t.device)
+    clean = limbs._carry_prop(torch.cat([t, pad]), 2 * FR.n_limbs, 3)
+    clean = clean.to(limbs.DTYPE)
+    return limbs.from_mont(FR, limbs.wide_reduce(FR, clean[:FR.n_limbs],
+                                                 clean[FR.n_limbs:]))
+
+
+def sum_along(a: torch.Tensor, dim: int) -> torch.Tensor:
+    """The sum of an Fr batch [16, *batch] along tensor axis `dim` (>= 1),
+    reduced once: the limbs summed in int64 (exact below 2^31 terms),
+    then `_reduce_columns`.  Nothing is read back to the host."""
+    if dim == 0 or dim == -a.dim():
+        raise ValueError("axis 0 is the limb axis")
+    return _reduce_columns(a.long().sum(dim))
+
+
+def segment_sum(a: torch.Tensor, index: torch.Tensor, n: int):
+    """[16, n]: column i the sum of the columns k of a [16, K] with
+    index[k] == i (int64 [K], each < n), reduced once as `sum_along`."""
+    t = torch.zeros((FR.n_limbs, n), dtype=torch.int64, device=a.device)
+    return _reduce_columns(t.index_add_(1, index, a.long()))
 
 
 def from_bytes_wide_host(data, device="cuda"):

@@ -15,7 +15,7 @@ graph adds the counts its capture recorded (`utils/graphs.py`), so the
 counts stay those of the launches the card ran.  `GRAPHS` counts what
 those graphs did, `AGGREGATES` the key sums of `ops/aggregate.py`,
 `BUCKETS` the bucket sums of `ops/msm.py` (replays add them as they add
-launches).
+launches), `CELLS` the cell-proof batches of `ops/kzg.py`.
 """
 
 from __future__ import annotations
@@ -154,3 +154,22 @@ class BucketCounts(_Counts):
 
 
 BUCKETS = BucketCounts()
+
+
+@dataclasses.dataclass
+class CellCounts(_Counts):
+    """What `ops/kzg.py` `verify_cell_kzg_proof_batch` did, on either
+    device: calls, the cells they were given, the commitments left after
+    deduplication, and the batches refused at decoding (a length, index,
+    point or field element the spec refuses), refused by the pairing
+    check, and accepted.  It counts on the host, outside every graph's
+    body, so a replay adds nothing to it."""
+    calls: int = 0
+    cells: int = 0
+    commitments: int = 0
+    refused_decode: int = 0
+    refused_pairing: int = 0
+    accepted: int = 0
+
+
+CELLS = CellCounts()

@@ -6,5 +6,6 @@ from .pairing import (  # noqa: F401
     multi_miller_loop,
     pairing,
     pairing_batched,
+    pairing_check,
     prepare_g2,
 )

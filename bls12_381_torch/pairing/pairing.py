@@ -276,6 +276,28 @@ def _pairing(p_aff, q_aff):
         return final_exponentiation(f)
 
 
+@profiling.spanned("pairing")
+@graphs.releasing
+def pairing_check(p_aff, prep: G2Prepared):
+    """Whether prod_i e(P_i, Q_i) = 1 over the last batch axis, for affine
+    G1 points and prepared G2 points of one batch shape: one multi-Miller
+    loop and one final exponentiation (a device bool [*batch[:-1]]).  The
+    G2 side is prepared once by the caller (`prepare_g2`), as a verifier
+    with a fixed setup does.  On the card a CUDA graph per shape replays
+    it, as `pairing` does (span `pairing.replay`)."""
+    return graphs.graphed("pairing.replay", _pairing_check,
+                          (p_aff, prep.coeffs, prep.infinity))
+
+
+def _pairing_check(p_aff, coeffs, infinity):
+    with profiling.span("pairing.miller"):
+        f = multi_miller_loop(p_aff, G2Prepared(coeffs, infinity))
+    with profiling.span("pairing.final_exp"):
+        f = final_exponentiation(f)
+    return tw.fp12_eq(f, tw.fp12_one(f[0][0][0].shape[1:],
+                                     f[0][0][0].device))
+
+
 def pairing_batched(p_aff, q_aff):
     """The JAX package's alias of `pairing` for its batch semantics:
     element-wise e(P_i, Q_i)."""

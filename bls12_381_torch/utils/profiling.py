@@ -30,6 +30,7 @@ Usage:
 
     with profiling.span("pairing.final_exp"):   # in the program
         ...
+    profiling.host_span("kzg.challenge", t0, t1)   # timed on a thread
     profiling.spans()   # [{"name", "id", "parent", "start_ns", "end_ns",
                         #   "launches", "stream_ms"}], oldest first
 """
@@ -239,6 +240,28 @@ def replaying(name: str, captured: Captured):
         yield
         if outer is not None:
             captured.emit(outer)
+
+
+def host_span(name: str, start_ns: int, end_ns: int) -> None:
+    """Record, while a torch.profiler session is active, a span that
+    another thread timed on the host (`time.time_ns` stamps) as a closed
+    child of this thread's innermost open span: no launches (the other
+    thread launched nothing) and no stream time (`stream_ms` None, so a
+    reader takes its host time)."""
+    global _dropped
+    if not _autograd_profiler._is_profiler_enabled:
+        return
+    s = _Span(name)
+    stack = _stack()
+    s.parent = stack[-1] if stack else None
+    s.start_ns, s.end_ns = start_ns, end_ns
+    s.launches_in = s.launches_out = 0
+    with _lock:
+        if len(_spans) >= MAX_SPANS:
+            _dropped += 1
+            return
+        s.id = next(_ids)
+        _spans.append(s)
 
 
 def spanned(name: str):
